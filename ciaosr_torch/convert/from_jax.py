@@ -1,0 +1,108 @@
+"""JAX (flax) param tree → the port's reference-layout state_dict.
+
+Inverts each step of ciaosr_tpu/convert/torch_weights.py::convert_generator
+(for the RDN generator): Dense (in, out) → Linear (out, in); HWIO → OIHW;
+the PReLU scalar → a (1,) weight; ``rdb_i/layers_j`` → ``rdbs.i.layers.j
+.conv``; ``gff_0/1`` → ``gff.0/1``; ``cs_attn/*_conv``/``*_prelu``/``down``
+→ ``cs_attn.*.0``/``.1``/``down``; and the tap-major → channel-major
+permutation of the imnet unfold blocks. Input: nested dicts of arrays
+(optionally under a top-level "params" key). Output: a dict of f32 CPU
+tensors for ``CiaoSRNet.load_state_dict(strict=True)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ciaosr_torch.ops.neighborhood import tap_major_perm
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(p: dict, key: str, sd: dict) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _linear(p: dict, key: str, sd: dict, in_perm=None, out_perm=None):
+    w = np.asarray(p["kernel"], np.float32).T          # (out, in) ours
+    b = np.asarray(p["bias"], np.float32)
+    if in_perm is not None:
+        w_t = np.empty_like(w)
+        w_t[:, in_perm] = w
+        w = w_t
+    if out_perm is not None:
+        w_t, b_t = np.empty_like(w), np.empty_like(b)
+        w_t[out_perm] = w
+        b_t[out_perm] = b
+        w, b = w_t, b_t
+    sd[f"{key}.weight"] = _t(w)
+    sd[f"{key}.bias"] = _t(b)
+
+
+def _mlp(p: dict, prefix: str, n_hidden: int, sd: dict, in_perm=None,
+         out_perm=None) -> None:
+    for i in range(n_hidden):
+        _linear(p[f"layers_{i}"], f"{prefix}.layers.{2 * i}", sd,
+                in_perm=in_perm if i == 0 else None)
+    _linear(p["out"], f"{prefix}.layers.{2 * n_hidden}", sd,
+            in_perm=in_perm if n_hidden == 0 else None, out_perm=out_perm)
+
+
+def rdn_state_dict_from_jax(enc: dict) -> dict:
+    """The RDN encoder subtree → ``sfe1``/``rdbs.*``/``gff.*`` keys."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(enc["sfe1"], "sfe1", sd)
+    _conv(enc["sfe2"], "sfe2", sd)
+    n_rdb = len([k for k in enc if k.startswith("rdb_")])
+    for i in range(n_rdb):
+        blk = enc[f"rdb_{i}"]
+        n_layers = len([k for k in blk if k.startswith("layers_")])
+        for j in range(n_layers):
+            _conv(blk[f"layers_{j}"], f"rdbs.{i}.layers.{j}.conv", sd)
+        _conv(blk["lff"], f"rdbs.{i}.lff", sd)
+    _conv(enc["gff_0"], "gff.0", sd)
+    _conv(enc["gff_1"], "gff.1", sd)
+    return sd
+
+
+def state_dict_from_jax(params: dict, *, feat_dim: int, n_hidden: int = 4,
+                        multi_scale=(2,)) -> dict:
+    """Flax params of a LocalImplicitSRRDN generator (feat_unfold and
+    non-local attention on) → reference-layout state_dict."""
+    p = params.get("params", params)
+    c = feat_dim
+    base = 9 * c
+    nla = c * len(multi_scale)
+    perm = tap_major_perm(c)
+
+    def block_perm(extra: int) -> np.ndarray:
+        return np.concatenate([perm, base + np.arange(extra)])
+
+    sd = rdn_state_dict_from_jax(p["encoder"])
+    _mlp(p["imnet_q"], "imnet_q", n_hidden, sd, in_perm=block_perm(nla))
+    _mlp(p["imnet_k"], "imnet_k", n_hidden, sd, in_perm=block_perm(4),
+         out_perm=perm)
+    _mlp(p["imnet_v"], "imnet_v", n_hidden, sd, in_perm=block_perm(nla + 4),
+         out_perm=block_perm(nla))
+
+    for k, v in csa_state_dict_from_jax(p["cs_attn"], multi_scale).items():
+        sd[f"cs_attn.{k}"] = v
+    return sd
+
+
+def csa_state_dict_from_jax(cs: dict, scales=(2,)) -> dict:
+    """The cs_attn subtree → CrossScaleAttention keys (no prefix)."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("conv_match_1", "conv_match_2", "conv_assembly"):
+        _conv(cs[f"{name}_conv"], f"{name}.0", sd)
+        sd[f"{name}.1.weight"] = _t(
+            np.asarray(cs[f"{name}_prelu"]["negative_slope"]).reshape(1))
+    for s in scales:
+        name = "down" if s == 2 else f"downx{s}"
+        _conv(cs[name], name, sd)
+    return sd

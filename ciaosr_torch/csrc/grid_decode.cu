@@ -1,0 +1,438 @@
+// K3 grid_decode: the integer-scale dense-grid decoder.
+//
+// Replaces ciaosr_tpu/ops/pallas/decoder_kernel.py::_grid_decode_halo
+// (kernel _decode_kernel_halo, integer mode, entered from
+// grid_decode_fused). For each LR pixel p, HR phase ph (s^2 of them) and
+// local-ensemble shift i (4), with (dy, dx) = the shift's constant offset
+// for this phase and q = the edge-clamped pixel p + (dy, dx):
+//   h_k = MLP_k hidden layers of relu(g_k[q] + rely*w_ry + relx*w_rx + b0)
+//   logit_i = wt_{dy,dx}[p] . h_k + ck_{dy,dx}[p]
+//   h_v = MLP_v hidden layers of relu(g_v[q] + rel terms + b0)
+//   pred_i = [u[q] | csa[q]] (.) (h_v @ W_vout + b_vout)        (640 wide)
+// then softmax_i(logit_i / softmax_scale), outv = sum_i attn_i pred_i, and
+// rgb = imnet_q(outv). Output: (B, s^2, H, W, 3) f32 phase images before
+// the bilinear residual. b0 has the cell terms folded in (host side).
+//
+// Casts follow the TPU kernel so the result stays within bf16 tolerance
+// of the f32 plain version: h is rounded to bf16 before every matmul,
+// h_k stays f32 for the logit, pred is rounded to bf16 before the blend
+// (decoder_kernel.py:930-933), the blend and the softmax are f32.
+//
+// Bound on the H100: 2*s^2*M*(4*(3*256^2 + 3*256^2 + 256*640 + 256)
+// + 640*256 + 3*256^2 + 256*3) = 3.05 TFLOP at s = 4, M = 192*192: 3.1 ms
+// at the bf16 dense peak; it is compute-bound (the gathered inputs are
+// L2-resident and the output is 7 MB).
+// Design: a block decodes 32 pixels of one phase. Like the TPU kernel, it
+// stacks the 4 shifts along the rows, so every k/v MLP layer is one
+// 128 x 256 x 256 product: each weight tile is fetched once per 128 rows.
+// Weight tiles (32 k-rows x 256) are staged in shared memory with
+// cp.async, double-buffered, and shared by the 8 warps; each warp keeps a
+// 64 x 64 f32 accumulator tile in registers (wmma bf16, f32 accumulate),
+// so a layer's output overwrites its input in place. All four k-paths
+// run first, so the four logits (and the softmax) are known before any
+// value is blended; the v-paths then add attn_i * pred_i into an f32
+// 32 x 640 accumulator in shared memory (80 KB). u is rebuilt from the
+// raw feature (3x3 taps at q) where the value modulation needs it, so the
+// 9C unfold never exists in memory. Any H and W; up to 9 shifts, taken
+// 4 at a time.
+#include "common.cuh"
+
+namespace {
+
+constexpr int C = 64;
+constexpr int DC = 64;
+constexpr int HID = 256;
+constexpr int DK = 9 * C;        // 576
+constexpr int DV = DK + DC;      // 640
+constexpr int PIX = 32;          // pixels per block
+constexpr int SG = 4;            // shifts stacked per product
+constexpr int ROWS = PIX * SG;   // 128 rows per k/v product
+constexpr int MAX_SHIFT = 9;
+constexpr int LDA = HID + 8;     // 264: activation row stride (128 rows)
+constexpr int LDQ = DV + 16;     // 656: imnet_q input row stride (32 rows)
+constexpr int KC = 32;           // k-rows per staged weight tile
+constexpr int LDW = HID + 8;     // 264
+constexpr int THREADS = 256;
+
+constexpr int OFF_W = ROWS * LDA * 2;               // act: 67584 B
+constexpr int OFF_OUTV = OFF_W + 2 * KC * LDW * 2;  // weight ring: 33792 B
+constexpr int OFF_SCR = OFF_OUTV + PIX * DV * 4;    // outv: 81920 B
+constexpr int OFF_PART = OFF_SCR + 8 * 256 * 4;     // warp scratch: 8 KB
+constexpr int OFF_LOG = OFF_PART + ROWS * 4 * 4;    // logit partials: 2 KB
+constexpr int SMEM = OFF_LOG + 2 * MAX_SHIFT * PIX * 4;
+static_assert(PIX * LDQ * 2 <= OFF_W, "imnet_q input must fit in act");
+
+struct Params {
+  const bf16 *feat, *csa, *gk, *gv, *wt;
+  const float* ck;
+  const bf16 *kw, *vw, *vout, *qw0, *qw;   // bf16 (in x out); kw/vw/qw (3,256,256)
+  const float *kb, *vb, *vbout, *qb0, *qb;  // f32 biases
+  const float *krel, *kb0, *vrel, *vb0;     // first-layer rel rows, bias
+  const float *qwout, *qbout;               // (3, 256) and (3,)
+  const int *dys, *dxs;                     // (n_phase, n_shift)
+  const float *rely, *relx;                 // (n_phase, n_shift, H / W)
+  float* out;
+  int H, W, M, n_phase, n_shift;
+  float inv_softmax_scale;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// k-rows [k0, k0 + KC) x columns [n0, n0 + ncols) of w into a ring slot
+__device__ __forceinline__ void stage_w(const bf16* w, int ldw, int k0,
+                                        int n0, int ncols, bf16* dst) {
+  const int vpr = ncols / 8;
+  for (int idx = threadIdx.x; idx < KC * vpr; idx += THREADS) {
+    const int r = idx / vpr, v = idx % vpr;
+    cp_async16(dst + r * LDW + v * 8, w + (size_t)(k0 + r) * ldw + n0 + v * 8);
+  }
+}
+
+// acc = act[rows x K] @ w[K x ldw][:, n0 : n0 + ncols]. Warp w owns the
+// RF x CF fragment tile at row (w / WC) * 16RF, column (w % WC) * 16CF of
+// the pass; warps whose columns lie past ncols idle (but keep the
+// barriers). Ends with a barrier: act may be overwritten afterwards.
+template <int RF, int CF, int WC>
+__device__ void gemm(const bf16* act, int lda, int K, const bf16* w, int ldw,
+                     int n0, int ncols, bf16* ring, FragC (&acc)[RF][CF]) {
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp / WC) * RF * 16, col0 = (warp % WC) * CF * 16;
+  const bool active = col0 < ncols;
+#pragma unroll
+  for (int i = 0; i < RF; ++i)
+#pragma unroll
+    for (int j = 0; j < CF; ++j) wm::fill_fragment(acc[i][j], 0.f);
+  const int nch = K / KC;
+  stage_w(w, ldw, 0, n0, ncols, ring);
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch)
+      stage_w(w, ldw, (c + 1) * KC, n0, ncols, ring + ((c + 1) & 1) * KC * LDW);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    if (active) {
+      const bf16* wb = ring + (c & 1) * KC * LDW;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        FragB fb[CF];
+#pragma unroll
+        for (int j = 0; j < CF; ++j)
+          wm::load_matrix_sync(fb[j], wb + kk * LDW + col0 + 16 * j, LDW);
+#pragma unroll
+        for (int i = 0; i < RF; ++i) {
+          FragA fa;
+          wm::load_matrix_sync(fa, act + (row0 + 16 * i) * lda + c * KC + kk,
+                               lda);
+#pragma unroll
+          for (int j = 0; j < CF; ++j) wm::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// act[:, cols] = bf16(relu(acc + bias)), in place of the product's input
+template <int RF, int CF, int WC>
+__device__ void epi_hidden(FragC (&acc)[RF][CF], float* scr,
+                           const float* bias, bf16* act, int lda) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (warp / WC) * RF * 16, col0 = (warp % WC) * CF * 16;
+  float* ws = scr + warp * 256;
+  const int r = lane >> 1, c = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < RF; ++i)
+#pragma unroll
+    for (int j = 0; j < CF; ++j) {
+      wm::store_matrix_sync(ws, acc[i][j], 16, wm::mem_row_major);
+      __syncwarp();
+      const int col = col0 + 16 * j + c;
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = f2bf(fmaxf(ws[r * 16 + c + e] + bias[col + e], 0.f));
+      st8(act + (row0 + 16 * i + r) * lda + col, *reinterpret_cast<uint4*>(v));
+      __syncwarp();
+    }
+}
+
+__global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* act = reinterpret_cast<bf16*>(smem);
+  bf16* ring = reinterpret_cast<bf16*>(smem + OFF_W);
+  float* outv = reinterpret_cast<float*>(smem + OFF_OUTV);
+  float* scr = reinterpret_cast<float*>(smem + OFF_SCR);
+  float* part = reinterpret_cast<float*>(smem + OFF_PART);  // [ROWS][4]
+  float* logit = reinterpret_cast<float*>(smem + OFF_LOG);  // [shift][PIX]
+  float* attn = logit + MAX_SHIFT * PIX;
+  __shared__ int row_p[PIX], row_b[PIX], row_y[PIX], row_x[PIX];
+  __shared__ int r_q[ROWS], r_qy[ROWS], r_qx[ROWS], r_ps[ROWS];
+  __shared__ size_t r_wt[ROWS];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p0 = blockIdx.x * PIX;
+  const int ph = blockIdx.y;
+  const int H = P.H, W = P.W, M = P.M, NS = P.n_shift;
+  FragC acc[4][4];
+
+  if (tid < PIX) {
+    const int p = p0 + tid;
+    const bool ok = p < M;
+    row_p[tid] = ok ? p : -1;
+    row_x[tid] = ok ? p % W : 0;
+    row_y[tid] = ok ? (p / W) % H : 0;
+    row_b[tid] = ok ? p / (W * H) : 0;
+  }
+  __syncthreads();
+
+  // rows of a shift group: row = si * PIX + pixel, shift g0 + si
+  auto setup_rows = [&](int g0) {
+    if (tid < ROWS) {
+      const int si = tid / PIX, pix = tid % PIX, s = g0 + si;
+      const bool ok = s < NS && row_p[pix] >= 0;
+      const int ps = ph * NS + (s < NS ? s : 0);
+      const int dy = P.dys[ps], dx = P.dxs[ps];
+      const int qy = clampi(row_y[pix] + dy, 0, H - 1);
+      const int qx = clampi(row_x[pix] + dx, 0, W - 1);
+      r_q[tid] = ok ? (row_b[pix] * H + qy) * W + qx : -1;
+      r_qy[tid] = qy;
+      r_qx[tid] = qx;
+      r_ps[tid] = ps;
+      // row of the wt plane (and of ck) for this shift at pixel p
+      r_wt[tid] = ((size_t)((dy + 1) * 3 + (dx + 1)) * M +
+                   (ok ? row_p[pix] : 0)) * HID;
+    }
+    __syncthreads();
+  };
+  // relu(g[q] + rely*w_ry + relx*w_rx + b0) -> act (bf16)
+  auto first_layer = [&](const bf16* g, const float* rel, const float* b0) {
+    for (int idx = tid; idx < ROWS * HID; idx += THREADS) {
+      const int r = idx / HID, j = idx % HID, pix = r % PIX;
+      float v = 0.f;
+      if (r_q[r] >= 0) {
+        const float ry = P.rely[(size_t)r_ps[r] * H + row_y[pix]];
+        const float rx = P.relx[(size_t)r_ps[r] * W + row_x[pix]];
+        v = fmaxf(bf2f(g[(size_t)r_q[r] * HID + j]) + ry * rel[j] +
+                      rx * rel[HID + j] + b0[j], 0.f);
+      }
+      act[r * LDA + j] = f2bf(v);
+    }
+    __syncthreads();
+  };
+  auto hidden = [&](const bf16* w, const float* b, int n_layers) {
+    for (int l = 0; l < n_layers; ++l) {
+      gemm<4, 4, 4>(act, LDA, HID, w + (size_t)l * HID * HID, HID, 0, HID,
+                    ring, acc);
+      epi_hidden<4, 4, 4>(acc, scr, b + l * HID, act, LDA);
+      __syncthreads();
+    }
+  };
+
+  // ---- k-paths: one logit per (pixel, shift)
+  for (int g0 = 0; g0 < NS; g0 += SG) {
+    setup_rows(g0);
+    first_layer(P.gk, P.krel, P.kb0);
+    hidden(P.kw, P.kb, 2);
+    gemm<4, 4, 4>(act, LDA, HID, P.kw + (size_t)2 * HID * HID, HID, 0, HID,
+                  ring, acc);
+    {  // last hidden layer: h_k stays f32; partial wt . h_k per 64 columns
+      const int row0 = (warp / 4) * 64, col0 = (warp % 4) * 64;
+      float* ws = scr + warp * 256;
+      const int r = lane >> 1, c = (lane & 1) * 8;
+      const float* bias = P.kb + 2 * HID;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + 16 * i + r;
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wm::store_matrix_sync(ws, acc[i][j], 16, wm::mem_row_major);
+          __syncwarp();
+          if (r_q[row] >= 0) {
+            const int col = col0 + 16 * j + c;
+            __align__(16) bf16 wv[8];
+            *reinterpret_cast<uint4*>(wv) = ld8(P.wt + r_wt[row] + col);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              s += fmaxf(ws[r * 16 + c + e] + bias[col + e], 0.f) * bf2f(wv[e]);
+          }
+          __syncwarp();
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        if ((lane & 1) == 0) part[row * 4 + warp % 4] = s;
+      }
+    }
+    __syncthreads();
+    if (tid < ROWS) {
+      const int si = tid / PIX, pix = tid % PIX;
+      if (g0 + si < NS) {
+        float v = 0.f;
+        if (r_q[tid] >= 0)  // ck is (9, M): its index is r_wt's row
+          v = part[tid * 4] + part[tid * 4 + 1] + part[tid * 4 + 2] +
+              part[tid * 4 + 3] + P.ck[r_wt[tid] / HID];
+        logit[(g0 + si) * PIX + pix] = v;
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- softmax over the shifts
+  if (tid < PIX) {
+    float mx = -INFINITY;
+    for (int i = 0; i < NS; ++i)
+      mx = fmaxf(mx, logit[i * PIX + tid] * P.inv_softmax_scale);
+    float den = 0.f;
+    for (int i = 0; i < NS; ++i) {
+      const float e = __expf(logit[i * PIX + tid] * P.inv_softmax_scale - mx);
+      attn[i * PIX + tid] = e;
+      den += e;
+    }
+    for (int i = 0; i < NS; ++i) attn[i * PIX + tid] /= den;
+  }
+  for (int idx = tid; idx < PIX * DV; idx += THREADS) outv[idx] = 0.f;
+  __syncthreads();
+
+  // ---- v-paths: outv += attn_i * bf16([u | csa] (.) wv_i)
+  for (int g0 = 0; g0 < NS; g0 += SG) {
+    setup_rows(g0);
+    first_layer(P.gv, P.vrel, P.vb0);
+    hidden(P.vw, P.vb, 3);
+    for (int n0 = 0; n0 < DV; n0 += HID) {
+      const int nc = min(HID, DV - n0);
+      gemm<4, 4, 4>(act, LDA, HID, P.vout, DV, n0, nc, ring, acc);
+      const int wr = warp / 4, row0 = wr * 64, col0 = (warp % 4) * 64;
+      float* ws = scr + warp * 256;
+      const int r = lane >> 1, c = (lane & 1) * 8;
+      // the two row halves (shifts 0-1, 2-3) add into the same outv
+      // entries: one half after the other keeps the sum order fixed
+      for (int half = 0; half < 2; ++half) {
+        if (half == wr && col0 < nc) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              wm::store_matrix_sync(ws, acc[i][j], 16, wm::mem_row_major);
+              __syncwarp();
+              const int row = row0 + 16 * i + r, pix = row % PIX;
+              const int jg = n0 + col0 + 16 * j + c;
+              if (r_q[row] >= 0) {
+                __align__(16) bf16 xv[8];
+                *reinterpret_cast<uint4*>(xv) = zero8();
+                if (jg < DK) {
+                  const int t = jg / C;
+                  const int yy = r_qy[row] + t / 3 - 1, xx = r_qx[row] + t % 3 - 1;
+                  if (yy >= 0 && yy < H && xx >= 0 && xx < W)
+                    *reinterpret_cast<uint4*>(xv) = ld8(
+                        P.feat + ((size_t)(row_b[pix] * H + yy) * W + xx) * C +
+                        jg % C);
+                } else {
+                  *reinterpret_cast<uint4*>(xv) =
+                      ld8(P.csa + (size_t)r_q[row] * DC + (jg - DK));
+                }
+                const float a = attn[(g0 + row / PIX) * PIX + pix];
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                  outv[pix * DV + jg + e] +=
+                      a * bfround(bf2f(xv[e]) * (ws[r * 16 + c + e] + P.vbout[jg + e]));
+              }
+              __syncwarp();
+            }
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // ---- imnet_q: 640 -> 256, three 256 -> 256 hidden layers, 256 -> 3
+  for (int idx = tid; idx < PIX * DV; idx += THREADS)
+    act[(idx / DV) * LDQ + idx % DV] = f2bf(outv[idx]);
+  __syncthreads();
+  FragC accq[2][2];
+  gemm<2, 2, 8>(act, LDQ, DV, P.qw0, HID, 0, HID, ring, accq);
+  epi_hidden<2, 2, 8>(accq, scr, P.qb0, act, LDA);
+  __syncthreads();
+  for (int l = 0; l < 3; ++l) {
+    gemm<2, 2, 8>(act, LDA, HID, P.qw + (size_t)l * HID * HID, HID, 0, HID,
+                  ring, accq);
+    epi_hidden<2, 2, 8>(accq, scr, P.qb + l * HID, act, LDA);
+    __syncthreads();
+  }
+  for (int rr = 0; rr < PIX / 8; ++rr) {
+    const int r = warp * (PIX / 8) + rr;
+    float s[3] = {0.f, 0.f, 0.f};
+    for (int j = lane; j < HID; j += 32) {
+      const float h = bf2f(act[r * LDA + j]);
+#pragma unroll
+      for (int o = 0; o < 3; ++o) s[o] += h * P.qwout[o * HID + j];
+    }
+#pragma unroll
+    for (int o = 0; o < 3; ++o) s[o] = warp_sum(s[o]);
+    if (lane == 0 && row_p[r] >= 0) {
+      float* dst = P.out + ((((size_t)row_b[r] * P.n_phase + ph) * H +
+                             row_y[r]) * W + row_x[r]) * 3;
+#pragma unroll
+      for (int o = 0; o < 3; ++o) dst[o] = s[o] + P.qbout[o];
+    }
+  }
+}
+
+}  // namespace
+
+// ptrs: feat, csa, gk, gv, wt, ck, kw, vw, vout, qw0, qw, kb, vb, vbout,
+// qb0, qb, krel, kb0, vrel, vb0, qwout, qbout, dys, dxs, rely, relx, out
+extern "C" int grid_decode(void* const* ptrs, int B, int H, int W,
+                           int n_phase, int n_shift, float softmax_scale,
+                           void* stream) {
+  static cudaError_t attr = allow_smem(decode_kernel, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  if (n_shift < 1 || n_shift > MAX_SHIFT) return (int)cudaErrorInvalidValue;
+  Params P;
+  int k = 0;
+  P.feat = (const bf16*)ptrs[k++];
+  P.csa = (const bf16*)ptrs[k++];
+  P.gk = (const bf16*)ptrs[k++];
+  P.gv = (const bf16*)ptrs[k++];
+  P.wt = (const bf16*)ptrs[k++];
+  P.ck = (const float*)ptrs[k++];
+  P.kw = (const bf16*)ptrs[k++];
+  P.vw = (const bf16*)ptrs[k++];
+  P.vout = (const bf16*)ptrs[k++];
+  P.qw0 = (const bf16*)ptrs[k++];
+  P.qw = (const bf16*)ptrs[k++];
+  P.kb = (const float*)ptrs[k++];
+  P.vb = (const float*)ptrs[k++];
+  P.vbout = (const float*)ptrs[k++];
+  P.qb0 = (const float*)ptrs[k++];
+  P.qb = (const float*)ptrs[k++];
+  P.krel = (const float*)ptrs[k++];
+  P.kb0 = (const float*)ptrs[k++];
+  P.vrel = (const float*)ptrs[k++];
+  P.vb0 = (const float*)ptrs[k++];
+  P.qwout = (const float*)ptrs[k++];
+  P.qbout = (const float*)ptrs[k++];
+  P.dys = (const int*)ptrs[k++];
+  P.dxs = (const int*)ptrs[k++];
+  P.rely = (const float*)ptrs[k++];
+  P.relx = (const float*)ptrs[k++];
+  P.out = (float*)ptrs[k++];
+  P.H = H;
+  P.W = W;
+  P.M = B * H * W;
+  P.n_phase = n_phase;
+  P.n_shift = n_shift;
+  P.inv_softmax_scale = 1.f / softmax_scale;
+  dim3 grid((P.M + PIX - 1) / PIX, n_phase);
+  decode_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}

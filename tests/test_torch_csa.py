@@ -1,0 +1,54 @@
+"""Port cross-scale attention (plain K4 middle) vs the JAX package's XLA
+path (flash=False, the _stencil_reconstruct form), f32."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ciaosr_torch.convert.from_jax import csa_state_dict_from_jax
+from ciaosr_torch.models.csa import CrossScaleAttention
+from ciaosr_torch.ops.kernels.csa_stencil import csa_stencil
+from ciaosr_tpu.models.csa import CrossScaleAttention as JaxCSA
+from ciaosr_tpu.models.csa import _stencil_reconstruct
+from ciaosr_tpu.ops.neighborhood import extract_patches_same
+from tests.test_torch_weights import seeded_params
+
+
+@pytest.mark.parametrize("hw", [(16, 16), (15, 17)], ids=["aligned",
+                                                          "reflect_pad"])
+def test_csa_matches_jax(rng, hw):
+    c = 16
+    x = rng.standard_normal((2, *hw, c)).astype(np.float32)
+    jcsa = JaxCSA(channels=c)
+    params = seeded_params(jcsa, 3, jnp.asarray(x))
+    ref = np.asarray(jax.jit(jcsa.apply)(params, jnp.asarray(x)))
+    csa = CrossScaleAttention(channels=c)
+    csa.load_state_dict(csa_state_dict_from_jax(params["params"]),
+                        strict=True)
+    with torch.no_grad():
+        plain = csa(torch.from_numpy(x)).numpy()
+        routed = csa(torch.from_numpy(x), use_kernel=True).numpy()
+    assert plain.shape == ref.shape == (2, *hw, c)
+    np.testing.assert_allclose(plain, ref, atol=1e-5, rtol=0)
+    # on CPU tensors the kernel wrapper is the plain version
+    np.testing.assert_array_equal(routed, plain)
+
+
+@pytest.mark.parametrize("b,hp,wp,s", [(2, 12, 16, 2), (1, 9, 6, 3)])
+def test_plain_k4_matches_stencil_reconstruct(rng, b, hp, wp, s):
+    c, cr, scale = 5, 3, 10.0
+    match = rng.standard_normal((b, hp, wp, cr)).astype(np.float32)
+    keys = rng.standard_normal((b, (hp // s) * (wp // s), 9 * cr))
+    keys = (keys / np.linalg.norm(keys, axis=-1, keepdims=True)).astype(
+        np.float32)
+    embed = rng.standard_normal((b, hp, wp, c)).astype(np.float32)
+    x_nb = extract_patches_same(jnp.asarray(match), 3, 1)
+    attn = jax.nn.softmax(
+        jnp.einsum("bpk,blk->bpl", x_nb, jnp.asarray(keys)) * scale, -1)
+    ref = np.asarray(_stencil_reconstruct(attn, jnp.asarray(embed), hp, wp,
+                                          s, c))
+    got = csa_stencil(torch.from_numpy(match), torch.from_numpy(keys),
+                      torch.from_numpy(embed), scale, s).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
