@@ -70,9 +70,14 @@ struct Params {
   const float *krel, *kb0, *vrel, *vb0;     // first-layer rel rows, bias
   const float *qwout, *qbout;               // (3, 256) and (3,)
   const int *dys, *dxs;                     // (n_phase, n_shift)
-  const float *rely, *relx;                 // (n_phase, n_shift, H / W)
+  // rational: (py, OH) and (px, OW) query, (py, n_shift, OH) and
+  // (px, n_shift, OW) key indices
+  const int *yq, *yk, *xq, *xk;
+  // integer: (n_phase, n_shift, H / W); rational: (py / px, n_shift, OH / OW)
+  const float *rely, *relx;
   float* out;
   int H, W, M, n_phase, n_shift;
+  int OH, OW, MO, px;  // phase image rows, columns, pixels; phase columns
   float inv_softmax_scale;
 };
 
@@ -167,6 +172,9 @@ __device__ void epi_hidden(FragC (&acc)[RF][CF], float* scr,
     }
 }
 
+// RAT = false: integer scale, key = clamp(p + (dy, dx)) with per-phase
+// offsets; RAT = true: rational scale, query and key from the tables.
+template <bool RAT>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);
@@ -179,20 +187,28 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
   __shared__ int row_p[PIX], row_b[PIX], row_y[PIX], row_x[PIX];
   __shared__ int r_q[ROWS], r_qy[ROWS], r_qx[ROWS], r_ps[ROWS];
   __shared__ size_t r_wt[ROWS];
+  __shared__ int row_q[PIX];             // rational: LR query pixel
+  __shared__ float r_ry[ROWS], r_rx[ROWS];  // rational: rel of each row
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int p0 = blockIdx.x * PIX;
   const int ph = blockIdx.y;
   const int H = P.H, W = P.W, M = P.M, NS = P.n_shift;
+  // output pixels p enumerate (b, row, col) of one phase image
+  const int OH = RAT ? P.OH : H, OW = RAT ? P.OW : W, MO = RAT ? P.MO : M;
+  const int pa = RAT ? ph / P.px : 0, pb = RAT ? ph % P.px : 0;
   FragC acc[4][4];
 
   if (tid < PIX) {
     const int p = p0 + tid;
-    const bool ok = p < M;
+    const bool ok = p < MO;
     row_p[tid] = ok ? p : -1;
-    row_x[tid] = ok ? p % W : 0;
-    row_y[tid] = ok ? (p / W) % H : 0;
-    row_b[tid] = ok ? p / (W * H) : 0;
+    row_x[tid] = ok ? p % OW : 0;
+    row_y[tid] = ok ? (p / OW) % OH : 0;
+    row_b[tid] = ok ? p / (OW * OH) : 0;
+    if (RAT)
+      row_q[tid] = (row_b[tid] * H + P.yq[pa * OH + row_y[tid]]) * W +
+                   P.xq[pb * OW + row_x[tid]];
   }
   __syncthreads();
 
@@ -202,16 +218,31 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
       const int si = tid / PIX, pix = tid % PIX, s = g0 + si;
       const bool ok = s < NS && row_p[pix] >= 0;
       const int ps = ph * NS + (s < NS ? s : 0);
-      const int dy = P.dys[ps], dx = P.dxs[ps];
-      const int qy = clampi(row_y[pix] + dy, 0, H - 1);
-      const int qx = clampi(row_x[pix] + dx, 0, W - 1);
+      int dy, dx, qy, qx, query;
+      if (RAT) {  // key and query pixels from the tables; d = key - query
+        const int sy = (pa * NS + (s < NS ? s : 0)) * OH + row_y[pix];
+        const int sx = (pb * NS + (s < NS ? s : 0)) * OW + row_x[pix];
+        qy = P.yk[sy];
+        qx = P.xk[sx];
+        dy = qy - P.yq[pa * OH + row_y[pix]];
+        dx = qx - P.xq[pb * OW + row_x[pix]];
+        query = row_q[pix];
+        r_ry[tid] = P.rely[sy];
+        r_rx[tid] = P.relx[sx];
+      } else {
+        dy = P.dys[ps];
+        dx = P.dxs[ps];
+        qy = clampi(row_y[pix] + dy, 0, H - 1);
+        qx = clampi(row_x[pix] + dx, 0, W - 1);
+        query = row_p[pix];
+      }
       r_q[tid] = ok ? (row_b[pix] * H + qy) * W + qx : -1;
       r_qy[tid] = qy;
       r_qx[tid] = qx;
       r_ps[tid] = ps;
-      // row of the wt plane (and of ck) for this shift at pixel p
+      // row of the wt plane (and of ck) for this shift at the query pixel
       r_wt[tid] = ((size_t)((dy + 1) * 3 + (dx + 1)) * M +
-                   (ok ? row_p[pix] : 0)) * HID;
+                   (ok ? query : 0)) * HID;
     }
     __syncthreads();
   };
@@ -221,8 +252,10 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
       const int r = idx / HID, j = idx % HID, pix = r % PIX;
       float v = 0.f;
       if (r_q[r] >= 0) {
-        const float ry = P.rely[(size_t)r_ps[r] * H + row_y[pix]];
-        const float rx = P.relx[(size_t)r_ps[r] * W + row_x[pix]];
+        const float ry =
+            RAT ? r_ry[r] : P.rely[(size_t)r_ps[r] * H + row_y[pix]];
+        const float rx =
+            RAT ? r_rx[r] : P.relx[(size_t)r_ps[r] * W + row_x[pix]];
         v = fmaxf(bf2f(g[(size_t)r_q[r] * HID + j]) + ry * rel[j] +
                       rx * rel[HID + j] + b0[j], 0.f);
       }
@@ -379,25 +412,20 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
 #pragma unroll
     for (int o = 0; o < 3; ++o) s[o] = warp_sum(s[o]);
     if (lane == 0 && row_p[r] >= 0) {
-      float* dst = P.out + ((((size_t)row_b[r] * P.n_phase + ph) * H +
-                             row_y[r]) * W + row_x[r]) * 3;
+      float* dst = P.out + ((((size_t)row_b[r] * P.n_phase + ph) * OH +
+                             row_y[r]) * OW + row_x[r]) * 3;
 #pragma unroll
       for (int o = 0; o < 3; ++o) dst[o] = s[o] + P.qbout[o];
     }
   }
 }
 
-}  // namespace
-
-// ptrs: feat, csa, gk, gv, wt, ck, kw, vw, vout, qw0, qw, kb, vb, vbout,
-// qb0, qb, krel, kb0, vrel, vb0, qwout, qbout, dys, dxs, rely, relx, out
-extern "C" int grid_decode(void* const* ptrs, int B, int H, int W,
-                           int n_phase, int n_shift, float softmax_scale,
-                           void* stream) {
-  static cudaError_t attr = allow_smem(decode_kernel, SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  if (n_shift < 1 || n_shift > MAX_SHIFT) return (int)cudaErrorInvalidValue;
-  Params P;
+// the 22 pointers both entry points take first: feat, csa, gk, gv, wt, ck,
+// kw, vw, vout, qw0, qw, kb, vb, vbout, qb0, qb, krel, kb0, vrel, vb0,
+// qwout, qbout
+Params common_params(void* const* ptrs, int B, int H, int W, int n_phase,
+                     int n_shift, float softmax_scale) {
+  Params P = {};
   int k = 0;
   P.feat = (const bf16*)ptrs[k++];
   P.csa = (const bf16*)ptrs[k++];
@@ -421,18 +449,62 @@ extern "C" int grid_decode(void* const* ptrs, int B, int H, int W,
   P.vb0 = (const float*)ptrs[k++];
   P.qwout = (const float*)ptrs[k++];
   P.qbout = (const float*)ptrs[k++];
-  P.dys = (const int*)ptrs[k++];
-  P.dxs = (const int*)ptrs[k++];
-  P.rely = (const float*)ptrs[k++];
-  P.relx = (const float*)ptrs[k++];
-  P.out = (float*)ptrs[k++];
   P.H = H;
   P.W = W;
   P.M = B * H * W;
   P.n_phase = n_phase;
   P.n_shift = n_shift;
   P.inv_softmax_scale = 1.f / softmax_scale;
+  return P;
+}
+
+}  // namespace
+
+// ptrs: the 22 common pointers, then dys, dxs, rely, relx, out
+extern "C" int grid_decode(void* const* ptrs, int B, int H, int W,
+                           int n_phase, int n_shift, float softmax_scale,
+                           void* stream) {
+  static cudaError_t attr = allow_smem(decode_kernel<false>, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  if (n_shift < 1 || n_shift > MAX_SHIFT) return (int)cudaErrorInvalidValue;
+  Params P = common_params(ptrs, B, H, W, n_phase, n_shift, softmax_scale);
+  P.dys = (const int*)ptrs[22];
+  P.dxs = (const int*)ptrs[23];
+  P.rely = (const float*)ptrs[24];
+  P.relx = (const float*)ptrs[25];
+  P.out = (float*)ptrs[26];
+  P.OH = H;
+  P.OW = W;
+  P.MO = P.M;
   dim3 grid((P.M + PIX - 1) / PIX, n_phase);
-  decode_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(P);
+  decode_kernel<false><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: the 22 common pointers, then yq, yk, xq, xk, rely, relx, out.
+// Phases p = a * px + b, n_phase = py * px; out (B, n_phase, OH, OW, 3).
+extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
+                                    int OH, int OW, int py, int px,
+                                    int n_shift, float softmax_scale,
+                                    void* stream) {
+  static cudaError_t attr = allow_smem(decode_kernel<true>, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  if (n_shift < 1 || n_shift > MAX_SHIFT || py < 1 || px < 1 ||
+      py * px > 65535)
+    return (int)cudaErrorInvalidValue;
+  Params P = common_params(ptrs, B, H, W, py * px, n_shift, softmax_scale);
+  P.yq = (const int*)ptrs[22];
+  P.yk = (const int*)ptrs[23];
+  P.xq = (const int*)ptrs[24];
+  P.xk = (const int*)ptrs[25];
+  P.rely = (const float*)ptrs[26];
+  P.relx = (const float*)ptrs[27];
+  P.out = (float*)ptrs[28];
+  P.OH = OH;
+  P.OW = OW;
+  P.MO = B * OH * OW;
+  P.px = px;
+  dim3 grid((P.MO + PIX - 1) / PIX, py * px);
+  decode_kernel<true><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }

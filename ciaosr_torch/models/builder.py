@@ -68,8 +68,6 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
         if not cfg.pop(knob, True):
             raise NotImplementedError(
                 f"{knob}=False is not ported yet: ROADMAP.md queue 1 item 4")
-    # query chunking of the per-query decoder, which is not ported yet
-    cfg.pop("eval_bsize", None)
     encoder = RDN(**enc_cfg)
     imnet_q = cfg.pop("imnet_q", None)
     imnet_k = cfg.pop("imnet_k", None)
@@ -84,6 +82,7 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
         local_size=cfg.pop("local_size", 2),
         multi_scale=tuple(cfg.pop("multi_scale", (2,))),
         softmax_scale=cfg.pop("softmax_scale", 1.0),
+        eval_bsize=cfg.pop("eval_bsize", None),
         dtype=resolve_dtype(cfg.pop("dtype", None)),
         use_kernels=cfg.pop("use_kernels", False),
     )

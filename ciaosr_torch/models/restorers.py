@@ -1,10 +1,9 @@
-"""Eval restorer around CiaoSRNet: normalization, dense-grid prediction,
-overlap-average tiling and the metric protocol.
+"""Eval restorer around CiaoSRNet: normalization, dense-grid prediction
+at integer and rational scales, the per-query fallback, overlap-average
+tiling and the metric protocol.
 
-Counterpart of ciaosr_tpu/models/restorers.py::CiaoSRRestorer for integer
-scales. Rational scales and the per-query chunked path are not ported yet
-(ROADMAP.md queue 1 items 5 and 7). The module holds its weights; there
-is no params argument.
+Counterpart of ciaosr_tpu/models/restorers.py::CiaoSRRestorer (eval). The
+module holds its weights; there is no params argument.
 """
 
 from __future__ import annotations
@@ -16,19 +15,31 @@ import numpy as np
 import torch
 
 from ciaosr_torch.core.color import tensor2img
+from ciaosr_torch.core.coords import make_coord_cell
 from ciaosr_torch.core.metrics import psnr, ssim
 from ciaosr_torch.models.builder import build_generator
 
-_RATIONAL = ("rational scales are not ported yet: ROADMAP.md queue 1 "
-             "item 7")
+# phase-count ceilings of the dense rational decode: the plain route
+# loops over the phases in Python (JAX's XLA ceiling); the kernel grids
+# over them, so its ceiling only bounds the host tables
+_MAX_GRID_PHASES = 128
+_MAX_KERNEL_PHASES = 4096
 
 
-def _int_scale(scale) -> int:
-    f = Fraction(scale).limit_denominator(64) if isinstance(scale, float) \
-        else Fraction(scale)
-    if f.denominator != 1 or f < 1:
-        raise NotImplementedError(f"scale {scale}: {_RATIONAL}")
-    return int(f)
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def as_scale_fraction(s) -> Fraction:
+    """A user-facing scale (int, float, str '7/3', Fraction) as an exact
+    Fraction. A float is snapped to the nearest rational with denominator
+    ≤ 64 only when that lies within 1e-9 of it, so ``2.5`` and ``7/3`` (a
+    Python float) become 5/2 and 7/3, and any other float stays exact."""
+    if isinstance(s, (Fraction, int, str)):
+        return Fraction(s)
+    f = Fraction(s)
+    snap = f.limit_denominator(64)
+    return snap if abs(float(snap) - float(f)) < 1e-9 else f
 
 
 class CiaoSRRestorer:
@@ -47,6 +58,7 @@ class CiaoSRRestorer:
         self.rgb_std = torch.tensor(rgb_std, dtype=torch.float32,
                                     device=self.device)
         self.test_cfg = test_cfg or {}
+        self.eval_bsize = self.generator.eval_bsize
 
     # ----------------------------------------------------------- forward --
     def normalize(self, img: torch.Tensor) -> torch.Tensor:
@@ -56,15 +68,16 @@ class CiaoSRRestorer:
         return rgb * self.rgb_std + self.rgb_mean
 
     @torch.inference_mode()
-    def _decode(self, lq_tiles: torch.Tensor, scale: int) -> torch.Tensor:
-        """Denormalized dense-grid decode, NOT clamped."""
-        img = self.generator.decode_grid(self.normalize(lq_tiles), scale)
+    def _decode(self, lq_tiles: torch.Tensor, sy, sx=None) -> torch.Tensor:
+        """Denormalized dense-grid decode at sy × sx, NOT clamped."""
+        img = self.generator.decode_grid(self.normalize(lq_tiles), sy, sx)
         return self.denormalize(img)
 
     def grid_predict(self, lq_tiles: torch.Tensor, scale) -> torch.Tensor:
-        """(N, h, w, 3) LR tiles in [0, 1] on the device → (N, s·h, s·w, 3)
-        clamped to [0, 1] (JAX ``_grid_fn``)."""
-        return torch.clamp(self._decode(lq_tiles, _int_scale(scale)),
+        """(N, h, w, 3) LR tiles in [0, 1] on the device → (N, h·s, w·s, 3)
+        clamped to [0, 1] (JAX ``_grid_fn`` / ``_grid_rational_fn``); a
+        rational scale p/q needs q | h and q | w."""
+        return torch.clamp(self._decode(lq_tiles, as_scale_fraction(scale)),
                            0.0, 1.0)
 
     def _to_device(self, lq: np.ndarray) -> torch.Tensor:
@@ -72,51 +85,100 @@ class CiaoSRRestorer:
                                device=self.device)
 
     def predict(self, lq: np.ndarray, target_shape) -> np.ndarray:
-        """Full-image SR to an integer multiple of the LR size:
-        lq (H, W, 3) → (th, tw, 3)."""
+        """Full-image arbitrary-scale SR: lq (H, W, 3) in [0, 1] →
+        (th, tw, 3). Integer multiples take the integer dense decode;
+        rational targets whose phase count py·px the route can grid take
+        the rational dense decode; everything else the chunked per-query
+        decode (``eval_bsize`` queries per chunk)."""
         th, tw = target_shape
         h, w = lq.shape[:2]
-        if th % h or tw % w or th // h != tw // w or th < h:
-            raise NotImplementedError(
-                f"target {th}x{tw} from {h}x{w} is not an integer scale: "
-                f"{_RATIONAL} (per-query decode: ROADMAP.md queue 1 item 5)")
-        out = self.grid_predict(self._to_device(lq)[None], th // h)
-        return out[0].cpu().numpy()
+        sy, sx = Fraction(th, h), Fraction(tw, w)
+        limit = _MAX_KERNEL_PHASES if self.generator.use_kernels \
+            else _MAX_GRID_PHASES
+        if sy >= 1 and sx >= 1 and (
+                sy == sx and sy.denominator == 1
+                or sy.numerator * sx.numerator <= limit):
+            out = torch.clamp(self._decode(self._to_device(lq)[None], sy, sx),
+                              0.0, 1.0)
+            return out[0].cpu().numpy()
+        return self._predict_queries(lq, th, tw)
+
+    @torch.inference_mode()
+    def _predict_queries(self, lq: np.ndarray, th: int,
+                         tw: int) -> np.ndarray:
+        """Per-query decode of the th × tw grid in chunks of eval_bsize
+        queries; the last chunk is padded with coord 0 / cell 0.5. The
+        features and CSA are computed once for all chunks."""
+        gen = self.generator
+        q = th * tw
+        chunk = min(self.eval_bsize or q, q)
+        q_pad = _ceil_to(q, chunk)
+        coord, cell = make_coord_cell((th, tw), device=self.device)
+        if q_pad > q:
+            coord = torch.cat([coord, coord.new_zeros(q_pad - q, 2)])
+            cell = torch.cat([cell, cell.new_full((q_pad - q, 2), 0.5)])
+        x = self.normalize(self._to_device(lq)[None])
+        feature = gen.gen_feature(x)
+        nl = gen.nl_feature(feature, use_kernel=gen.use_kernels)
+        preds = [gen.query_rgb(feature, x, coord[None, i:i + chunk],
+                               cell[None, i:i + chunk], nl)
+                 for i in range(0, q_pad, chunk)]
+        pred = torch.clamp(self.denormalize(torch.cat(preds, 1)), 0.0, 1.0)
+        return pred[0, :q].reshape(th, tw, 3).cpu().numpy()
 
     @torch.inference_mode()
     def predict_tiled(self, lq: np.ndarray, scale, tile: int,
                       tile_overlap: int = 32) -> np.ndarray:
-        """Overlap-average tiling with fixed (tile, tile) LR tiles; the
-        tile outputs are averaged on the device and clamped once, after
-        the average (a per-tile clamp would disagree wherever a prediction
-        leaves [0, 1] under one tile but not its neighbour)."""
-        s = _int_scale(scale)
+        """Overlap-average tiling with fixed (tile, tile) LR tiles at scale
+        p/q. For q > 1 the image is reflect-padded to a multiple of q, the
+        tile size and starts snap down to multiples of q (so every HR tile
+        position hi·p/q is whole), and the output is cropped to
+        round(h·p/q) × round(w·p/q). The tile outputs are averaged on the
+        device and clamped once, after the average (a per-tile clamp would
+        disagree wherever a prediction leaves [0, 1] under one tile but
+        not its neighbour)."""
+        scale = as_scale_fraction(scale)
+        p, q = scale.numerator, scale.denominator
         h, w = lq.shape[:2]
-        tile = min(tile, h, w)
-        stride = max(tile - tile_overlap, 1)
+        th, tw = round(h * p / q), round(w * p / q)
+        if q > 1 and (h % q or w % q):
+            hp, wp = _ceil_to(h, q), _ceil_to(w, q)
+            lq = np.pad(lq, ((0, hp - h), (0, wp - w), (0, 0)),
+                        mode="reflect")
+            h, w = hp, wp
+        tile = min(tile, h, w) // q * q
+        if tile <= 0:
+            raise ValueError(f"tile too small for scale {p}/{q}")
+        stride = max(tile - tile_overlap, q) // q * q
         hs = sorted(set(list(range(0, h - tile, stride)) + [h - tile]))
         ws = sorted(set(list(range(0, w - tile, stride)) + [w - tile]))
+        out_t = tile * p // q
         lq_t = self._to_device(lq)
-        acc = torch.zeros(h * s, w * s, 3, device=self.device)
-        cnt = torch.zeros(h * s, w * s, 1, device=self.device)
+        acc = torch.zeros(h * p // q, w * p // q, 3, device=self.device)
+        cnt = torch.zeros(h * p // q, w * p // q, 1, device=self.device)
         for hi in hs:
             for wi in ws:
-                out = self._decode(lq_t[None, hi:hi + tile, wi:wi + tile], s)
-                acc[hi * s:(hi + tile) * s, wi * s:(wi + tile) * s] += out[0]
-                cnt[hi * s:(hi + tile) * s, wi * s:(wi + tile) * s] += 1.0
-        return torch.clamp(acc / cnt, 0.0, 1.0).cpu().numpy()
+                out = self._decode(lq_t[None, hi:hi + tile, wi:wi + tile],
+                                   scale)
+                y0, x0 = hi * p // q, wi * p // q
+                acc[y0:y0 + out_t, x0:x0 + out_t] += out[0]
+                cnt[y0:y0 + out_t, x0:x0 + out_t] += 1.0
+        out = torch.clamp(acc / cnt, 0.0, 1.0).cpu().numpy()
+        return out[:th, :tw]
 
     def forward_test(self, lq: np.ndarray, target_shape=None,
                      scale=None) -> np.ndarray:
-        """Tiled when test_cfg.tile is set, otherwise full-image."""
+        """Tiled when test_cfg.tile is set, otherwise full-image; scales
+        may be int, float, str ('7/3') or Fraction."""
         cfg = self.test_cfg
         scale = scale if scale is not None else cfg.get("scale")
         if cfg.get("tile"):
-            return self.predict_tiled(lq, scale, int(cfg["tile"]),
+            return self.predict_tiled(lq, as_scale_fraction(scale),
+                                      int(cfg["tile"]),
                                       int(cfg.get("tile_overlap", 32)))
         if target_shape is None:
-            s = _int_scale(scale)
-            target_shape = (lq.shape[0] * s, lq.shape[1] * s)
+            s = float(as_scale_fraction(scale))
+            target_shape = (round(lq.shape[0] * s), round(lq.shape[1] * s))
         return self.predict(lq, target_shape)
 
     def evaluate(self, output: np.ndarray, gt: np.ndarray) -> dict:

@@ -9,7 +9,8 @@ every count to 0.
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"f3p_build": 0, "wt_hoist": 0,
-                            "grid_decode": 0, "csa_stencil": 0}
+                            "grid_decode": 0, "csa_stencil": 0,
+                            "grid_decode_rational": 0}
 
 
 def reset_launches() -> None:

@@ -1,12 +1,15 @@
-"""K1-K3: the integer-scale dense-grid decode chain — wrappers, plain
-versions and host tables.
+"""K1-K3: the dense-grid decode chain — wrappers, plain versions and host
+tables.
 
 Counterparts in ciaosr_tpu/ops/pallas/decoder_kernel.py:
   f3p_build   ← _build_f3p (K1, csrc/f3p_build.cu)
   wt_hoist    ← _wt_hoist_planes (K2, csrc/wt_hoist.cu)
   grid_decode ← _grid_decode_halo, integer mode (K3, csrc/grid_decode.cu)
+  grid_decode_rational ← grid_decode_fused_rational, the rational mode of
+                _grid_decode_halo (csrc/grid_decode.cu, the same kernel
+                reading per-row index tables)
 plus host copies of _phase_tables, _split_first_layer/_pack_weights and
-models/ciaosr.py::shift_offsets.
+models/ciaosr.py::shift_offsets / _grid_axis_tables.
 
 Weights enter packed (``pack_decoder``): tap-major unfold blocks, (in, out)
 matrices in the compute dtype, f32 biases, the cell terms folded into the
@@ -18,6 +21,7 @@ rebuild it from the raw feature.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -79,13 +83,15 @@ def phase_tables(s: int, h: int, w: int, shifts):
 
 
 def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
-                 c: int, scale: int, dtype: torch.dtype) -> dict:
+                 c: int, cell: Sequence[float], dtype: torch.dtype) -> dict:
     """Decoder weights in kernel layout from the reference-layout MLPs.
 
     The MLPs' unfold blocks are channel-major (c·9 + tap); the packed ones
     are tap-major (tap·C + c). Matrices are (in, out) in ``dtype``;
     biases, rel rows and the out layers feeding f32 dot products are f32
-    (rounded through ``dtype`` where the kernel multiplies them as such)."""
+    (rounded through ``dtype`` where the kernel multiplies them as such).
+    ``cell`` = (cell_y·H, cell_x·W), folded into the first-layer biases:
+    (2/s, 2/s) at integer scale s."""
     dk = 9 * c
     perm = torch.as_tensor(tap_major_perm(c))
     lk, lv, lq = imnet_k.linears, imnet_v.linears, imnet_q.linears
@@ -93,7 +99,7 @@ def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
         raise ValueError("imnet_k/v/q need the same depth")
     dv = lv[0].in_features - 4
     vperm = torch.cat([perm, torch.arange(dk, dv)])
-    cell = 2.0 / scale
+    cell_y, cell_x = cell
 
     def mat(w):  # torch (out, in) weight → (in, out) in dtype
         return w.t().contiguous().to(dtype)
@@ -103,9 +109,13 @@ def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
 
     def first(lin, cols, main):
         w = lin.weight.detach()
+        if cell_y == cell_x:   # the JAX integer route's sum order
+            cterm = cell_y * (w[:, main + 2] + w[:, main + 3])
+        else:
+            cterm = cell_y * w[:, main + 2] + cell_x * w[:, main + 3]
         return (mat(w[:, cols]),
                 f32(torch.stack([w[:, main], w[:, main + 1]])),
-                f32(lin.bias + cell * (w[:, main + 2] + w[:, main + 3])))
+                f32(lin.bias + cterm))
 
     wk0, krel, kb0 = first(lk[0], perm, dk)
     wv0, vrel, vb0 = first(lv[0], vperm, dv)
@@ -139,6 +149,75 @@ def decoder_tables(scale: int, h: int, w: int, local_size: int,
     return {k: torch.as_tensor(v, device=device)
             for k, v in (("dys", dys), ("dxs", dxs), ("rely", rely),
                          ("relx", relx))}
+
+
+def rational_tables(h: int, w: int, py: int, qy: int, px: int, qx: int,
+                    local_size: int, device) -> dict:
+    """Per-axis index and rel tables of a rational dense decode at
+    py/qy × px/qx, from ``grid_axis_tables``. Phase (a, b) is an
+    (H/qy) × (W/qx) image whose pixel (k, j) reads the query pixel
+    (yq[a, k], xq[b, j]) and, for shift i, the key pixel
+    (yk[a, i, k], xk[b, i, j]) with rel (yrel[a, i, k], xrel[b, i, j]).
+    The tables are separable, so per axis: yq (py, H/qy), yk / yrel
+    (py, S, H/qy), and likewise for x. Raises unless every key is within
+    one pixel of its query (d = key − query ∈ {−1, 0, 1}², the nine wt
+    planes of K2)."""
+    if h % qy or w % qx:
+        raise ValueError(f"rational decode needs qy | H and qx | W; got "
+                         f"H={h} qy={qy}, W={w} qx={qx}")
+    shifts = shift_offsets(local_size)
+    out = {}
+    for ax, n, p, q, col in (("y", h, py, qy, 0), ("x", w, px, qx, 1)):
+        tab = grid_axis_tables(n, n * p // q, p, local_size)
+        signs = [int(np.sign(sh[col])) for sh in shifts]
+        iq = np.stack(tab["q"]).astype(np.int32)                  # (p, n/q)
+        ik = np.stack([np.stack(tab[sg][0]) for sg in signs], 1)  # (p, S, n/q)
+        rel = np.stack([np.stack(tab[sg][1]) for sg in signs], 1)
+        d = ik - iq[:, None]
+        if np.abs(d).max(initial=0) > 1:
+            raise ValueError(f"rational decode {py}/{qy} x {px}/{qx} at "
+                             f"{h}x{w}: a key lies {np.abs(d).max()} pixels "
+                             f"from its query on axis {ax}")
+        out[ax + "q"] = torch.as_tensor(iq, device=device)
+        out[ax + "k"] = torch.as_tensor(ik.astype(np.int32), device=device)
+        out[ax + "rel"] = torch.as_tensor(rel.astype(np.float32),
+                                          device=device)
+    return out
+
+
+def grid_axis_tables(n: int, tn: int, p: int, local_size: int) -> dict:
+    """Host index / rel tables of one axis of a dense decode at rational
+    scale tn/n = p/q (lowest terms): a copy of the JAX package's
+    models/ciaosr.py::_grid_axis_tables, bit-exact.
+
+    It repeats the per-query path's float32 arithmetic op by op
+    (make_coord → shift → clip → nearest_index), then slices the length-tn
+    vectors into p phase views of length n/q: HR centres can fall on (or
+    within an ulp of) an LR nearest-neighbour tie, where any other order of
+    operations rounds the other way. Returns {"q": idx} for the unshifted
+    query and {sign: (idx, rel)} per shift sign: idx lists of p int64
+    vectors (LR index per phase row, border-clamped), rel lists of p
+    float64 vectors ((coord_q − coord_k)·n)."""
+    f32 = np.float32
+    i = np.arange(tn, dtype=np.float32)
+    c0 = f32(-1.0) + (f32(2.0) * i + f32(1.0)) / f32(tn)
+    cell0 = f32(2.0) / f32(tn)
+    r = (f32(1.0) - cell0) / f32(n - 1) if n > 1 else f32(0.0)
+    lo, hi = f32(-1 + 1e-6), f32(1 - 1e-6)
+
+    def near(c):
+        ix = ((c + f32(1.0)) * f32(n) - f32(1.0)) / f32(2.0)
+        return np.clip(np.round(ix).astype(np.int64), 0, n - 1)
+
+    signs = {1: (0,), 2: (-1, 1)}.get(local_size, (-1, 0, 1))
+    c0_64 = c0.astype(np.float64)
+    out = {"q": [near(c0)[a::p] for a in range(p)]}
+    for s in signs:
+        cc = c0 if s == 0 else (c0 + f32(s) * r) + f32(1e-6)
+        m = near(np.clip(cc, lo, hi))
+        rel = (c0_64 - (-1.0 + (2.0 * m + 1.0) / n)) * n
+        out[s] = ([m[a::p] for a in range(p)], [rel[a::p] for a in range(p)])
+    return out
 
 
 # ------------------------------------------------------------------ K1 --
@@ -252,12 +331,18 @@ def grid_decode_plain(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
             x = torch.cat([shift_edge(u, dy, dx), shift_edge(csa, dy, dx)],
                           -1)
             preds.append(x * (hv @ pk["vout"].to(dt) + pk["vbout"].to(dt)))
-        attn = torch.softmax(torch.stack(logits, -1) / softmax_scale, -1)
-        outv = sum(attn[..., i:i + 1] * preds[i] for i in range(len(preds)))
-        hq = torch.relu(outv @ pk["qw0"].to(dt) + pk["qb0"].to(dt))
-        hq = _mlp_hidden(hq, pk["qw"].to(dt), pk["qb"].to(dt))
-        out.append(hq @ pk["qwout"].to(dt).t() + pk["qbout"].to(dt))
+        out.append(_blend_q(logits, preds, pk, softmax_scale))
     return torch.stack(out, 1)
+
+
+def _blend_q(logits, preds, pk: dict, softmax_scale: float):
+    """Softmax over the shifts, the value blend, then imnet_q → RGB."""
+    dt = preds[0].dtype
+    attn = torch.softmax(torch.stack(logits, -1) / softmax_scale, -1)
+    outv = sum(attn[..., i:i + 1] * preds[i] for i in range(len(preds)))
+    hq = torch.relu(outv @ pk["qw0"].to(dt) + pk["qb0"].to(dt))
+    hq = _mlp_hidden(hq, pk["qw"].to(dt), pk["qb"].to(dt))
+    return hq @ pk["qwout"].to(dt).t() + pk["qbout"].to(dt)
 
 
 _DECODE_ORDER = ("kw", "vw", "vout", "qw0", "qw", "kb", "vb", "vbout",
@@ -265,15 +350,10 @@ _DECODE_ORDER = ("kw", "vw", "vout", "qw0", "qw", "kb", "vb", "vbout",
                  "qbout")
 
 
-def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
-                softmax_scale: float):
-    """K3 on CUDA tensors, the plain version on CPU tensors. Returns the
-    (B, s², H, W, 3) f32 phase images before the bilinear residual."""
-    if feature.device.type == "cpu":
-        return grid_decode_plain(feature, csa, gk, gv, wt, ck, pk, tabs,
-                                 softmax_scale)
+def _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk: dict) -> None:
+    """Raise unless the decode kernel's LR inputs and packed weights have
+    the widths, dtypes and layout it is compiled for."""
     b, h, w, _ = feature.shape
-    n_phase, n_shift = tabs["dys"].shape
     if pk["kw"].shape[0] != N_HIDDEN - 1 or pk["qw"].shape[0] != N_HIDDEN - 1:
         raise ValueError(f"grid_decode kernel is built for {N_HIDDEN} "
                          "hidden layers")
@@ -294,6 +374,19 @@ def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
               "qwout": ((3, HID), f), "qbout": ((3,), f)}
     for k in _DECODE_ORDER:
         _build.check_tensor(pk[k], shapes[k][0], k, shapes[k][1])
+
+
+def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
+                softmax_scale: float):
+    """K3 on CUDA tensors, the plain version on CPU tensors. Returns the
+    (B, s², H, W, 3) f32 phase images before the bilinear residual."""
+    if feature.device.type == "cpu":
+        return grid_decode_plain(feature, csa, gk, gv, wt, ck, pk, tabs,
+                                 softmax_scale)
+    b, h, w, _ = feature.shape
+    n_phase, n_shift = tabs["dys"].shape
+    _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk)
+    f = torch.float32
     _build.check_tensor(tabs["dys"], (n_phase, n_shift), "dys", torch.int32)
     _build.check_tensor(tabs["dxs"], (n_phase, n_shift), "dxs", torch.int32)
     _build.check_tensor(tabs["rely"], (n_phase, n_shift, h), "rely", f)
@@ -312,4 +405,94 @@ def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
              float(softmax_scale), _build.stream_ptr(feature.device))
     kernels.LAUNCHES["grid_decode"] += 1
     _build.check(err, "grid_decode")
+    return out
+
+
+# ------------------------------------------------------ K3, rational --
+
+def take2(t, iy, ix):
+    """t (B, H, W, ·) read at rows iy and columns ix (outer product)."""
+    return t[:, iy][:, :, ix]
+
+
+def rational_phases(tabs: dict):
+    """Walk the phases of a rational decode in output order (a·px + b):
+    per phase, the query rows and columns and, per shift, the key rows,
+    key columns, rel rows and rel columns, all from ``rational_tables``."""
+    yq, yk, yrel = tabs["yq"].long(), tabs["yk"].long(), tabs["yrel"]
+    xq, xk, xrel = tabs["xq"].long(), tabs["xk"].long(), tabs["xrel"]
+    for a in range(yk.shape[0]):
+        for b in range(xk.shape[0]):
+            yield yq[a], xq[b], [(yk[a, i], xk[b, i], yrel[a, i], xrel[b, i])
+                                 for i in range(yk.shape[1])]
+
+
+def grid_decode_rational_plain(feature, csa, gk, gv, wt, ck, pk: dict,
+                               tabs: dict, softmax_scale: float):
+    """K3's math at a rational scale, from ``rational_tables``: for phase
+    (a, b) and shift i the k/v first layers read g_k / g_v at the key
+    pixels with the table's rel, the logit reads the wt plane
+    d = key − query at the query pixel. Returns (B, py·px, H/qy, W/qx, 3)."""
+    u = unfold_nhwc(feature)
+    dt = gk.dtype
+    out = []
+    for qy_, qx_, shifts in rational_phases(tabs):
+        logits, preds = [], []
+        for ky, kx, ry, rx in shifts:
+            ry = ry[None, :, None, None].to(dt)
+            rx = rx[None, None, :, None].to(dt)
+
+            def first(g, rel, b0):
+                return torch.relu(take2(g, ky, kx) + ry * rel[0]
+                                  + rx * rel[1] + b0)
+
+            hk = _mlp_hidden(first(gk, pk["krel"].to(dt), pk["kb0"].to(dt)),
+                             pk["kw"].to(dt), pk["kb"].to(dt))
+            plane = (ky - qy_ + 1)[:, None] * 3 + (kx - qx_ + 1)[None]
+            wt_q = wt[plane, :, qy_[:, None], qx_[None]]  # (h, w, B, ·)
+            ck_q = ck[plane, :, qy_[:, None], qx_[None]]
+            logits.append((wt_q.permute(2, 0, 1, 3) * hk).sum(-1)
+                          + ck_q.permute(2, 0, 1).to(dt))
+            hv = _mlp_hidden(first(gv, pk["vrel"].to(dt), pk["vb0"].to(dt)),
+                             pk["vw"].to(dt), pk["vb"].to(dt))
+            x = torch.cat([take2(u, ky, kx), take2(csa, ky, kx)], -1)
+            preds.append(x * (hv @ pk["vout"].to(dt) + pk["vbout"].to(dt)))
+        out.append(_blend_q(logits, preds, pk, softmax_scale))
+    return torch.stack(out, 1)
+
+
+def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
+                         softmax_scale: float):
+    """The rational mode of the decode kernel on CUDA tensors, the plain
+    version on CPU tensors. Returns the (B, py·px, H/qy, W/qx, 3) f32
+    phase images (phase a·px + b) before the bilinear residual."""
+    if feature.device.type == "cpu":
+        return grid_decode_rational_plain(feature, csa, gk, gv, wt, ck, pk,
+                                          tabs, softmax_scale)
+    b, h, w, _ = feature.shape
+    py, n_shift, oh = tabs["yk"].shape
+    px, _, ow = tabs["xk"].shape
+    _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk)
+    i32, f = torch.int32, torch.float32
+    _build.check_tensor(tabs["yq"], (py, oh), "yq", i32)
+    _build.check_tensor(tabs["yk"], (py, n_shift, oh), "yk", i32)
+    _build.check_tensor(tabs["xq"], (px, ow), "xq", i32)
+    _build.check_tensor(tabs["xk"], (px, n_shift, ow), "xk", i32)
+    _build.check_tensor(tabs["yrel"], (py, n_shift, oh), "yrel", f)
+    _build.check_tensor(tabs["xrel"], (px, n_shift, ow), "xrel", f)
+    if not 1 <= n_shift <= 9:
+        raise ValueError(f"grid_decode takes 1..9 shifts, got {n_shift}")
+    out = torch.empty(b, py * px, oh, ow, 3, device=feature.device, dtype=f)
+    args = [feature, csa, gk, gv, wt, ck, *(pk[k] for k in _DECODE_ORDER),
+            tabs["yq"], tabs["yk"], tabs["xq"], tabs["xk"], tabs["yrel"],
+            tabs["xrel"], out]
+    ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
+    fn = _build.load("grid_decode").grid_decode_rational
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, oh, ow, py, px,
+             n_shift, float(softmax_scale), _build.stream_ptr(feature.device))
+    kernels.LAUNCHES["grid_decode_rational"] += 1
+    _build.check(err, "grid_decode_rational")
     return out

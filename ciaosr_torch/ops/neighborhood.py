@@ -3,7 +3,8 @@
 Counterpart of ciaosr_tpu/ops/neighborhood.py. The flattened patch layout
 is tap-major, ``j = tap * C + c`` with ``tap = dy * k + dx``; PyTorch's
 ``F.unfold`` is channel-major (``c * k² + tap``), and the decoder packs its
-weights accordingly (ops/kernels/decoder.py).
+weights accordingly (ops/kernels/decoder.py). ``gather_patches`` alone is
+channel-major: the per-query decoder feeds it to the MLPs as it is.
 """
 
 from __future__ import annotations
@@ -26,6 +27,28 @@ def unfold_nhwc(feat: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     padded = F.pad(feat, (0, 0, pad, pad, pad, pad))
     return torch.cat([padded[:, dy:dy + h, dx:dx + w, :]
                       for dy in range(ksize) for dx in range(ksize)], dim=-1)
+
+
+def gather_patches(feat: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                   ksize: int = 3) -> torch.Tensor:
+    """k×k zero-padded neighbourhoods at integer centres: feat (B, H, W, C),
+    iy/ix (B, ...) in-range indices → (B, ..., k·k·C), channel-major
+    (``c·k² + tap``: the layout of ``F.unfold`` and of the reference-layout
+    MLPs that read it; the JAX counterpart is tap-major)."""
+    b, h, w, c = feat.shape
+    flat = feat.reshape(b, h * w, c)
+    lead = iy.shape[1:]
+    r = ksize // 2
+    taps = []
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            y, x = iy + dy, ix + dx
+            valid = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+            idx = (y.clamp(0, h - 1) * w + x.clamp(0, w - 1)).reshape(b, -1)
+            v = torch.gather(flat, 1, idx.long()[..., None].expand(-1, -1, c))
+            taps.append(torch.where(valid[..., None],
+                                    v.reshape(b, *lead, c), 0.0))
+    return torch.stack(taps, -1).reshape(b, *lead, c * ksize * ksize)
 
 
 def extract_patches_same(x: torch.Tensor, ksize: int,

@@ -18,6 +18,27 @@ def nearest_index(coord: torch.Tensor, size: int) -> torch.Tensor:
     return torch.round(ix).to(torch.int32)   # torch.round: half to even
 
 
+def grid_sample_bilinear_border(feat: torch.Tensor,
+                                coord: torch.Tensor) -> torch.Tensor:
+    """Bilinear grid-sample with 'border' padding (coordinate clamping).
+    feat (B, H, W, C); coord (B, Q, 2) in (y, x) order → (B, Q, C)."""
+    b, h, w, c = feat.shape
+    iy = torch.clamp(((coord[..., 0] + 1.0) * h - 1.0) / 2.0, 0.0, h - 1.0)
+    ix = torch.clamp(((coord[..., 1] + 1.0) * w - 1.0) / 2.0, 0.0, w - 1.0)
+    y0, x0 = torch.floor(iy), torch.floor(ix)
+    wy, wx = (iy - y0)[..., None], (ix - x0)[..., None]
+    y0i, x0i = y0.long(), x0.long()
+    y1i, x1i = torch.clamp(y0i + 1, 0, h - 1), torch.clamp(x0i + 1, 0, w - 1)
+    flat = feat.reshape(b, h * w, c)
+
+    def tap(yi, xi):
+        return torch.gather(flat, 1, (yi * w + xi)[..., None].expand(
+            -1, -1, c))
+
+    return (tap(y0i, x0i) * (1 - wy) * (1 - wx) + tap(y0i, x1i) * (1 - wy)
+            * wx + tap(y1i, x0i) * wy * (1 - wx) + tap(y1i, x1i) * wy * wx)
+
+
 def interpolate_bilinear(x: torch.Tensor, out_h: int,
                          out_w: int) -> torch.Tensor:
     """``F.interpolate(mode='bilinear', align_corners=False)`` on NHWC,

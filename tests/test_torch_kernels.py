@@ -1,6 +1,8 @@
 """The port's CUDA kernels (bf16) against their plain PyTorch versions
 (f32, the same input values): max|Δ|/max|ref| ≤ 1e-2, the bf16 class the
-JAX kernels hold. Needs a CUDA card; on the card run
+JAX kernels hold. The decode kernel is held at integer scales and, in its
+rational mode, at ×2.5, ×7/3, ×1.5, 5/3 × 7/2 and an odd width. Needs a
+CUDA card (marked ``cuda``; skips without one); on the card run
 ``python -m pytest --noconftest -q tests/test_torch_kernels.py`` (this file
 imports no JAX). Shapes are flagship widths (C = 64, hidden 256) at small,
 odd spatial sizes so the block tails and partial tiles are exercised.
@@ -9,6 +11,8 @@ odd spatial sizes so the block tails and partial tiles are exercised.
 import numpy as np
 import pytest
 import torch
+
+pytestmark = pytest.mark.cuda
 
 REL_TOL = 1e-2
 CFG = dict(
@@ -60,8 +64,8 @@ def case():
 @torch.inference_mode()
 def test_f3p_build(case):
     net, feat, csa, dk = case
-    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64, 4,
-                         torch.bfloat16)
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                         (0.5, 0.5), torch.bfloat16)
     args = (feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
     got = dk.f3p_build(*args)
     assert _rel(got, dk.f3p_build_plain(*_f32(args))) <= REL_TOL
@@ -70,8 +74,8 @@ def test_f3p_build(case):
 @torch.inference_mode()
 def test_wt_hoist(case):
     net, feat, _, dk = case
-    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64, 4,
-                         torch.bfloat16)
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                         (0.5, 0.5), torch.bfloat16)
     got = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
     ref = dk.wt_hoist_plain(feat.float(), pk["wkout"].float(), pk["bkout"])
     assert _rel(got, ref) <= REL_TOL
@@ -84,8 +88,8 @@ def test_grid_decode(case, scale, local_size):
     """local_size 1/2/3 gives 1/4/9 shifts: the kernel stacks them 4 at a
     time, so 9 covers a partial group."""
     net, feat, csa, dk = case
-    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64, scale,
-                         torch.bfloat16)
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                         (2.0 / scale, 2.0 / scale), torch.bfloat16)
     tabs = dk.decoder_tables(scale, *feat.shape[1:3], local_size,
                              feat.device)
     gk, gv = dk.f3p_build(feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
@@ -94,6 +98,62 @@ def test_grid_decode(case, scale, local_size):
     ref = dk.grid_decode_plain(*_f32((feat, csa, gk, gv, wt, ck)), _f32(pk),
                                tabs, 1.0)
     assert got.shape == (2, scale * scale, 21, 37, 3)
+    assert _rel(got, ref) <= REL_TOL
+
+
+def _features(net, hw, seed):
+    """Encoder features (bf16) and plain CSA of a random 2-image batch."""
+    lq = np.random.default_rng(seed).random((2, *hw, 3), dtype=np.float32)
+    x = torch.as_tensor(lq, device="cuda") - 0.45
+    feat = net.gen_feature(x).contiguous()
+    csa = net.nl_feature(feat, use_kernel=False).to(torch.bfloat16)
+    return x, feat, csa.contiguous()
+
+
+@pytest.mark.parametrize("py,qy,px,qx,hw,local_size", [
+    (5, 2, 5, 2, (20, 38), 2),    # ×2.5: a tie phase
+    (7, 3, 7, 3, (21, 39), 2),    # ×7/3
+    (3, 2, 3, 2, (22, 34), 2),    # ×1.5: exact ties
+    (5, 3, 7, 2, (21, 36), 2),    # 5/3 × 7/2
+    (5, 3, 5, 3, (18, 33), 2),    # ×5/3 at an odd width (phase width 11)
+    (5, 2, 5, 2, (20, 38), 3),    # 9 shifts: a partial shift group
+], ids=["x2.5", "x7/3", "x1.5", "5/3x7/2", "odd_width", "x2.5_9shifts"])
+@torch.inference_mode()
+def test_grid_decode_rational(case, py, qy, px, qx, hw, local_size):
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops import kernels
+    net, _, _, dk = case
+    _, feat, csa = _features(net, hw, py * qx)
+    h, w = hw
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                         rational_cell(h, w, h * py // qy, w * px // qx),
+                         torch.bfloat16)
+    tabs = dk.rational_tables(h, w, py, qy, px, qx, local_size,
+                              feat.device)
+    gk, gv = dk.f3p_build(feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+    wt, ck = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
+    n0 = kernels.LAUNCHES["grid_decode_rational"]
+    got = dk.grid_decode_rational(feat, csa, gk, gv, wt, ck, pk, tabs, 1.0)
+    assert kernels.LAUNCHES["grid_decode_rational"] == n0 + 1
+    ref = dk.grid_decode_rational_plain(*_f32((feat, csa, gk, gv, wt, ck)),
+                                        _f32(pk), tabs, 1.0)
+    assert got.shape == (2, py * px, h // qy, w // qx, 3)
+    assert _rel(got, ref) <= REL_TOL
+
+
+@torch.inference_mode()
+def test_rational_route_matches_plain_route(case):
+    """×2.5 through K4, K1, K2 and rational K3 (bf16) against the plain
+    rational decode in f32 on the same features."""
+    net = case[0]
+    x, feat, _ = _features(net, (20, 38), 3)
+    got = net.query_rgb_grid_rational_kernels(feat, x, 5, 2, 5, 2)
+    net.dtype = torch.float32
+    try:
+        ref = net.query_rgb_grid_rational(feat.float(), x, 5, 2, 5, 2)
+    finally:
+        net.dtype = torch.bfloat16
+    assert got.shape == (2, 50, 95, 3)
     assert _rel(got, ref) <= REL_TOL
 
 

@@ -9,6 +9,7 @@ from ciaosr_torch.ops import neighborhood as tn
 from ciaosr_torch.ops import sampling as ts
 from ciaosr_tpu.ops import neighborhood as jn
 from ciaosr_tpu.ops import sampling as js
+from tests import test_torch_weights  # noqa: F401 (caps torch's threads)
 
 
 @pytest.mark.parametrize("shape,out", [((2, 15, 17, 3), (7, 8)),

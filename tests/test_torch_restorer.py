@@ -83,15 +83,6 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         CiaoSRRestorer(SMALL, device="cuda")
 
 
-def test_rational_scale_not_ported(models):
-    _, _, restorer = models
-    lq = np.zeros((8, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        restorer.predict_tiled(lq, 2.5, tile=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        restorer.predict(lq, (20, 20))
-
-
 @pytest.mark.slow
 def test_predict_tiled_matches_jax_pallas_route(models):
     """The JAX restorer's own predict_tiled with use_pallas=True (Pallas

@@ -1,5 +1,10 @@
 """Port weight layout: state_dict_from_jax inverts convert_generator
-bit-exactly, and the port package stays free of JAX."""
+bit-exactly, and the port package stays free of JAX.
+
+Also the helpers the other ``test_torch_*`` files import: the small and
+flagship configs, seeded JAX params, the JAX per-query oracle, and the cap
+on torch's CPU threads (below).
+"""
 
 import re
 import subprocess
@@ -18,6 +23,23 @@ from ciaosr_tpu.convert.torch_weights import convert_generator
 from ciaosr_tpu.models.builder import build_generator as jax_build
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def cap_torch_threads(n: int = 2) -> None:
+    """Keep torch's CPU pools small: every test worker imports every test
+    file, so each one holds JAX's CPU runtime (8 virtual devices) and
+    torch side by side, and torch's default of one spinning intra-op
+    thread per core of the host, in each worker, oversubscribes a shared
+    host many times over."""
+    if torch.get_num_threads() > n:
+        torch.set_num_threads(n)
+    try:
+        torch.set_num_interop_threads(1)
+    except RuntimeError:   # set already, or inter-op work has started
+        pass
+
+
+cap_torch_threads()
 
 SMALL = dict(
     type="LocalImplicitSRRDN",
@@ -62,6 +84,17 @@ def generator_params(cfg, seed):
     net = jax_build(cfg)
     return net, seeded_params(net, seed, jnp.zeros((1, 8, 8, 3)),
                               jnp.zeros((1, 4, 2)), jnp.zeros((1, 4, 2)))
+
+
+_query_rgb = jax.jit(lambda net, p, f, x, co, ce, nl: net.apply(
+    p, f, x, co, ce, nl, method="query_rgb"), static_argnums=0)
+
+
+def jax_query_rgb(net, params, feat, x, coord, cell, nl):
+    """The JAX per-query decoder (f32, no Pallas) as numpy: the oracle of
+    the port's decoders."""
+    return np.asarray(_query_rgb(net, params, feat, jnp.asarray(x),
+                                 jnp.asarray(coord), jnp.asarray(cell), nl))
 
 
 def _same_tree(a, b):
