@@ -7,7 +7,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
   3. holds each kernel (bf16) against its plain PyTorch version (f32, same
      inputs) at the flagship shapes (the decode kernel's rational mode at
      ×2.5 on a 192 tile: 25 phases of 96²; its integer mode once more at
-     the odd-width request's shapes), max|Δ|/max|ref| ≤ 1e-2, and
+     the odd-width request's shapes; the CSA kernels of rows 5-8 at the
+     geometries of the CSA paths below), max|Δ|/max|ref| ≤ 1e-2, and
      times both with CUDA events (median of several runs after warm-up),
      next to the roofline bound and, where one PyTorch call computes the
      same function, that call's time;
@@ -18,10 +19,18 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      192 tiles, overlap 32: 4 tiles, and two single-tile grid_predict
      requests); rational (predict_tiled at ×2.5 and ×7/3, a full-image
      ×2.5 predict); the per-query decoder (a target with more than 4096
-     phases); an odd width at ×4. It checks each output and which kernels
-     each path ran, and holds the kernel route against the plain f32
-     route on small inputs at ×4, ×2.5, ×7/3 and the odd width;
-  5. prints the kernels line, the card line, and the result line last.
+     phases); an odd width at ×4; then the CSA geometries where the JAX
+     package picks another CSA kernel than K4's counterpart (Set5-shaped
+     predict_tiled at ×4 and ×2.5: csa_attention; full-image predict at
+     192×512 and 40×1024: csa_fused; at 48×1024: csa_stencil). It checks
+     each output and which kernels each path ran, and holds the kernel
+     route against the plain f32 route on small inputs at ×4, ×2.5, ×7/3,
+     the odd width and three streaming CSA geometries;
+  5. times the full-image requests warm, and prints the script's total
+     time, the kernels line, the card line, and the result line last.
+``python3 chip_smoke.py --full-image`` builds the kernels and only times
+the full-image requests (no result line): copied into another checkout,
+it times that tree's routes the same way.
 Any failure exits non-zero. Without CUDA, or without the repository's
 ciaosr_torch next to it, it exits non-zero and prints no result.
 """
@@ -61,6 +70,18 @@ IMG, TILE, OVERLAP = 256, 192, 32
 # to 48 in the CSA and keeps the decode at W % 8 != 0, where the TPU
 # runs its stacked decode kernel instead of the halo one.
 SMALL, FULL, ODD = (48, 48), (96, 80), (60, 47)
+# The geometries where the JAX package picks another CSA kernel than K4's
+# counterpart. Set5-shaped images at ×4 are one square tile of their short
+# side (72², 70², 57² → 58² in the CSA: widths not a multiple of 16), where
+# it picks streaming (row 7, csa_attention). Full images of a seeded
+# 192×1024 picture: 192×512 windowed, 40×1024 resident (both row 6,
+# csa_fused), 48×1024 the two-kernel stencil (row 5, csa_stencil).
+SET5 = ((72, 72), (70, 70), (57, 86))
+CSA_FULL = (("windowed", (192, 512), "csa_fused"),
+            ("resident", (40, 1024), "csa_fused"),
+            ("stencil", (48, 1024), "csa_stencil"))
+CSA_KERNELS = ("csa_stencil_fused", "csa_stencil", "csa_fused",
+               "csa_attention", "csa_attention_overlap_add")
 TEST_CFG = dict(metrics=["PSNR", "SSIM"], crop_border=4, scale=4, tile=TILE,
                 tile_overlap=32, convert_to="y")
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -110,6 +131,31 @@ def f32(x):
     return x.float() if x.is_floating_point() else x
 
 
+def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
+               library, reps: int = 5) -> dict:
+    """One row of the kernels line: the kernel (bf16) against its plain
+    version (f32, same values), max|Δ|/max|ref| ≤ REL_TOL, with CUDA-event
+    times of both (the plain version: median of 3 after one warm-up),
+    the bound from ``flops`` and ``nbytes``, and ``library``'s time where
+    one PyTorch call computes the same function."""
+    with torch.inference_mode():
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        abs_err, err = errors(got, ref)
+        del got, ref
+        ms = time_ms(kern, reps=reps, warm=min(2, reps - 2))
+        plain_ms = time_ms(plain, reps=3, warm=1)
+        lib_ms = time_ms(library, reps=reps) if library else None
+    bms, by = bound_ms(flops, nbytes)
+    if not err <= REL_TOL:
+        raise AssertionError(f"{name}: error {err:.3e} > {REL_TOL}")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=abs_err, max_rel_err=err,
+                tol_rel=REL_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
 def check_kernels(restorer, lq_tile: torch.Tensor,
                   lq_odd: torch.Tensor) -> list[dict]:
     """Each kernel vs its plain version on the main path's tensors of one
@@ -143,23 +189,8 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
     ss, cs = net.softmax_scale, net.cs_attn.softmax_scale
     rows = []
 
-    def run(name, source, replaces, kern, plain, flops, nbytes, library):
-        with torch.inference_mode():
-            got = kern()
-            torch.cuda.synchronize()
-            ref = plain()
-            abs_err, err = errors(got, ref)
-            del got, ref
-            ms, plain_ms = time_ms(kern), time_ms(plain, reps=3, warm=1)
-            lib_ms = time_ms(library) if library else None
-        bms, by = bound_ms(flops, nbytes)
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=0, max_abs_err=abs_err,
-                         max_rel_err=err, tol_rel=REL_TOL, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms))
-        if not err <= REL_TOL:
-            raise AssertionError(f"{name}: error {err:.3e} > {REL_TOL}")
+    def run(*args):
+        rows.append(kernel_row(*args))
 
     # K1: gk/gv = conv3x3([feature | csa]) with csa only on the centre tap
     # and only into gv, as one cuDNN call (the library yardstick)
@@ -225,16 +256,152 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
                odd_maps, tabs_odd, False)
     hp, wp = match.shape[1:3]
     p_, l_ = hp * wp, keys.shape[1]
-    run("csa_stencil", "ciaosr_torch/csrc/csa_stencil.cu",
+    run("csa_stencil_fused", "ciaosr_torch/csrc/csa_stencil.cu",
         "ciaosr_tpu/ops/pallas/csa_attention.py:930 (csa_stencil_fused)",
-        lambda: k4.csa_stencil(match, keys, embed, cs, 2),
-        lambda: k4.csa_stencil_plain(match.float(), keys.float(),
-                                     embed.float(), cs, 2),
+        lambda: k4.csa_stencil_fused(match, keys, embed, cs, 2),
+        lambda: k4.csa_stencil_fused_plain(match.float(), keys.float(),
+                                           embed.float(), cs, 2),
         2 * b * p_ * l_ * (keys.shape[-1] + 4 * c),
         b * (p_ * match.shape[-1] * 2 + l_ * keys.shape[-1] * 2
              + p_ * c * 2 + 4 * p_ * c * 4),
         None)
     return rows
+
+
+def csa_inputs(restorer, img, banks: bool = False):
+    """match, keys, embed (bf16) of the flagship CSA on an H × W × 3 image,
+    and with ``banks`` also the streaming route's q and v banks."""
+    from ciaosr_torch.ops.neighborhood import extract_patches_same
+
+    net = restorer.generator
+    with torch.inference_mode():
+        feat = net.gen_feature(restorer.normalize(
+            torch.as_tensor(img, device="cuda")[None])).contiguous()
+        maps = net.cs_attn.stencil_inputs(feat, 2, torch.bfloat16)
+        if not banks:
+            return maps
+        return (*maps, extract_patches_same(maps[0], 3, 1).contiguous(),
+                extract_patches_same(maps[2], 6, 2).contiguous())
+
+
+def check_csa_kernels(restorer, images) -> list[dict]:
+    """Rows 5-8 against their plain versions at the CSA geometries of the
+    paths that run them: the inputs are stencil_inputs of the flagship
+    encoder on the seeded image of that size (``images``: (wrapper, H × W × 3
+    array) pairs; "csa_attention" stands for rows 7 and 8), and rows 7 and 8
+    take the banks of extract_patches_same.
+    Rows of more than 1e8 (query, key) pairs are timed 3 times after one
+    warm-up."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.neighborhood import plane_major_perm
+
+    cs = restorer.generator.cs_attn.softmax_scale
+    rows = []
+    for name, img in images:
+        inputs = csa_inputs(restorer, img, banks=name == "csa_attention")
+        match, keys, embed = inputs[:3]
+        b, hp, wp, c = embed.shape
+        p_, l_ = hp * wp, keys.shape[1]
+        dk, dv = keys.shape[-1], 36 * c
+        reps = 3 if p_ * l_ > 1e8 else 5
+        maps = (match, keys, embed)
+        maps32 = tuple(t.float() for t in maps)
+        # bytes of the maps in and the pasted f32 map out
+        map_bytes = b * (p_ * match.shape[-1] * 2 + l_ * dk * 2 + p_ * c * 2
+                         + 4 * p_ * c * 4)
+        src = "ciaosr_torch/csrc/csa_attention.cu"
+        at = "ciaosr_tpu/ops/pallas/csa_attention.py:"
+        if name == "csa_stencil":
+            rows.append(kernel_row(
+                f"csa_stencil@{hp}x{wp}", "ciaosr_torch/csrc/csa_stencil.cu",
+                at + "687 (csa_stencil)",
+                lambda: st.csa_stencil(*maps, cs, 2),
+                lambda: st.csa_stencil_plain(*maps32, cs, 2),
+                2 * b * p_ * l_ * (dk + 4 * c), map_bytes, None, reps))
+        elif name == "csa_fused":
+            # K4's function from K4's inputs: its bound is K4's, not that
+            # of the bank form the kernel runs (2PL(dk + dv) and more)
+            rows.append(kernel_row(
+                f"csa_fused@{hp}x{wp}", src, at + "447 (csa_fused)",
+                lambda: ca.csa_fused(*maps, cs, 2),
+                lambda: ca.csa_fused_plain(*maps32, cs, 2),
+                2 * b * p_ * l_ * (dk + 4 * c), map_bytes, None, reps))
+        else:  # the banks of the streaming route
+            q, v = inputs[3:]
+            with torch.inference_mode():
+                v_pm = v[..., torch.as_tensor(plane_major_perm(2, c),
+                                              device=v.device)].contiguous()
+            bank_bytes = b * (p_ * dk + l_ * dk + l_ * dv) * 2
+            rows.append(kernel_row(
+                f"csa_attention@{hp}x{wp}", src, at + "65 (csa_attention)",
+                lambda: ca.csa_attention(q, keys, v, cs),
+                lambda: ca.csa_attention_plain(q.float(), keys.float(),
+                                               v.float(), cs),
+                2 * b * p_ * l_ * (dk + dv), bank_bytes + b * p_ * dv * 4,
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, keys, v, scale=cs), reps))
+            rows.append(kernel_row(
+                f"csa_attention_overlap_add@{hp}x{wp}", src,
+                at + "194 (csa_attention_overlap_add)",
+                lambda: ca.csa_attention_overlap_add(q, keys, v_pm, cs, hp,
+                                                     wp, 2),
+                lambda: ca.csa_attention_overlap_add_plain(
+                    q.float(), keys.float(), v_pm.float(), cs, hp, wp, 2),
+                2 * b * p_ * l_ * (dk + dv),
+                bank_bytes + b * 4 * p_ * c * 4, None, reps))
+    return rows
+
+
+def compare_csa_forms(restorer, img) -> None:
+    """K4, row 5, row 6 and the streaming route (row 7 + the plain
+    overlap-add) on the same inputs at one geometry, where all four run:
+    each one's time (CUDA events, median of 3 after one warm-up) and its
+    output held against K4's."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.neighborhood import overlap_add
+
+    cs = restorer.generator.cs_attn.softmax_scale
+    *maps, q, v = csa_inputs(restorer, img, banks=True)
+    _, hp, wp, c = maps[2].shape
+    with torch.inference_mode():
+        forms = {
+            "csa_stencil_fused (K4)": lambda: st.csa_stencil_fused(
+                *maps, cs, 2),
+            "csa_stencil (row 5)": lambda: st.csa_stencil(*maps, cs, 2),
+            "csa_fused (row 6)": lambda: ca.csa_fused(*maps, cs, 2),
+            "csa_attention (row 7) + overlap_add": lambda: overlap_add(
+                ca.csa_attention(q, maps[1], v, cs), hp, wp, 2, c),
+        }
+        ref = forms["csa_stencil_fused (K4)"]()
+        for name, fn in forms.items():
+            _, err = errors(fn(), ref)
+            ms = time_ms(fn, reps=3, warm=1)
+            log(f"csa form at {hp}x{wp}, {name}: {ms:.3f} ms, "
+                f"max|d|/max|ref| vs K4 {err:.3e}")
+            if not err <= REL_TOL:
+                raise AssertionError(f"{name} disagrees with K4 at "
+                                     f"{hp}x{wp}: {err:.3e}")
+
+
+def time_full_images(restorer, big: np.ndarray, reps: int = 3) -> None:
+    """Warm host-clock time of each full-image ×4 ``predict`` request of
+    CSA_FULL (a crop of ``big``), output fetched: median of ``reps`` after
+    one warm-up. Uses only the restorer's entry points, so it also times a
+    tree whose CSA routes otherwise."""
+    for mode, (h, w), _ in CSA_FULL:
+        img = big[:h, :w]
+        times = []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            restorer.predict(img, (4 * h, 4 * w))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        log(f"full-image predict {h}x{w} x4 (route here: {mode}): median "
+            f"{statistics.median(times[1:]):.2f} ms of {reps} warm "
+            f"({', '.join(f'{t:.2f}' for t in times[1:])})")
 
 
 def breakdown(restorer, lq_tile: torch.Tensor) -> None:
@@ -318,6 +485,10 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
 
 
 def main() -> int:
+    """``--full-image``: build, then only time_full_images (no result
+    line)."""
+    t_start = time.perf_counter()
+    full_only = sys.argv[1:] == ["--full-image"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -351,8 +522,19 @@ def main() -> int:
     def hr(hw, s=4):
         return (round(s * hw[0]), round(s * hw[1]), 3)
 
+    big = np.random.default_rng(1).random((192, 1024, 3), dtype=np.float32)
+    if full_only:
+        time_full_images(restorer, big)
+        return 0
+
+    def full(hw):
+        return big[:hw[0], :hw[1]]
+
     rows = check_kernels(restorer, tile,
                          torch.as_tensor(lr(ODD), device="cuda")[None])
+    rows += check_csa_kernels(restorer, [("csa_attention", lr(SET5[0]))] + [
+        (kern, full(hw)) for _, hw, kern in CSA_FULL])
+    compare_csa_forms(restorer, full(CSA_FULL[-1][1]))
 
     # ---- the main paths: requests through the entry points, each path
     # with the launch counters set to 0 just before it and read just after
@@ -380,9 +562,16 @@ def main() -> int:
             raise AssertionError(f"{name}: bad output {out.shape} "
                                  f"[{out.min()}, {out.max()}], want {shape}")
 
-    decode = ["f3p_build", "wt_hoist", "csa_stencil"]
-    int_path = decode + ["grid_decode"]
-    rat_path = decode + ["grid_decode_rational"]
+    def csa_idle(csa):
+        """The CSA kernels other than ``csa``."""
+        return [k for k in CSA_KERNELS if k != csa]
+
+    decoders = ["f3p_build", "wt_hoist"]
+    int_path = decoders + ["csa_stencil_fused", "grid_decode"]
+    rat_path = decoders + ["csa_stencil_fused", "grid_decode_rational"]
+    k4_idle = csa_idle("csa_stencil_fused")
+
+    main_csa: dict = {}  # the CSA kernel rows' launches, path by path
 
     def x4_requests():
         first = restorer.predict_tiled(lq, 4, tile=TILE,
@@ -396,7 +585,7 @@ def main() -> int:
         return first, singles, time.perf_counter() - t
 
     (out, singles, t_singles), launches_x4, t_x4 = drive(
-        "x4", x4_requests, int_path, ["grid_decode_rational"])
+        "x4", x4_requests, int_path, ["grid_decode_rational"] + k4_idle)
     check_image("predict_tiled x4", out, (4 * IMG, 4 * IMG, 3))
     for o in singles:
         check_image("grid_predict x4", o, (1, 4 * TILE, 4 * TILE, 3))
@@ -409,7 +598,7 @@ def main() -> int:
                 restorer.predict(lr(FULL), hr(FULL, 2.5)[:2]))
 
     (r25, r73, full25), launches_rat, t_rat = drive(
-        "rational", rational_requests, rat_path, ["grid_decode"])
+        "rational", rational_requests, rat_path, ["grid_decode"] + k4_idle)
     n25, n73 = round(IMG * 2.5), round(IMG * 7 / 3)
     check_image("predict_tiled x2.5", r25, (n25, n25, 3))
     check_image("predict_tiled x7/3", r73, (n73, n73, 3))
@@ -417,21 +606,55 @@ def main() -> int:
 
     # 101·83 phases: more than the dense decode takes
     (pq, _, _) = drive("per-query", lambda: restorer.predict(
-        lr(SMALL), (101, 83)), ["csa_stencil"],
-        ["f3p_build", "wt_hoist", "grid_decode", "grid_decode_rational"])
+        lr(SMALL), (101, 83)), ["csa_stencil_fused"],
+        ["f3p_build", "wt_hoist", "grid_decode", "grid_decode_rational"]
+        + k4_idle)
     check_image("predict {}x{} -> 101x83 (per query)".format(*SMALL), pq,
                 (101, 83, 3))
 
     (odd, launches_odd, _) = drive(
         "odd-width x4", lambda: restorer.predict(lr(ODD), hr(ODD)[:2]),
-        int_path, ["grid_decode_rational"])
+        int_path, ["grid_decode_rational"] + k4_idle)
     check_image("predict {}x{} x4".format(*ODD), odd, hr(ODD))
+
+    # the CSA geometries: each request's CSA takes the kernel the JAX
+    # package picks at its geometry, and no other CSA kernel
+    def set5_requests():
+        return [restorer.predict_tiled(lr(hw), 4, tile=TILE,
+                                       tile_overlap=OVERLAP) for hw in SET5]
+
+    (set5, launches_set5, _) = drive(
+        "Set5 shapes x4 (CSA streaming)", set5_requests,
+        ["csa_attention", "f3p_build", "wt_hoist", "grid_decode"],
+        csa_idle("csa_attention") + ["grid_decode_rational"])
+    for hw, o in zip(SET5, set5):
+        check_image("predict_tiled {}x{} x4".format(*hw), o, hr(hw))
+    (s25, launches_s25, _) = drive(
+        "72x72 x2.5 (CSA streaming)",
+        lambda: restorer.predict_tiled(lr(SET5[0]), 2.5, tile=TILE,
+                                       tile_overlap=OVERLAP),
+        ["csa_attention", "f3p_build", "wt_hoist", "grid_decode_rational"],
+        csa_idle("csa_attention") + ["grid_decode"])
+    check_image("predict_tiled 72x72 x2.5", s25, hr(SET5[0], 2.5))
+    for mode, hw, kern in CSA_FULL:
+        (o, launches_full, _) = drive(
+            "{}x{} x4 (CSA {})".format(*hw, mode),
+            lambda: restorer.predict(full(hw), hr(hw)[:2]),
+            [kern] + decoders + ["grid_decode"],
+            csa_idle(kern) + ["grid_decode_rational"])
+        check_image("predict {}x{} x4".format(*hw), o, hr(hw))
+        main_csa["{}@{}x{}".format(kern, *hw)] = launches_full[kern]
 
     main_launches = dict(launches_x4,
                          grid_decode_rational=launches_rat[
-                             "grid_decode_rational"])
+                             "grid_decode_rational"], **main_csa)
     main_launches["grid_decode@{}x{}".format(*ODD)] = \
         launches_odd["grid_decode"]
+    s5 = "{}x{}".format(*SET5[0])
+    main_launches[f"csa_attention@{s5}"] = (launches_set5["csa_attention"]
+                                           + launches_s25["csa_attention"])
+    # row 8: nothing in the JAX package calls it, so no path runs it
+    main_launches[f"csa_attention_overlap_add@{s5}"] = 0
     for r in rows:
         r["launches"] = main_launches[r["name"]]
         log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "
@@ -459,14 +682,22 @@ def main() -> int:
     log(f"e2e ({kind}; {smi}): predict_tiled {IMG}->{n25} x2.5, 4 tiles: "
         f"warm {ms_25:.1f} ms = {ms_25 / 4:.1f} ms/tile, "
         f"{n25 * n25 / 1e3 / ms_25:.3f} MP/s")
+    time_full_images(restorer, big)
 
     # ---- the kernel route against the plain f32 route on small inputs
     ref_r = CiaoSRRestorer(dict(FLAGSHIP, dtype=None, use_kernels=False),
                            rgb_mean=RGB_MEAN, device="cuda", seed=0)
     small = torch.as_tensor(lr(SMALL), device="cuda")[None]
     sn, on = "{}x{}".format(*SMALL), "{}x{}".format(*ODD)
+    # streaming CSA geometries: 72×72 and 57×86 (58×86 in the CSA)
+    s72 = torch.as_tensor(lr(SET5[0]), device="cuda")[None]
+    s57 = torch.as_tensor(lr(SET5[2]), device="cuda")[None]
     for name, fn in (
             (f"{sn} x4", lambda r: r.grid_predict(small, 4)),
+            ("72x72 x4 (CSA streaming)", lambda r: r.grid_predict(s72, 4)),
+            ("57x86 x4 (CSA streaming)", lambda r: r.grid_predict(s57, 4)),
+            ("72x72 x2.5 (CSA streaming)",
+             lambda r: r.grid_predict(s72, Fraction(5, 2))),
             (f"{sn} x2.5", lambda r: r.grid_predict(small, Fraction(5, 2))),
             (f"{sn} x7/3", lambda r: r.grid_predict(small, Fraction(7, 3))),
             (f"{on} x4 (odd width, predict)",
@@ -480,6 +711,7 @@ def main() -> int:
 
     breakdown(restorer, tile)
 
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"ok": True, "device": {

@@ -6,13 +6,14 @@ Counterpart of ciaosr_tpu/models/ciaosr.py::CiaoSRNet:
   * ``query_rgb_grid``: the plain dense-grid decode at integer scale (JAX
     query_rgb_grid, the XLA path);
   * ``query_rgb_grid_kernels``: its kernel route (JAX
-    query_rgb_grid_pallas) — CSA through K4, then K1 → K2 → K3, pixel
-    shuffle and the f32 bilinear residual;
+    query_rgb_grid_pallas) — CSA through the kernel its geometry routes
+    to (models/csa.py), then K1 → K2 → K3, pixel shuffle and the f32
+    bilinear residual;
   * ``query_rgb_grid_rational``: the plain dense decode at a rational
     scale py/qy × px/qx (JAX query_rgb_grid_rational);
   * ``query_rgb_grid_rational_kernels``: its kernel route (JAX
-    query_rgb_grid_rational_pallas) — K4, K1, K2, then K3 in its rational
-    mode.
+    query_rgb_grid_rational_pallas) — CSA as above, K1, K2, then K3 in
+    its rational mode.
 
 State-dict layout is the reference's: the encoder's modules sit at the
 top level (``sfe1``, ``rdbs.*``, ``gff.*`` for RDN), then ``imnet_q/k/v``
@@ -236,8 +237,8 @@ class CiaoSRNet(nn.Module):
     # --------------------------------------------------------- kernel grid
     def _kernel_maps(self, feature: torch.Tensor, cell):
         """The kernel routes' per-image inputs in the compute dtype: the
-        feature, CSA through K4, the packed weights for ``cell``, g_k and
-        g_v through K1, wt and ck through K2."""
+        feature, CSA through its routed kernel, the packed weights for
+        ``cell``, g_k and g_v through K1, wt and ck through K2."""
         dt = self.dtype
         feature = feature.to(dt).contiguous()
         csa = self.nl_feature(feature, use_kernel=True).to(dt).contiguous()
@@ -250,8 +251,8 @@ class CiaoSRNet(nn.Module):
 
     def query_rgb_grid_kernels(self, feature: torch.Tensor, x: torch.Tensor,
                                scale: int) -> torch.Tensor:
-        """Dense-grid decode through K4 and K1 → K2 → K3 (their plain
-        versions on CPU tensors): (B, s·H, s·W, 3)."""
+        """Dense-grid decode through the CSA kernel and K1 → K2 → K3 (their
+        plain versions on CPU tensors): (B, s·H, s·W, 3)."""
         s = int(scale)
         b, h, w, c = feature.shape
         tabs = dk_ops.decoder_tables(s, h, w, self.local_size,
@@ -312,8 +313,9 @@ class CiaoSRNet(nn.Module):
     def query_rgb_grid_rational_kernels(self, feature: torch.Tensor,
                                         x: torch.Tensor, py: int, qy: int,
                                         px: int, qx: int) -> torch.Tensor:
-        """Rational dense decode through K4, K1, K2 and K3's rational mode
-        (their plain versions on CPU tensors): (B, H·py/qy, W·px/qx, 3)."""
+        """Rational dense decode through the CSA kernel, K1, K2 and K3's
+        rational mode (their plain versions on CPU tensors):
+        (B, H·py/qy, W·px/qx, 3)."""
         b, h, w, c = feature.shape
         th, tw = h * py // qy, w * px // qx
         tabs = dk_ops.rational_tables(h, w, py, qy, px, qx, self.local_size,

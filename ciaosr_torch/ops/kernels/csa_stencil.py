@@ -1,10 +1,15 @@
-"""K4: the CSA middle (average=True) — wrapper and plain version.
+"""The CSA middle (average=True) in the stencil form: K4 and row 5 —
+wrappers and plain version.
 
-Counterpart of ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil_fused;
-the kernel is csrc/csa_stencil.cu. Contract: match (B, Hp, Wp, Cr), keys
-(B, L, 9Cr) L2-normalized 3×3 key patches of the s-downsampled match map
-(L = Hp/s · Wp/s), embed (B, Hp, Wp, C). Returns (B, s·Hp, s·Wp, C) f32,
-before the down conv and the /6.
+K4 ``csa_stencil_fused`` is the counterpart of
+ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil_fused, row 5
+``csa_stencil`` that of ::csa_stencil; both kernels are in
+csrc/csa_stencil.cu. They compute the same function: K4 recomputes the
+attention's stencil halo, row 5 writes the normalized attention Ā
+(B, P, L) to device memory and reads it back. Contract: match
+(B, Hp, Wp, Cr), keys (B, L, 9Cr) L2-normalized 3×3 key patches of the
+s-downsampled match map (L = Hp/s · Wp/s), embed (B, Hp, Wp, C). Returns
+(B, s·Hp, s·Wp, C) f32, before the down conv and the /6.
 """
 
 from __future__ import annotations
@@ -18,8 +23,17 @@ from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import _build
 from ciaosr_torch.ops.neighborhood import extract_patches_same
 
-# the shapes the kernel is compiled for
+# the shapes the kernels are compiled for
 CR, C, S = 32, 64, 2
+# f32 elements of one (query rows, L) attention block of a plain version
+PLAIN_BLOCK = 1 << 27
+
+
+def row_blocks(n: int, per_row: int, halo: int = 0) -> list[tuple[int, int]]:
+    """[start, stop) blocks of n rows, each with its ±halo rows holding at
+    most PLAIN_BLOCK elements of per_row each (at least one row)."""
+    step = max(1, PLAIN_BLOCK // per_row - 2 * halo)
+    return [(i, min(i + step, n)) for i in range(0, n, step)]
 
 
 def phase_planes(embed: torch.Tensor, s: int) -> torch.Tensor:
@@ -31,52 +45,99 @@ def phase_planes(embed: torch.Tensor, s: int) -> torch.Tensor:
                                                 s * s * c)
 
 
-def csa_stencil_plain(match: torch.Tensor, keys: torch.Tensor,
-                      embed: torch.Tensor, scale: float,
-                      s: int) -> torch.Tensor:
+def csa_stencil_fused_plain(match: torch.Tensor, keys: torch.Tensor,
+                            embed: torch.Tensor, scale: float,
+                            s: int) -> torch.Tensor:
     """Scores, softmax over L, the 9-point diagonal stencil on the
     attention map, one (P, L)@(L, s²C) product, pixel shuffle — in f32
-    (ciaosr_tpu/models/csa.py::_stencil_reconstruct)."""
+    (ciaosr_tpu/models/csa.py::_stencil_reconstruct), over blocks of query
+    rows with their ±1-row stencil halo."""
     b, hp, wp, c = embed.shape
     hq, wq = hp // s, wp // s
-    x_nb = extract_patches_same(match.float(), 3, 1)          # (B, P, 9Cr)
-    attn = torch.softmax(x_nb @ keys.float().transpose(1, 2) * scale, -1)
-    a5 = F.pad(attn.reshape(b, hp, wp, hq, wq), (1, 1, 1, 1, 1, 1, 1, 1))
-    m = sum(a5[:, dy:dy + hp, dx:dx + wp, dy:dy + hq, dx:dx + wq]
-            for dy in range(3) for dx in range(3))
-    out = m.reshape(b, hp * wp, hq * wq) @ phase_planes(embed.float(), s)
-    return out.reshape(b, hp, wp, s, s, c).permute(0, 1, 3, 2, 4, 5) \
-        .reshape(b, hp * s, wp * s, c)
+    x_nb = extract_patches_same(match.float(), 3, 1).reshape(b, hp, wp, -1)
+    kt = keys.float().transpose(1, 2)
+    ph = phase_planes(embed.float(), s)
+    outs = []
+    for y0, y1 in row_blocks(hp, wp * hq * wq, halo=1):
+        a0, a1 = max(y0 - 1, 0), min(y1 + 1, hp)
+        attn = torch.softmax(
+            x_nb[:, a0:a1].reshape(b, -1, x_nb.shape[-1]) @ kt * scale, -1)
+        # query rows y0 − 1 .. y1 (zero off the grid), keys padded by one
+        a5 = F.pad(attn.reshape(b, a1 - a0, wp, hq, wq),
+                   (1, 1, 1, 1, 1, 1, 1 - (y0 - a0), 1 - (a1 - y1)))
+        n = y1 - y0
+        m = sum(a5[:, dy:dy + n, dx:dx + wp, dy:dy + hq, dx:dx + wq]
+                for dy in range(3) for dx in range(3))
+        out = m.reshape(b, n * wp, hq * wq) @ ph
+        outs.append(out.reshape(b, n, wp, s, s, c).permute(0, 1, 3, 2, 4, 5)
+                    .reshape(b, n * s, wp * s, c))
+    return torch.cat(outs, 1)
 
 
-def csa_stencil(match: torch.Tensor, keys: torch.Tensor,
-                embed: torch.Tensor, scale: float, s: int) -> torch.Tensor:
-    """K4 on CUDA tensors, the plain version on CPU tensors."""
-    if match.device.type == "cpu":
-        return csa_stencil_plain(match, keys, embed, scale, s)
+# row 5 computes the same function as K4; only the kernels differ
+csa_stencil_plain = csa_stencil_fused_plain
+
+
+def check_inputs(name: str, match, keys, embed,
+                 s: int) -> tuple[int, int, int]:
+    """Raise unless the CSA middle's kernels take these inputs; returns
+    (B, Hp, Wp)."""
     b, hp, wp, c = embed.shape
     cr = match.shape[-1]
-    l_ = (hp // s) * (wp // s)
     if (s, c, cr) != (S, C, CR):
-        raise ValueError(f"csa_stencil kernel is built for s={S}, C={C}, "
+        raise ValueError(f"{name} kernel is built for s={S}, C={C}, "
                          f"Cr={CR}; got s={s}, C={c}, Cr={cr}")
-    _build.check_tensor(match, (b, hp, wp, CR), "match")
-    _build.check_tensor(keys, (b, l_, 9 * CR), "keys")
-    _build.check_tensor(embed, (b, hp, wp, C), "embed")
     if hp % s or wp % s:
-        raise ValueError(f"csa_stencil needs Hp, Wp divisible by {s}")
+        raise ValueError(f"{name} needs Hp, Wp divisible by {s}")
+    _build.check_tensor(match, (b, hp, wp, CR), "match")
+    _build.check_tensor(keys, (b, (hp // s) * (wp // s), 9 * CR), "keys")
+    _build.check_tensor(embed, (b, hp, wp, C), "embed")
+    return b, hp, wp
+
+
+def csa_stencil_fused(match: torch.Tensor, keys: torch.Tensor,
+                      embed: torch.Tensor, scale: float,
+                      s: int) -> torch.Tensor:
+    """K4 on CUDA tensors, the plain version on CPU tensors."""
+    if match.device.type == "cpu":
+        return csa_stencil_fused_plain(match, keys, embed, scale, s)
+    b, hp, wp = check_inputs("csa_stencil_fused", match, keys, embed, s)
     dev = match.device
     m_buf = torch.empty(b, hp * wp, device=dev, dtype=torch.float32)
     l_buf = torch.empty_like(m_buf)
     out = torch.empty(b, s * hp, s * wp, C, device=dev, dtype=torch.float32)
-    lib = _build.load("csa_stencil")
-    fn = lib.csa_stencil
+    fn = _build.load("csa_stencil").csa_stencil_fused
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     err = fn(_build.ptr(match), _build.ptr(keys), _build.ptr(embed),
              _build.ptr(m_buf), _build.ptr(l_buf), _build.ptr(out),
              b, hp, wp, float(scale), _build.stream_ptr(dev))
+    kernels.LAUNCHES["csa_stencil_fused"] += 1
+    _build.check(err, "csa_stencil_fused")
+    return out
+
+
+def csa_stencil(match: torch.Tensor, keys: torch.Tensor,
+                embed: torch.Tensor, scale: float, s: int) -> torch.Tensor:
+    """Row 5 on CUDA tensors (Ā through device memory: B·P·⌈L/64⌉·64 bf16
+    scratch), the plain version on CPU tensors."""
+    if match.device.type == "cpu":
+        return csa_stencil_plain(match, keys, embed, scale, s)
+    b, hp, wp = check_inputs("csa_stencil", match, keys, embed, s)
+    dev = match.device
+    lda = -(-keys.shape[1] // 64) * 64
+    m_buf = torch.empty(b, hp * wp, device=dev, dtype=torch.float32)
+    l_buf = torch.empty_like(m_buf)
+    abar = torch.empty(b, hp * wp, lda, device=dev, dtype=torch.bfloat16)
+    out = torch.empty(b, s * hp, s * wp, C, device=dev, dtype=torch.float32)
+    fn = _build.load("csa_stencil").csa_stencil
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(*(_build.ptr(t) for t in (match, keys, embed, m_buf, l_buf,
+                                       abar, out)),
+             b, hp, wp, lda, float(scale), _build.stream_ptr(dev))
     kernels.LAUNCHES["csa_stencil"] += 1
     _build.check(err, "csa_stencil")
     return out

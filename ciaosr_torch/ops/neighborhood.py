@@ -1,4 +1,5 @@
-"""Neighbourhood extraction on NHWC, tap-major layout.
+"""Neighbourhood extraction (and the overlap-add that pastes patches back)
+on NHWC, tap-major layout.
 
 Counterpart of ciaosr_tpu/ops/neighborhood.py. The flattened patch layout
 is tap-major, ``j = tap * C + c`` with ``tap = dy * k + dx``; PyTorch's
@@ -68,6 +69,30 @@ def extract_patches_same(x: torch.Tensor, ksize: int,
             for dy in range(ksize) for dx in range(ksize)]
     return torch.cat(taps, dim=-1).reshape(b, out_h * out_w,
                                             ksize * ksize * c)
+
+
+def plane_major_perm(s: int, c: int) -> np.ndarray:
+    """Column permutation of a (3s)² patch bank: tap-major (t, a, r, b, c)
+    → plane-major (t, r, a, b, c), so ``bank[..., perm]`` holds each (t, r)
+    tap plane as s²C consecutive columns."""
+    return np.arange(9 * s * s * c).reshape(3, s, 3, s, c).transpose(
+        0, 2, 1, 3, 4).reshape(-1)
+
+
+def overlap_add(k_maps: torch.Tensor, hp: int, wp: int, s: int,
+                channels: int) -> torch.Tensor:
+    """Paste per-pixel (3s)×(3s) kernels at stride s with padding s:
+    k_maps (B, Hp·Wp, (3s)²C) tap-major → (B, s·Hp, s·Wp, C), i.e.
+    conv_transpose2d of the attention with the blended kernels. Row t of
+    query pixel i lands on output block i + t − 1 (the JAX package's
+    models/csa.py::_overlap_add derives it)."""
+    b = k_maps.shape[0]
+    k6 = k_maps.reshape(b, hp, wp, 3, s, 3, s, channels)
+    padded = F.pad(k6, (0,) * 10 + (1, 1, 1, 1))
+    out = sum(padded[:, 2 - t:2 - t + hp, 2 - r:2 - r + wp, t, :, r]
+              for t in range(3) for r in range(3))
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hp * s, wp * s,
+                                                 channels)
 
 
 def shift_edge(t: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

@@ -9,7 +9,7 @@ import torch
 
 from ciaosr_torch.convert.from_jax import csa_state_dict_from_jax
 from ciaosr_torch.models.csa import CrossScaleAttention
-from ciaosr_torch.ops.kernels.csa_stencil import csa_stencil
+from ciaosr_torch.ops.kernels.csa_stencil import csa_stencil_fused
 from ciaosr_tpu.models.csa import CrossScaleAttention as JaxCSA
 from ciaosr_tpu.models.csa import _stencil_reconstruct
 from ciaosr_tpu.ops.neighborhood import extract_patches_same
@@ -32,8 +32,12 @@ def test_csa_matches_jax(rng, hw):
         routed = csa(torch.from_numpy(x), use_kernel=True).numpy()
     assert plain.shape == ref.shape == (2, *hw, c)
     np.testing.assert_allclose(plain, ref, atol=1e-5, rtol=0)
-    # on CPU tensors the kernel wrapper is the plain version
-    np.testing.assert_array_equal(routed, plain)
+    # on CPU tensors the kernel route runs the plain version of the kernel
+    # csa_route picks: the stencil form itself at 16×16, the bank form
+    # (streaming) at 16×18, which equals it to f32 rounding
+    if hw == (16, 16):
+        np.testing.assert_array_equal(routed, plain)
+    np.testing.assert_allclose(routed, ref, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("b,hp,wp,s", [(2, 12, 16, 2), (1, 9, 6, 3)])
@@ -49,6 +53,6 @@ def test_plain_k4_matches_stencil_reconstruct(rng, b, hp, wp, s):
         jnp.einsum("bpk,blk->bpl", x_nb, jnp.asarray(keys)) * scale, -1)
     ref = np.asarray(_stencil_reconstruct(attn, jnp.asarray(embed), hp, wp,
                                           s, c))
-    got = csa_stencil(torch.from_numpy(match), torch.from_numpy(keys),
-                      torch.from_numpy(embed), scale, s).numpy()
+    got = csa_stencil_fused(torch.from_numpy(match), torch.from_numpy(keys),
+                            torch.from_numpy(embed), scale, s).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)

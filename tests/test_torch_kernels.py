@@ -1,7 +1,8 @@
 """The port's CUDA kernels (bf16) against their plain PyTorch versions
 (f32, the same input values): max|Δ|/max|ref| ≤ 1e-2, the bf16 class the
 JAX kernels hold. The decode kernel is held at integer scales and, in its
-rational mode, at ×2.5, ×7/3, ×1.5, 5/3 × 7/2 and an odd width. Needs a
+rational mode, at ×2.5, ×7/3, ×1.5, 5/3 × 7/2 and an odd width; the CSA
+kernels (K4, rows 5-8) at ragged, non-square geometries. Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
 ``python -m pytest --noconftest -q tests/test_torch_kernels.py`` (this file
 imports no JAX). Shapes are flagship widths (C = 64, hidden 256) at small,
@@ -157,20 +158,76 @@ def test_rational_route_matches_plain_route(case):
     assert _rel(got, ref) <= REL_TOL
 
 
-@pytest.mark.parametrize("hw", [(21, 37), (16, 32)])
-@torch.inference_mode()
-def test_csa_stencil(case, hw):
-    from ciaosr_torch.ops.kernels import csa_stencil as k4
+def _csa_inputs(case, hw):
+    """match, keys, embed (bf16) of the CSA at an H × W feature map; odd
+    sizes are reflect-padded to even ones."""
     net, feat, _, _ = case
     x = torch.nn.functional.interpolate(
         feat.permute(0, 3, 1, 2).float(), size=hw).permute(0, 2, 3, 1)
-    match, keys, embed = net.cs_attn.stencil_inputs(
-        x.to(torch.bfloat16).contiguous(), 2, torch.bfloat16)
-    got = k4.csa_stencil(match, keys, embed, 10.0, 2)
-    ref = k4.csa_stencil_plain(match.float(), keys.float(), embed.float(),
-                               10.0, 2)
+    return net.cs_attn.stencil_inputs(x.to(torch.bfloat16).contiguous(), 2,
+                                      torch.bfloat16)
+
+
+# (21, 37) pads to 22×38: P = 836 and L = 209 are not multiples of a tile
+CSA_HW = [(21, 37), (16, 32), (9, 70)]
+
+
+@pytest.mark.parametrize("name", ["csa_stencil_fused", "csa_stencil"])
+@pytest.mark.parametrize("hw", CSA_HW)
+@torch.inference_mode()
+def test_csa_stencil_forms(case, hw, name):
+    """K4 and row 5 (Ā through device memory): the same function."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    match, keys, embed = _csa_inputs(case, hw)
+    n0 = kernels.LAUNCHES[name]
+    got = getattr(st, name)(match, keys, embed, 10.0, 2)
+    assert kernels.LAUNCHES[name] == n0 + 1
+    ref = getattr(st, name + "_plain")(match.float(), keys.float(),
+                                       embed.float(), 10.0, 2)
     assert got.shape == ref.shape
     assert _rel(got, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("hw", CSA_HW)
+@torch.inference_mode()
+def test_csa_fused(case, hw):
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    match, keys, embed = _csa_inputs(case, hw)
+    got = ca.csa_fused(match, keys, embed, 10.0, 2)
+    ref = ca.csa_fused_plain(match.float(), keys.float(), embed.float(),
+                             10.0, 2)
+    assert got.shape == ref.shape == (2, *(2 * n for n in match.shape[1:3]),
+                                      64)
+    assert _rel(got, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("hw", CSA_HW)
+@torch.inference_mode()
+def test_csa_attention_banks(case, hw):
+    """Rows 7 (tap-major bank, k_maps out) and 8 (plane-major bank, pasted
+    out) on the banks of extract_patches_same; the geometries are not
+    square, so a swapped plane order would show."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.neighborhood import (extract_patches_same,
+                                               plane_major_perm)
+    match, keys, embed = _csa_inputs(case, hw)
+    hp, wp = match.shape[1:3]
+    q = extract_patches_same(match, 3, 1).contiguous()
+    v = extract_patches_same(embed, 6, 2).contiguous()
+    perm = torch.as_tensor(plane_major_perm(2, 64), device=v.device)
+    v_pm = v[..., perm].contiguous()
+    got7 = ca.csa_attention(q, keys, v, 10.0)
+    ref7 = ca.csa_attention_plain(q.float(), keys.float(), v.float(), 10.0)
+    assert got7.shape == ref7.shape == (2, hp * wp, 2304)
+    assert _rel(got7, ref7) <= REL_TOL
+    got8 = ca.csa_attention_overlap_add(q, keys, v_pm, 10.0, hp, wp, 2)
+    ref8 = ca.csa_attention_overlap_add_plain(q.float(), keys.float(),
+                                              v_pm.float(), 10.0, hp, wp, 2)
+    assert _rel(got8, ref8) <= REL_TOL
+    # the same function as row 6 on the maps the banks came from
+    assert _rel(got8, ca.csa_fused_plain(match.float(), keys.float(),
+                                         embed.float(), 10.0, 2)) <= REL_TOL
 
 
 @torch.inference_mode()
@@ -187,10 +244,42 @@ def test_kernel_route_matches_plain_route(case):
 
 
 def test_wrappers_reject_f32(case):
-    from ciaosr_torch.ops.kernels import csa_stencil as k4
+    from ciaosr_torch.ops.kernels import csa_stencil as st
     _, feat, csa, dk = case
     w = torch.zeros(576, 256, device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         dk.f3p_build(feat.float(), csa, w, w, w[:64])
     with pytest.raises(ValueError, match="s=2"):
-        k4.csa_stencil(csa, csa, csa, 10.0, 3)
+        st.csa_stencil_fused(csa, csa, csa, 10.0, 3)
+
+
+@pytest.mark.parametrize("name", ["csa_stencil_fused", "csa_stencil",
+                                  "csa_fused"])
+def test_csa_map_wrappers_reject(case, name):
+    """f32 maps and non-flagship channels raise; nothing falls back."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    fn = getattr(st, name, None) or getattr(ca, name)
+    match, keys, embed = _csa_inputs(case, (16, 32))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fn(match.float(), keys, embed, 10.0, 2)
+    with pytest.raises(ValueError, match="C=64"):
+        fn(match, keys, embed[..., :32].contiguous(), 10.0, 2)
+    with pytest.raises(ValueError, match="Cr=32"):
+        fn(match[..., :16].contiguous(), keys, embed, 10.0, 2)
+
+
+def test_csa_bank_wrappers_reject(case):
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    q = torch.zeros(1, 40, 288, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 10, 288, device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros(1, 10, 2304, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ca.csa_attention(q.float(), k, v, 10.0)
+    with pytest.raises(ValueError, match="Dv=2304"):
+        ca.csa_attention(q, k, v[..., :576].contiguous(), 10.0)
+    with pytest.raises(ValueError, match="Dk=288"):
+        ca.csa_attention_overlap_add(q[..., :72].contiguous(), k, v, 10.0,
+                                     4, 10, 2)
+    with pytest.raises(ValueError, match="P = Hp"):
+        ca.csa_attention_overlap_add(q, k, v, 10.0, 4, 8, 2)
