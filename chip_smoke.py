@@ -26,8 +26,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      each output and which kernels each path ran, and holds the kernel
      route against the plain f32 route on small inputs at ×4, ×2.5, ×7/3,
      the odd width and three streaming CSA geometries;
-  5. times the full-image requests warm, and prints the script's total
-     time, the kernels line, the card line, and the result line last.
+  5. times the full-image requests warm;
+  6. the SwinIR-CiaoSR generator of the 002 configs (180 channels, 6 × 6
+     Swin blocks, no CSA; bf16, seeded random weights, full width and
+     depth): the Swin block kernel (row 11, a shifted and an unshifted
+     block on a 256² tile's tokens) and the decode kernels at C = 180 held
+     against their plain versions; ``forward_test`` at ×4 with tile 256,
+     overlap 32 on a 384² image (4 tiles), on a 70² image (one tile), and
+     the 70² image at ×2.5, each with its exact launch counts (the Swin
+     block 36 × tiles, K1-K3 once per tile, no CSA kernel); the kernel
+     route against the plain f32 route on 48² and 70² at ×4; the stage
+     breakdown of one 256 tile and the warm time of the 384² request;
+  7. prints the script's total time, the kernels line, the card line, and
+     the result line last.
 ``python3 chip_smoke.py --full-image`` builds the kernels and only times
 the full-image requests (no result line): copied into another checkout,
 it times that tree's routes the same way.
@@ -85,6 +96,31 @@ CSA_KERNELS = ("csa_stencil_fused", "csa_stencil", "csa_fused",
 TEST_CFG = dict(metrics=["PSNR", "SSIM"], crop_border=4, scale=4, tile=TILE,
                 tile_overlap=32, convert_to="y")
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
+# the generator of configs/002_real_{gan,wogan}_localimplicitsr_swinir_*
+# (their 'generator' dicts, copied): SwinIR-CiaoSR without CSA; bf16
+# compute, the kernel route. Its published eval: x4, tile 256, overlap 32.
+SWIN_002 = dict(
+    type="LocalImplicitSRSWINIR", window_size=8,
+    encoder=dict(type="SwinIR", upscale=4, in_chans=3, img_size=48,
+                 window_size=8, compress_ratio=3, squeeze_factor=30,
+                 conv_scale=0.01, overlap_ratio=0.5, img_range=1.0,
+                 depths=[6, 6, 6, 6, 6, 6], embed_dim=180,
+                 num_heads=[6, 6, 6, 6, 6, 6], mlp_ratio=2,
+                 upsampler="pixelshuffle", resi_connection="1conv"),
+    imnet_q=dict(type="MLPRefiner", in_dim=4, out_dim=3,
+                 hidden_list=[256, 256, 256, 256]),
+    imnet_k=dict(type="MLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256, 256, 256]),
+    imnet_v=dict(type="MLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256, 256, 256]),
+    feat_unfold=True, eval_bsize=30000, local_ensemble_coord=True,
+    non_local_attn=False, dtype="bf16", use_kernels=True)
+SWIN_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=256,
+                     tile_overlap=32)
+# the SwinIR requests: a SWIN_IMG² image in SWIN_TILE² tiles, one
+# SWIN_ODD image (one tile; the encoder pads it to a window multiple), and
+# the route checks' SWIN_SMALL and SWIN_ODD images
+SWIN_IMG, SWIN_TILE, SWIN_SMALL, SWIN_ODD = 384, 256, (48, 48), (70, 70)
 
 
 def log(msg: str) -> None:
@@ -123,12 +159,13 @@ def errors(got, ref) -> tuple[float, float]:
 
 
 def f32(x):
-    """f32 copies of the floating tensors in a tensor, tuple or dict."""
+    """f32 copies of the floating tensors in a tensor, tuple or dict (None
+    stays None)."""
     if isinstance(x, dict):
         return {k: f32(v) for k, v in x.items()}
     if isinstance(x, tuple):
         return tuple(f32(v) for v in x)
-    return x.float() if x.is_floating_point() else x
+    return x.float() if x is not None and x.is_floating_point() else x
 
 
 def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
@@ -484,6 +521,221 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
         log(f"  {t / 1e3:9.3f} ms  x{n:<4d} {key[:90]}")
 
 
+def swin_blocks(net):
+    """The Swin blocks of a SwinIR generator, in order."""
+    return [blk for layer in net.encoder.layers
+            for blk in layer.residual_group.blocks]
+
+
+def check_swin_kernels(swin, lq_tile: torch.Tensor) -> list[dict]:
+    """Row 11 on the first group's real tokens of one SWIN_TILE² tile (its
+    first, unshifted block, and its second, shifted one on the first's
+    output; ``ms`` is the shifted block's, ``ms_noshift`` the other's), and
+    K1, K2, K3 (integer ×4 and rational ×2.5) at C = 180 on that tile's
+    features: each kernel (bf16) against its plain version (f32, same
+    values). Bounds count the function's work at C = 180 (no padding)."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+    from ciaosr_torch.ops.kernels import swin_block as sb
+
+    net = swin.generator
+    dt, hid = torch.bfloat16, 256
+    blk0, blk1 = swin_blocks(net)[:2]
+    with torch.inference_mode():
+        x = swin.normalize(lq_tile)
+        tok0 = net.encoder.embed(x, dt)[0].contiguous()
+        b, h, w, c = tok0.shape
+        ws, shift = blk1.geometry(h, w)
+        tok1 = torch.roll(blk0(tok0, dt, True), (-shift, -shift),
+                          (1, 2)).contiguous()
+        pk0, pk1 = blk0.packed(ws, dt), blk1.packed(ws, dt)
+        feature = net.gen_feature(x)
+        maps = net._kernel_maps(feature, (0.5, 0.5))
+        feat_p, _, gk, gv, wt, ck, pk = maps
+        tabs = dk.decoder_tables(4, h, w, net.local_size, feature.device)
+        py, qy = 5, 2
+        maps_r = net._kernel_maps(feature, rational_cell(
+            h, w, h * py // qy, w * py // qy))
+        tabs_r = dk.rational_tables(h, w, py, qy, py, qy, net.local_size,
+                                    feature.device)
+    rows = []
+    # the function's work: T tokens, N keys a window, the f32 map in/out
+    t_, n_ = b * h * w, ws * ws
+    hdn = blk0.mlp.fc1.out_features
+    heads = blk0.attn.num_heads
+    swin_flops = 2 * t_ * c * (3 * c + c + 2 * hdn) + 4 * t_ * n_ * c
+    swin_bytes = (2 * t_ * c * 4 + (4 * c * c + 2 * c * hdn) * 2
+                  + heads * n_ * n_ * 4 + (9 * c + hdn) * 4)
+    name, source = f"swin_block@{h}x{w}", "ciaosr_torch/csrc/swin_block.cu"
+    replaces = "ciaosr_tpu/ops/pallas/swin_block.py:380 (_swin_block_call)"
+    row = kernel_row(
+        name, source, replaces, lambda: sb.swin_block(tok1, pk1, ws, shift),
+        lambda: sb.swin_block_plain(tok1, f32(pk1), ws, shift),
+        swin_flops, swin_bytes, None)
+    row0 = kernel_row(
+        name + " unshifted", source, replaces,
+        lambda: sb.swin_block(tok0, pk0, ws, 0),
+        lambda: sb.swin_block_plain(tok0, f32(pk0), ws, 0), swin_flops,
+        swin_bytes, None)
+    row.update(ms_noshift=row0["ms"], plain_ms_noshift=row0["plain_ms"],
+               max_abs_err=max(row["max_abs_err"], row0["max_abs_err"]),
+               max_rel_err=max(row["max_rel_err"], row0["max_rel_err"]))
+    rows.append(row)
+
+    # the block's own increment y - x: the f32 residual x dominates y
+    for tok, pk_, sh in ((tok1, pk1, shift), (tok0, pk0, 0)):
+        with torch.inference_mode():
+            d_abs, d_rel = errors(sb.swin_block(tok, pk_, ws, sh) - tok,
+                                  sb.swin_block_plain(tok, f32(pk_), ws, sh)
+                                  - tok)
+        log(f"kernel {name} shift {sh}: increment y - x max|d|={d_abs:.3e} "
+            f"max|d|/max|ref|={d_rel:.3e}")
+        if not d_rel <= REL_TOL:
+            raise AssertionError(f"{name} shift {sh}: increment error "
+                                 f"{d_rel:.3e} > {REL_TOL}")
+        row["max_rel_err_increment"] = max(
+            row.get("max_rel_err_increment", 0.0), d_rel)
+
+    m = b * h * w
+    cp = feat_p.shape[-1]
+    dk_, src = 9 * c, "ciaosr_tpu/ops/pallas/decoder_kernel.py:"
+    # K1 without CSA: gk/gv = conv3x3(feature), one cuDNN call (the
+    # library yardstick) on the same zero-padded feature and weights
+    w_lib = torch.cat([pk["wk0"], pk["wvu"]], 1).reshape(
+        3, 3, cp, 2 * hid).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    x_lib = feat_p.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    rows.append(kernel_row(
+        "f3p_build@C180", "ciaosr_torch/csrc/f3p_build.cu",
+        src + "623 (_build_f3p)",
+        lambda: dk.f3p_build(feat_p, None, pk["wk0"], pk["wvu"], pk["wvc"]),
+        lambda: dk.f3p_build_plain(*f32((feat_p, None, pk["wk0"], pk["wvu"],
+                                         pk["wvc"]))),
+        2 * m * dk_ * 2 * hid,
+        m * c * 2 + 2 * dk_ * hid * 2 + m * 2 * hid * 2,
+        lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=1)))
+    rows.append(kernel_row(
+        "wt_hoist@C180", "ciaosr_torch/csrc/wt_hoist.cu",
+        src + "762 (_wt_hoist_planes)",
+        lambda: dk.wt_hoist(feat_p, pk["wkout"], pk["bkout"]),
+        lambda: dk.wt_hoist_plain(feat_p.float(), pk["wkout"].float(),
+                                  pk["bkout"]),
+        2 * 9 * m * dk_ * (hid + 1),
+        m * c * 2 + dk_ * hid * 2 + dk_ * 4 + 9 * m * (hid * 2 + 4), None))
+
+    def decode_row(name, replaces, kern, plain, mp, tb, n_phase, m_out):
+        n_shift = len(dk.shift_offsets(net.local_size))
+        mlp = n_shift * (6 * hid * hid + hid * dk_ + hid) + dk_ * hid \
+            + 3 * hid * hid + hid * 3
+        weights = (6 * hid * hid + 2 * hid * dk_ + 3 * hid * hid) * 2
+        tab_bytes = sum(t.numel() * t.element_size() for t in tb.values())
+        rows.append(kernel_row(
+            name, "ciaosr_torch/csrc/grid_decode.cu", replaces,
+            lambda: kern(*mp[:6], mp[6], tb, net.softmax_scale),
+            lambda: plain(*f32(mp[:6]), f32(mp[6]), tb, net.softmax_scale),
+            2 * n_phase * m_out * mlp,
+            m * (c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
+            + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3))
+
+    decode_row("grid_decode@C180", src + "1329 (_grid_decode_halo)",
+               dk.grid_decode, dk.grid_decode_plain, maps, tabs, 16, m)
+    decode_row("grid_decode_rational@C180",
+               src + "1224 (grid_decode_fused_rational)",
+               dk.grid_decode_rational, dk.grid_decode_rational_plain,
+               maps_r, tabs_r, py * py, b * (h // qy) * (w // qy))
+    return rows
+
+
+def swin_route_checks(swin, lq: np.ndarray) -> None:
+    """The SwinIR kernel route (bf16) against the plain f32 route (same
+    seeded weights) at ×4 on SWIN_SMALL and SWIN_ODD crops: the encoder's
+    features, the decoder's output without the bilinear residual (which
+    both routes add in f32 and which dominates the output) and the
+    output, each within REL_TOL."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+    from ciaosr_torch.ops.sampling import interpolate_bilinear
+
+    ref = CiaoSRRestorer(dict(SWIN_002, dtype=None, use_kernels=False),
+                         rgb_mean=RGB_MEAN, device="cuda", seed=0)
+    for hw in (SWIN_SMALL, SWIN_ODD):
+        x = torch.as_tensor(lq[:hw[0], :hw[1]], device="cuda")[None]
+        xn = swin.normalize(x)
+        with torch.inference_mode():
+            base = interpolate_bilinear(xn, 4 * hw[0], 4 * hw[1])
+            errs = {
+                "encoder": errors(swin.generator.gen_feature(xn),
+                                  ref.generator.gen_feature(xn)),
+                "decoder without residual": errors(
+                    swin.generator.decode_grid(xn, 4) - base,
+                    ref.generator.decode_grid(xn, 4) - base)}
+        errs["output"] = errors(swin.grid_predict(x, 4),
+                                ref.grid_predict(x, 4))
+        log(f"e2e SwinIR kernel route (bf16) vs plain route (f32), "
+            f"{hw[0]}x{hw[1]} x4: " + "; ".join(
+                f"{k} max|d|={a:.3e} max|d|/max|ref|={r:.3e}"
+                for k, (a, r) in errs.items()))
+        bad = {k: r for k, (_, r) in errs.items() if not r <= REL_TOL}
+        if bad:
+            raise AssertionError(f"SwinIR kernel route disagrees at "
+                                 f"{hw[0]}x{hw[1]}: {bad}")
+
+
+def swin_breakdown(swin, lq_tile: torch.Tensor) -> None:
+    """Where one SWIN_TILE² tile's ×4 time goes: CUDA-event time per stage
+    of the kernel route (the 36 Swin blocks, the convs and LayerNorms
+    around them, weight packing, K1, K2, K3) and the whole tile."""
+    from ciaosr_torch.models.rdn import conv
+    from ciaosr_torch.ops.kernels import decoder as dk
+    from ciaosr_torch.ops.kernels import swin_block as sb
+
+    net, dt = swin.generator, torch.bfloat16
+    enc, blocks = net.encoder, swin_blocks(swin.generator)
+    with torch.inference_mode():
+        x = swin.normalize(lq_tile)
+        tok, skip = enc.embed(x, dt)
+        feature = net.gen_feature(x)
+        feat_p, _, gk, gv, wt, ck, pk = net._kernel_maps(feature,
+                                                         (0.5, 0.5))
+        h, w = feature.shape[1:3]
+        tabs = dk.decoder_tables(4, h, w, net.local_size, feature.device)
+
+        def all_blocks():
+            t = tok
+            for blk in blocks:
+                t = blk(t, dt, True)
+            return t
+
+        def convs_and_norms():   # the encoder without its Swin blocks
+            t, sk = enc.embed(x, dt)
+            for layer in enc.layers:
+                t = conv(t.permute(0, 3, 1, 2), layer.conv, dt).permute(
+                    0, 2, 3, 1) + t
+            return enc.head(t, sk, h, w, dt)
+
+        stages = {
+            f"Swin blocks ({len(blocks)} kernels + rolls)": all_blocks,
+            "convs + LayerNorms (cuDNN bf16)": convs_and_norms,
+            f"pack weights ({len(blocks)} Swin blocks + decoder, host)":
+                lambda: ([sb.pack_swin_block(blk, enc.window_size, dt)
+                          for blk in blocks],
+                         dk.pack_decoder(net.imnet_k, net.imnet_v,
+                                         net.imnet_q, feature.shape[-1],
+                                         (0.5, 0.5), dt,
+                                         c_pad=feat_p.shape[-1])),
+            "K1 f3p_build@C180": lambda: dk.f3p_build(
+                feat_p, None, pk["wk0"], pk["wvu"], pk["wvc"]),
+            "K2 wt_hoist@C180": lambda: dk.wt_hoist(feat_p, pk["wkout"],
+                                                    pk["bkout"]),
+            "K3 grid_decode@C180": lambda: dk.grid_decode(
+                feat_p, None, gk, gv, wt, ck, pk, tabs, net.softmax_scale),
+            "whole tile (grid_predict x4)": lambda: swin.grid_predict(
+                lq_tile, 4),
+        }
+        for name, fn in stages.items():
+            log(f"stage SwinIR {name}: {time_ms(fn, reps=3, warm=1):.3f} ms")
+
+
 def main() -> int:
     """``--full-image``: build, then only time_full_images (no result
     line)."""
@@ -493,7 +745,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from ciaosr_torch.models.restorers import CiaoSRRestorer
+        from ciaosr_torch.models.restorers import (CiaoSRRestorer,
+                                                   tile_layout)
         from ciaosr_torch.ops import kernels
         from ciaosr_torch.ops.kernels import _build
     except ImportError as e:
@@ -710,6 +963,73 @@ def main() -> int:
                                  f"{e2e_rel:.3e}")
 
     breakdown(restorer, tile)
+    del ref_r
+
+    # ---- the SwinIR-CiaoSR generator of the 002 configs
+    swin = CiaoSRRestorer(SWIN_002, rgb_mean=RGB_MEAN,
+                          test_cfg=SWIN_TEST_CFG, device="cuda", seed=0)
+    lq_s = np.random.default_rng(2).random((SWIN_IMG, SWIN_IMG, 3),
+                                           dtype=np.float32)
+    swin_tile = torch.as_tensor(lq_s[:SWIN_TILE, :SWIN_TILE],
+                                device="cuda")[None]
+    swin_rows = check_swin_kernels(swin, swin_tile)
+    n_blocks = len(swin_blocks(swin.generator))
+    no_csa = list(CSA_KERNELS)
+
+    def swin_request(name, img, scale, decode):
+        """forward_test of ``img`` at ``scale``: exactly n_blocks Swin
+        block launches and one of each decode kernel per tile of the
+        request's tiling, nothing else."""
+        _, hs, ws = tile_layout(*img.shape[:2], scale, SWIN_TILE,
+                                SWIN_TEST_CFG["tile_overlap"])
+        tiles = len(hs) * len(ws)
+        out, launches, _ = drive(
+            f"{name} ({tiles} tiles of {SWIN_TILE})",
+            lambda: swin.forward_test(img, scale=scale),
+            ["swin_block", "f3p_build", "wt_hoist", decode],
+            no_csa + [k for k in ("grid_decode", "grid_decode_rational")
+                      if k != decode])
+        want = {"swin_block": n_blocks * tiles, "f3p_build": tiles,
+                "wt_hoist": tiles, decode: tiles}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"path {name}: launches {got}, want {want}")
+        check_image(name, out, hr(img.shape[:2], scale))
+        return launches
+
+    so = lq_s[:SWIN_ODD[0], :SWIN_ODD[1]]
+    sl_x4 = swin_request(f"SwinIR x4 {SWIN_IMG}x{SWIN_IMG}", lq_s, 4,
+                         "grid_decode")
+    sl_odd = swin_request("SwinIR x4 {}x{}".format(*SWIN_ODD), so, 4,
+                          "grid_decode")
+    sl_25 = swin_request("SwinIR x2.5 {}x{}".format(*SWIN_ODD), so, 2.5,
+                         "grid_decode_rational")
+    swin_launches = {
+        f"swin_block@{SWIN_TILE}x{SWIN_TILE}": sum(
+            sl["swin_block"] for sl in (sl_x4, sl_odd, sl_25)),
+        "f3p_build@C180": sum(sl["f3p_build"]
+                              for sl in (sl_x4, sl_odd, sl_25)),
+        "wt_hoist@C180": sum(sl["wt_hoist"] for sl in (sl_x4, sl_odd, sl_25)),
+        "grid_decode@C180": sl_x4["grid_decode"] + sl_odd["grid_decode"],
+        "grid_decode_rational@C180": sl_25["grid_decode_rational"]}
+    for r in swin_rows:
+        r["launches"] = swin_launches[r["name"]]
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "
+            f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']} "
+            f"launches={r['launches']}"
+            + (f" ms_noshift={r['ms_noshift']:.4f}" if "ms_noshift" in r
+               else ""))
+    rows += swin_rows
+    ms_swin = warm_ms(lambda: swin.forward_test(lq_s))
+    n_x4 = sl_x4["f3p_build"]  # one per tile, as swin_request checked
+    log(f"e2e ({kind}; {smi}): SwinIR forward_test {SWIN_IMG}->"
+        f"{4 * SWIN_IMG} x4, {n_x4} tiles of {SWIN_TILE}: warm "
+        f"{ms_swin:.1f} ms = {ms_swin / n_x4:.1f} ms/tile, "
+        f"{(4 * SWIN_IMG) ** 2 / 1e3 / ms_swin:.3f} MP/s")
+    swin_route_checks(swin, lq_s)
+    swin_breakdown(swin, swin_tile)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -1,10 +1,13 @@
 """JAX (flax) param tree → the port's reference-layout state_dict.
 
 Inverts each step of ciaosr_tpu/convert/torch_weights.py::convert_generator
-(for the RDN generator): Dense (in, out) → Linear (out, in); HWIO → OIHW;
-the PReLU scalar → a (1,) weight; ``rdb_i/layers_j`` → ``rdbs.i.layers.j
-.conv``; ``gff_0/1`` → ``gff.0/1``; ``cs_attn/*_conv``/``*_prelu``/``down``
-→ ``cs_attn.*.0``/``.1``/``down``; and the tap-major → channel-major
+(RDN and SwinIR generators): Dense (in, out) → Linear (out, in); HWIO →
+OIHW; LayerNorm ``scale`` → ``weight``; the PReLU scalar → a (1,) weight;
+``rdb_i/layers_j`` → ``rdbs.i.layers.j.conv``; ``gff_0/1`` → ``gff.0/1``;
+``patch_embed_norm`` → ``patch_embed.norm``; ``layers_i/blocks_j/mlp_fc1``
+→ ``layers.i.residual_group.blocks.j.mlp.fc1`` (and the SwinIR
+converter's other block keys); ``cs_attn/*_conv``/``*_prelu``/``down`` →
+``cs_attn.*.0``/``.1``/``down``; and the tap-major → channel-major
 permutation of the imnet unfold blocks. Input: nested dicts of arrays
 (optionally under a top-level "params" key). Output: a dict of f32 CPU
 tensors for ``CiaoSRNet.load_state_dict(strict=True)``.
@@ -28,8 +31,16 @@ def _conv(p: dict, key: str, sd: dict) -> None:
         sd[f"{key}.bias"] = _t(p["bias"])
 
 
+def _ln(p: dict, key: str, sd: dict) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
 def _linear(p: dict, key: str, sd: dict, in_perm=None, out_perm=None):
     w = np.asarray(p["kernel"], np.float32).T          # (out, in) ours
+    if "bias" not in p:       # a bias-free Dense (SwinIR qkv_bias=False)
+        sd[f"{key}.weight"] = _t(w)
+        return
     b = np.asarray(p["bias"], np.float32)
     if in_perm is not None:
         w_t = np.empty_like(w)
@@ -70,28 +81,71 @@ def rdn_state_dict_from_jax(enc: dict) -> dict:
     return sd
 
 
+def swin_block_state_dict_from_jax(blk: dict) -> dict:
+    """One Swin block's subtree → ``norm1``/``attn.*``/``norm2``/``mlp.*``
+    keys (no prefix)."""
+    sd: dict[str, torch.Tensor] = {}
+    _ln(blk["norm1"], "norm1", sd)
+    _ln(blk["norm2"], "norm2", sd)
+    _linear(blk["attn"]["qkv"], "attn.qkv", sd)
+    _linear(blk["attn"]["proj"], "attn.proj", sd)
+    sd["attn.relative_position_bias_table"] = _t(
+        blk["attn"]["relative_position_bias_table"])
+    _linear(blk["mlp_fc1"], "mlp.fc1", sd)
+    _linear(blk["mlp_fc2"], "mlp.fc2", sd)
+    return sd
+
+
+def swinir_state_dict_from_jax(enc: dict) -> dict:
+    """The SwinIR encoder subtree → ``conv_first``/``patch_embed.norm``/
+    ``layers.*``/``norm``/``conv_after_body`` keys (the inverse of
+    ciaosr_tpu/convert/swinir_weights.py::convert_swinir_encoder)."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(enc["conv_first"], "conv_first", sd)
+    if "patch_embed_norm" in enc:
+        _ln(enc["patch_embed_norm"], "patch_embed.norm", sd)
+    n_layers = len([k for k in enc if k.startswith("layers_")])
+    for i in range(n_layers):
+        lp = enc[f"layers_{i}"]
+        n_blocks = len([k for k in lp if k.startswith("blocks_")])
+        for j in range(n_blocks):
+            for k, v in swin_block_state_dict_from_jax(
+                    lp[f"blocks_{j}"]).items():
+                sd[f"layers.{i}.residual_group.blocks.{j}.{k}"] = v
+        _conv(lp["conv"], f"layers.{i}.conv", sd)
+    _ln(enc["norm"], "norm", sd)
+    _conv(enc["conv_after_body"], "conv_after_body", sd)
+    return sd
+
+
+_ENCODERS = {"rdn": rdn_state_dict_from_jax,
+             "swinir": swinir_state_dict_from_jax}
+
+
 def state_dict_from_jax(params: dict, *, feat_dim: int, n_hidden: int = 4,
-                        multi_scale=(2,)) -> dict:
-    """Flax params of a LocalImplicitSRRDN generator (feat_unfold and
-    non-local attention on) → reference-layout state_dict."""
+                        multi_scale=(2,), encoder: str = "rdn",
+                        non_local_attn: bool = True) -> dict:
+    """Flax params of a LocalImplicitSR{RDN,SWINIR} generator (feat_unfold
+    on; non-local attention as given) → reference-layout state_dict."""
     p = params.get("params", params)
     c = feat_dim
     base = 9 * c
-    nla = c * len(multi_scale)
+    nla = c * len(multi_scale) if non_local_attn else 0
     perm = tap_major_perm(c)
 
     def block_perm(extra: int) -> np.ndarray:
         return np.concatenate([perm, base + np.arange(extra)])
 
-    sd = rdn_state_dict_from_jax(p["encoder"])
+    sd = _ENCODERS[encoder](p["encoder"])
     _mlp(p["imnet_q"], "imnet_q", n_hidden, sd, in_perm=block_perm(nla))
     _mlp(p["imnet_k"], "imnet_k", n_hidden, sd, in_perm=block_perm(4),
          out_perm=perm)
     _mlp(p["imnet_v"], "imnet_v", n_hidden, sd, in_perm=block_perm(nla + 4),
          out_perm=block_perm(nla))
-
-    for k, v in csa_state_dict_from_jax(p["cs_attn"], multi_scale).items():
-        sd[f"cs_attn.{k}"] = v
+    if non_local_attn:
+        for k, v in csa_state_dict_from_jax(p["cs_attn"],
+                                            multi_scale).items():
+            sd[f"cs_attn.{k}"] = v
     return sd
 
 

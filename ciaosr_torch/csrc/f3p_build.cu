@@ -14,28 +14,36 @@
 // Bound on the H100: 2*M*(9C*2H + DC*H) = 23.0 GFLOP at M = 192*192,
 // C = DC = 64, H = 256, i.e. 23 us at the bf16 dense peak; bytes (feature
 // + csa in, g_k + g_v out, ~47 MB) take 14 us, so it is compute-bound.
+// SwinIR-CiaoSR (C = 180 padded to 192 with zero weight rows, no CSA) on
+// a 256 x 256 map: 109 GFLOP of the function's, 0.11 ms.
 // Design: an implicit-im2col GEMM. A block builds the unfolded rows of 32
 // pixels (plus their CSA row) in shared memory once, straight from the
 // feature, and 8 warps multiply them by the weights on the tensor cores
-// (wmma bf16, f32 accumulate); weight fragments stream from L2.
+// (wmma bf16, f32 accumulate); weight fragments stream from L2. Compiled
+// for (C, DC) = (64, 64), the flagship, and (192, 0).
 #include "common.cuh"
 
 namespace {
 
-constexpr int C = 64;         // feature channels
-constexpr int DC = 64;        // CSA channels
 constexpr int HID = 256;      // MLP hidden width
-constexpr int DK = 9 * C;     // 576
 constexpr int ROWS = 32;      // pixels per block
-constexpr int LDA = DK + DC + 16;  // 656 bf16: 16-row starts 32B-aligned
 constexpr int THREADS = 256;
-constexpr int SMEM = ROWS * LDA * 2 + 8 * 256 * 4;
 
+// C feature channels, DC CSA channels (0: no CSA)
+template <int C, int DC>
+struct F3p {
+  static constexpr int DK = 9 * C;
+  static constexpr int LDA = DK + DC + 16;  // 16-row starts 32B-aligned
+  static constexpr int SMEM = ROWS * LDA * 2 + 8 * 256 * 4;
+};
+
+template <int C, int DC>
 __global__ void __launch_bounds__(THREADS)
 f3p_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ csa,
            const bf16* __restrict__ wk, const bf16* __restrict__ wvu,
            const bf16* __restrict__ wvc, bf16* __restrict__ gk,
            bf16* __restrict__ gv, int H, int W, int M) {
+  constexpr int DK = F3p<C, DC>::DK, LDA = F3p<C, DC>::LDA;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a = reinterpret_cast<bf16*>(smem);
   float* scratch = reinterpret_cast<float*>(smem + ROWS * LDA * 2);
@@ -43,7 +51,7 @@ f3p_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ csa,
   const int p0 = blockIdx.x * ROWS;
 
   // A rows: [u (9 taps x C) | csa (DC)], 8 bf16 per vector
-  constexpr int VPR = (DK + DC) / 8;  // 80 vectors per row
+  constexpr int VPR = (DK + DC) / 8;  // vectors per row (80 at C = DC = 64)
   for (int idx = tid; idx < ROWS * VPR; idx += THREADS) {
     const int r = idx / VPR, j = idx % VPR;
     const int p = p0 + r;
@@ -98,17 +106,29 @@ f3p_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ csa,
                       col0 + 16 * j);
 }
 
+template <int C, int DC>
+int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
+           const void* wvc, void* gk, void* gv, int B, int H, int W,
+           void* stream) {
+  constexpr int SMEM = F3p<C, DC>::SMEM;
+  static cudaError_t attr = allow_smem(f3p_kernel<C, DC>, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int M = B * H * W;
+  dim3 grid((M + ROWS - 1) / ROWS);
+  f3p_kernel<C, DC><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)feat, (const bf16*)csa, (const bf16*)wk,
+      (const bf16*)wvu, (const bf16*)wvc, (bf16*)gk, (bf16*)gv, H, W, M);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int f3p_build(const void* feat, const void* csa, const void* wk,
                          const void* wvu, const void* wvc, void* gk, void* gv,
-                         int B, int H, int W, void* stream) {
-  static cudaError_t attr = allow_smem(f3p_kernel, SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  const int M = B * H * W;
-  dim3 grid((M + ROWS - 1) / ROWS);
-  f3p_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)feat, (const bf16*)csa, (const bf16*)wk,
-      (const bf16*)wvu, (const bf16*)wvc, (bf16*)gk, (bf16*)gv, H, W, M);
-  return (int)cudaGetLastError();
+                         int B, int H, int W, int C, int DC, void* stream) {
+  if (C == 64 && DC == 64)
+    return launch<64, 64>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
+  if (C == 192 && DC == 0)
+    return launch<192, 0>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
+  return (int)cudaErrorInvalidValue;
 }

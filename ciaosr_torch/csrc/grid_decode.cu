@@ -35,32 +35,55 @@
 // raw feature (3x3 taps at q) where the value modulation needs it, so the
 // 9C unfold never exists in memory. Any H and W; up to 9 shifts, taken
 // 4 at a time.
+//
+// Widths: compiled for (C, DC) = (64, 64), the flagship (DV = 640), and
+// (192, 0), SwinIR-CiaoSR's 180 channels zero-padded, without CSA
+// (DV = 1728). At DV = 1728 the 32 x DV f32 value accumulator (221 KB)
+// does not fit in shared memory, so this "wide" instantiation blends the
+// value 256 columns at a time: the blend is linear, so imnet_q's first
+// layer is sum over chunks of bf16(sum_i attn_i pred_i[:, chunk]) @
+// W_q0[chunk, :]; each chunk's 32 x 256 blend (f32, rounded to bf16 as
+// the flagship rounds the whole outv) is multiplied at once into a
+// 32 x 256 f32 sum in shared memory (196 KB in all). It needs every
+// shift's hidden rows at once, so it takes at most 4 shifts (one group:
+// local_size 1 or 2), checked on the host. Bound at C = 180 on a 256 x 256
+// map at x4: 8.07 TFLOP of the function's, 8.2 ms.
 #include "common.cuh"
 
 namespace {
 
-constexpr int C = 64;
-constexpr int DC = 64;
 constexpr int HID = 256;
-constexpr int DK = 9 * C;        // 576
-constexpr int DV = DK + DC;      // 640
 constexpr int PIX = 32;          // pixels per block
 constexpr int SG = 4;            // shifts stacked per product
 constexpr int ROWS = PIX * SG;   // 128 rows per k/v product
 constexpr int MAX_SHIFT = 9;
 constexpr int LDA = HID + 8;     // 264: activation row stride (128 rows)
-constexpr int LDQ = DV + 16;     // 656: imnet_q input row stride (32 rows)
 constexpr int KC = 32;           // k-rows per staged weight tile
 constexpr int LDW = HID + 8;     // 264
 constexpr int THREADS = 256;
+constexpr int OFF_W = ROWS * LDA * 2;  // act: 67584 B
 
-constexpr int OFF_W = ROWS * LDA * 2;               // act: 67584 B
-constexpr int OFF_OUTV = OFF_W + 2 * KC * LDW * 2;  // weight ring: 33792 B
-constexpr int OFF_SCR = OFF_OUTV + PIX * DV * 4;    // outv: 81920 B
-constexpr int OFF_PART = OFF_SCR + 8 * 256 * 4;     // warp scratch: 8 KB
-constexpr int OFF_LOG = OFF_PART + ROWS * 4 * 4;    // logit partials: 2 KB
-constexpr int SMEM = OFF_LOG + 2 * MAX_SHIFT * PIX * 4;
-static_assert(PIX * LDQ * 2 <= OFF_W, "imnet_q input must fit in act");
+// Shared-memory layout of the (C, DC) instantiation. After the act block
+// and the weight ring (33792 B): the f32 value accumulator outv (PIX x DV;
+// wide: one 32 x 256 chunk of it), in the wide one also the f32 imnet_q
+// sum qacc (32 x 256) and its bf16 chunk input qin (32 x 264); then the
+// warp scratch (8 KB), the logit partials (2 KB), logits and softmax.
+template <int C, int DC>
+struct Lay {
+  static constexpr int DK = 9 * C, DV = DK + DC;
+  static constexpr bool WIDE = PIX * DV * 4 > 96 * 1024;
+  static constexpr int LDQ = DV + 16;  // narrow: imnet_q input row stride
+  static constexpr int OFF_OUTV = OFF_W + 2 * KC * LDW * 2;
+  static constexpr int OFF_QACC = OFF_OUTV + PIX * (WIDE ? HID : DV) * 4;
+  static constexpr int OFF_QIN = OFF_QACC + (WIDE ? PIX * HID * 4 : 0);
+  static constexpr int OFF_SCR = OFF_QIN + (WIDE ? PIX * LDA * 2 : 0);
+  static constexpr int OFF_PART = OFF_SCR + 8 * 256 * 4;
+  static constexpr int OFF_LOG = OFF_PART + ROWS * 4 * 4;
+  static constexpr int SMEM = OFF_LOG + 2 * MAX_SHIFT * PIX * 4;
+  static_assert(WIDE || PIX * LDQ * 2 <= OFF_W,
+                "imnet_q input must fit in act");
+  static_assert(DV % 8 == 0 && (DV % HID) % KC == 0, "DV chunks");
+};
 
 struct Params {
   const bf16 *feat, *csa, *gk, *gv, *wt;
@@ -174,15 +197,19 @@ __device__ void epi_hidden(FragC (&acc)[RF][CF], float* scr,
 
 // RAT = false: integer scale, key = clamp(p + (dy, dx)) with per-phase
 // offsets; RAT = true: rational scale, query and key from the tables.
-template <bool RAT>
+template <int C, int DC, bool RAT>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
+  using L = Lay<C, DC>;
+  constexpr int DK = L::DK, DV = L::DV;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);
   bf16* ring = reinterpret_cast<bf16*>(smem + OFF_W);
-  float* outv = reinterpret_cast<float*>(smem + OFF_OUTV);
-  float* scr = reinterpret_cast<float*>(smem + OFF_SCR);
-  float* part = reinterpret_cast<float*>(smem + OFF_PART);  // [ROWS][4]
-  float* logit = reinterpret_cast<float*>(smem + OFF_LOG);  // [shift][PIX]
+  float* outv = reinterpret_cast<float*>(smem + L::OFF_OUTV);
+  float* qacc = reinterpret_cast<float*>(smem + L::OFF_QACC);  // wide only
+  bf16* qin = reinterpret_cast<bf16*>(smem + L::OFF_QIN);      // wide only
+  float* scr = reinterpret_cast<float*>(smem + L::OFF_SCR);
+  float* part = reinterpret_cast<float*>(smem + L::OFF_PART);  // [ROWS][4]
+  float* logit = reinterpret_cast<float*>(smem + L::OFF_LOG);  // [shift][PIX]
   float* attn = logit + MAX_SHIFT * PIX;
   __shared__ int row_p[PIX], row_b[PIX], row_y[PIX], row_x[PIX];
   __shared__ int r_q[ROWS], r_qy[ROWS], r_qx[ROWS], r_ps[ROWS];
@@ -333,16 +360,22 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
     }
     for (int i = 0; i < NS; ++i) attn[i * PIX + tid] /= den;
   }
-  for (int idx = tid; idx < PIX * DV; idx += THREADS) outv[idx] = 0.f;
+  if constexpr (!L::WIDE)
+    for (int idx = tid; idx < PIX * DV; idx += THREADS) outv[idx] = 0.f;
   __syncthreads();
 
-  // ---- v-paths: outv += attn_i * bf16([u | csa] (.) wv_i)
+  // ---- v-paths: outv += attn_i * bf16([u | csa] (.) wv_i); wide: outv
+  // holds one column chunk, ldo = 256, and goes into imnet_q at once
+  constexpr int LDO = L::WIDE ? HID : DV;
   for (int g0 = 0; g0 < NS; g0 += SG) {
     setup_rows(g0);
     first_layer(P.gv, P.vrel, P.vb0);
     hidden(P.vw, P.vb, 3);
     for (int n0 = 0; n0 < DV; n0 += HID) {
       const int nc = min(HID, DV - n0);
+      const int o0 = L::WIDE ? n0 : 0;  // outv column of value column n0
+      if constexpr (L::WIDE)
+        for (int idx = tid; idx < PIX * HID; idx += THREADS) outv[idx] = 0.f;
       gemm<4, 4, 4>(act, LDA, HID, P.vout, DV, n0, nc, ring, acc);
       const int wr = warp / 4, row0 = wr * 64, col0 = (warp % 4) * 64;
       float* ws = scr + warp * 256;
@@ -376,7 +409,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
                 const float a = attn[(g0 + row / PIX) * PIX + pix];
 #pragma unroll
                 for (int e = 0; e < 8; ++e)
-                  outv[pix * DV + jg + e] +=
+                  outv[pix * LDO + jg - o0 + e] +=
                       a * bfround(bf2f(xv[e]) * (ws[r * 16 + c + e] + P.vbout[jg + e]));
               }
               __syncwarp();
@@ -384,16 +417,47 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
         }
         __syncthreads();
       }
+      if constexpr (L::WIDE) {
+        // this chunk's blend, rounded to bf16, times W_q0's rows of the
+        // chunk, summed into qacc (warp w owns its columns [32w, 32w + 32))
+        for (int idx = tid; idx < PIX * nc; idx += THREADS)
+          qin[(idx / nc) * LDA + idx % nc] = f2bf(outv[(idx / nc) * HID + idx % nc]);
+        __syncthreads();
+        FragC accq[2][2];
+        gemm<2, 2, 8>(qin, LDA, nc, P.qw0 + (size_t)n0 * HID, HID, 0, HID,
+                      ring, accq);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float* dst = qacc + 16 * i * HID + warp * 32 + 16 * j;
+            if (n0 > 0) {
+              FragC old;
+              wm::load_matrix_sync(old, dst, HID, wm::mem_row_major);
+#pragma unroll
+              for (int t = 0; t < old.num_elements; ++t)
+                accq[i][j].x[t] += old.x[t];
+            }
+            wm::store_matrix_sync(dst, accq[i][j], HID, wm::mem_row_major);
+          }
+      }
     }
   }
 
-  // ---- imnet_q: 640 -> 256, three 256 -> 256 hidden layers, 256 -> 3
-  for (int idx = tid; idx < PIX * DV; idx += THREADS)
-    act[(idx / DV) * LDQ + idx % DV] = f2bf(outv[idx]);
-  __syncthreads();
+  // ---- imnet_q: DV -> 256, three 256 -> 256 hidden layers, 256 -> 3
   FragC accq[2][2];
-  gemm<2, 2, 8>(act, LDQ, DV, P.qw0, HID, 0, HID, ring, accq);
-  epi_hidden<2, 2, 8>(accq, scr, P.qb0, act, LDA);
+  if constexpr (L::WIDE) {  // its first layer is summed in qacc already
+    __syncthreads();
+    for (int idx = tid; idx < PIX * HID; idx += THREADS)
+      act[(idx / HID) * LDA + idx % HID] =
+          f2bf(fmaxf(qacc[idx] + P.qb0[idx % HID], 0.f));
+  } else {
+    for (int idx = tid; idx < PIX * DV; idx += THREADS)
+      act[(idx / DV) * L::LDQ + idx % DV] = f2bf(outv[idx]);
+    __syncthreads();
+    gemm<2, 2, 8>(act, L::LDQ, DV, P.qw0, HID, 0, HID, ring, accq);
+    epi_hidden<2, 2, 8>(accq, scr, P.qb0, act, LDA);
+  }
   __syncthreads();
   for (int l = 0; l < 3; ++l) {
     gemm<2, 2, 8>(act, LDA, HID, P.qw + (size_t)l * HID * HID, HID, 0, HID,
@@ -458,15 +522,31 @@ Params common_params(void* const* ptrs, int B, int H, int W, int n_phase,
   return P;
 }
 
+template <int C, int DC, bool RAT>
+int launch(const Params& P, dim3 grid, void* stream) {
+  using L = Lay<C, DC>;
+  static cudaError_t attr = allow_smem(decode_kernel<C, DC, RAT>, L::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  if (P.n_shift < 1 || P.n_shift > (L::WIDE ? SG : MAX_SHIFT))
+    return (int)cudaErrorInvalidValue;
+  decode_kernel<C, DC, RAT>
+      <<<grid, THREADS, L::SMEM, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+template <bool RAT>
+int dispatch(int C, int DC, const Params& P, dim3 grid, void* stream) {
+  if (C == 64 && DC == 64) return launch<64, 64, RAT>(P, grid, stream);
+  if (C == 192 && DC == 0) return launch<192, 0, RAT>(P, grid, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ptrs: the 22 common pointers, then dys, dxs, rely, relx, out
-extern "C" int grid_decode(void* const* ptrs, int B, int H, int W,
-                           int n_phase, int n_shift, float softmax_scale,
-                           void* stream) {
-  static cudaError_t attr = allow_smem(decode_kernel<false>, SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  if (n_shift < 1 || n_shift > MAX_SHIFT) return (int)cudaErrorInvalidValue;
+extern "C" int grid_decode(void* const* ptrs, int B, int H, int W, int C,
+                           int DC, int n_phase, int n_shift,
+                           float softmax_scale, void* stream) {
   Params P = common_params(ptrs, B, H, W, n_phase, n_shift, softmax_scale);
   P.dys = (const int*)ptrs[22];
   P.dxs = (const int*)ptrs[23];
@@ -476,22 +556,17 @@ extern "C" int grid_decode(void* const* ptrs, int B, int H, int W,
   P.OH = H;
   P.OW = W;
   P.MO = P.M;
-  dim3 grid((P.M + PIX - 1) / PIX, n_phase);
-  decode_kernel<false><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  return dispatch<false>(C, DC, P, dim3((P.M + PIX - 1) / PIX, n_phase),
+                         stream);
 }
 
 // ptrs: the 22 common pointers, then yq, yk, xq, xk, rely, relx, out.
 // Phases p = a * px + b, n_phase = py * px; out (B, n_phase, OH, OW, 3).
 extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
-                                    int OH, int OW, int py, int px,
-                                    int n_shift, float softmax_scale,
+                                    int C, int DC, int OH, int OW, int py,
+                                    int px, int n_shift, float softmax_scale,
                                     void* stream) {
-  static cudaError_t attr = allow_smem(decode_kernel<true>, SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  if (n_shift < 1 || n_shift > MAX_SHIFT || py < 1 || px < 1 ||
-      py * px > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (py < 1 || px < 1 || py * px > 65535) return (int)cudaErrorInvalidValue;
   Params P = common_params(ptrs, B, H, W, py * px, n_shift, softmax_scale);
   P.yq = (const int*)ptrs[22];
   P.yk = (const int*)ptrs[23];
@@ -504,7 +579,6 @@ extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
   P.OW = OW;
   P.MO = B * OH * OW;
   P.px = px;
-  dim3 grid((P.MO + PIX - 1) / PIX, py * px);
-  decode_kernel<true><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  return dispatch<true>(C, DC, P, dim3((P.MO + PIX - 1) / PIX, py * px),
+                        stream);
 }

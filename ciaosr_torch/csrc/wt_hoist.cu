@@ -13,26 +13,34 @@
 // Bound on the H100: 2*9*M*9C*256 = 97.8 GFLOP (+0.4 for ck) at
 // M = 192*192, C = 64: 99 us at the bf16 dense peak. Bytes: the 170 MB of
 // bf16 wt written (+1.3 MB ck, 4.7 MB feature read) take 52 us, so it is
-// compute-bound. Design: implicit GEMM as in f3p_build.cu. A block takes
-// 32 pixels and one shift, builds the 32 x 576 qk rows in shared memory
-// from two gathers of the feature, and 8 warps run the 576 -> 256 product
+// compute-bound. SwinIR-CiaoSR (C = 180 padded to 192 with zero weight
+// rows) on a 256 x 256 map: 489 GFLOP of the function's, 0.49 ms.
+// Design: implicit GEMM as in f3p_build.cu. A block takes
+// 32 pixels and one shift, builds the 32 x 9C qk rows in shared memory
+// from two gathers of the feature, and 8 warps run the 9C -> 256 product
 // on the tensor cores; ck is a warp-reduced dot product of the same rows.
+// Compiled for C = 64 (the flagship) and C = 192.
 #include "common.cuh"
 
 namespace {
 
-constexpr int C = 64;
 constexpr int HID = 256;
-constexpr int DK = 9 * C;
 constexpr int ROWS = 32;
-constexpr int LDA = DK + 16;  // 592: 16-row starts stay 32B-aligned
 constexpr int THREADS = 256;
-constexpr int SMEM = ROWS * LDA * 2 + 8 * 256 * 4;
 
+template <int C>
+struct Wt {
+  static constexpr int DK = 9 * C;
+  static constexpr int LDA = DK + 16;  // 16-row starts stay 32B-aligned
+  static constexpr int SMEM = ROWS * LDA * 2 + 8 * 256 * 4;
+};
+
+template <int C>
 __global__ void __launch_bounds__(THREADS)
 wt_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ wkt,
           const float* __restrict__ bk, bf16* __restrict__ wt,
           float* __restrict__ ck, int H, int W, int M) {
+  constexpr int DK = Wt<C>::DK, LDA = Wt<C>::LDA;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a = reinterpret_cast<bf16*>(smem);
   float* scratch = reinterpret_cast<float*>(smem + ROWS * LDA * 2);
@@ -41,7 +49,7 @@ wt_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ wkt,
   const int d = blockIdx.y;
   const int dy = d / 3 - 1, dx = d % 3 - 1;
 
-  constexpr int VPR = DK / 8;  // 72 vectors per row
+  constexpr int VPR = DK / 8;  // vectors per row
   for (int idx = tid; idx < ROWS * VPR; idx += THREADS) {
     const int r = idx / VPR, j = idx % VPR;
     const int p = p0 + r;
@@ -107,17 +115,26 @@ wt_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ wkt,
                       col0 + 16 * j);
 }
 
-}  // namespace
-
-extern "C" int wt_hoist(const void* feat, const void* wkt, const void* bk,
-                        void* wt, void* ck, int B, int H, int W,
-                        void* stream) {
-  static cudaError_t attr = allow_smem(wt_kernel, SMEM);
+template <int C>
+int launch(const void* feat, const void* wkt, const void* bk, void* wt,
+           void* ck, int B, int H, int W, void* stream) {
+  constexpr int SMEM = Wt<C>::SMEM;
+  static cudaError_t attr = allow_smem(wt_kernel<C>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const int M = B * H * W;
   dim3 grid((M + ROWS - 1) / ROWS, 9);
-  wt_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+  wt_kernel<C><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       (const bf16*)feat, (const bf16*)wkt, (const float*)bk, (bf16*)wt,
       (float*)ck, H, W, M);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int wt_hoist(const void* feat, const void* wkt, const void* bk,
+                        void* wt, void* ck, int B, int H, int W, int C,
+                        void* stream) {
+  if (C == 64) return launch<64>(feat, wkt, bk, wt, ck, B, H, W, stream);
+  if (C == 192) return launch<192>(feat, wkt, bk, wt, ck, B, H, W, stream);
+  return (int)cudaErrorInvalidValue;
 }

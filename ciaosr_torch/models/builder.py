@@ -1,17 +1,23 @@
 """Config-driven generator builder with the reference's config surface.
 
-Counterpart of ciaosr_tpu/models/builder.py for ``LocalImplicitSRRDN``:
-an RDN encoder plus MLPRefiner imnet_q/k/v configs. The imnet in/out dims
-are recomputed from the feature width, not read from the config (the net
-overwrites them): imnet_k 580 → 576, imnet_v 644 → 640, imnet_q 640 → 3
-at C = 64. Weights are random, drawn from an explicit seed with PyTorch's
-default Linear/Conv2d init (U(±1/√fan_in)) and PReLU 0.25.
+Counterpart of ciaosr_tpu/models/builder.py for ``LocalImplicitSRRDN``
+(an RDN encoder) and ``LocalImplicitSRSWINIR`` (a SwinIR encoder; the
+generator's ``window_size`` reaches the encoder), plus MLPRefiner
+imnet_q/k/v configs. The imnet in/out dims are recomputed from the feature
+width, not read from the config (the net overwrites them): imnet_k 580 →
+576, imnet_v 644 → 640, imnet_q 640 → 3 at C = 64 with CSA. The 002
+configs' decoder knobs with baked-in semantics are accepted and checked
+as in the JAX package. Weights are random, drawn from an explicit seed
+with PyTorch's default Linear/Conv2d init (U(±1/√fan_in)) and PReLU 0.25;
+the SwinIR trunk then takes the reference's own init (trunc-normal(0.02)
+Linear weights and bias tables, zero Linear biases, LayerNorms 1 / 0).
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import warnings
 
 import torch
 import torch.nn as nn
@@ -19,11 +25,26 @@ import torch.nn as nn
 from ciaosr_torch.core.device import resolve_device, resolve_dtype
 from ciaosr_torch.models.ciaosr import CiaoSRNet
 from ciaosr_torch.models.rdn import RDN
+from ciaosr_torch.models.swinir import SwinIR
 
 _NOT_PORTED = {
     "LocalImplicitSREDSR": "ROADMAP.md queue 1 item 8 (EDSR encoder)",
-    "LocalImplicitSRSWINIR": "ROADMAP.md queue 1 item 8 (SwinIR encoder)",
     "LocalImplicitSRNet": "ROADMAP.md queue 1 item 8 (EDSR encoder)",
+}
+_ENCODERS = {"LocalImplicitSRRDN": ("RDN", RDN),
+             "LocalImplicitSRSWINIR": ("SwinIR", SwinIR)}
+
+# Knobs the 002 configs pass that are constants in the shipped decoder
+# (unfold + lec + mulwkv + res always on): name -> required value.
+_BAKED_IN = {
+    "local_ensemble_coord": True,
+    "imnet_k_type": "mul_w_cell",
+    "imnet_v_type": "mul_w_cell",
+    "res": True,
+    "cat_nla_v": True,
+    "query_mlp": None,
+    "key_mlp": None,
+    "value_mlp": None,
 }
 
 
@@ -31,6 +52,23 @@ def _hidden(imnet_cfg: dict | None, default=(256, 256, 256, 256)) -> tuple:
     if not imnet_cfg:
         return tuple(default)
     return tuple(imnet_cfg.get("hidden_list", default))
+
+
+def _check_baked_in(cfg: dict) -> None:
+    """Pop the baked-in knobs; a contradicting value warns, or raises with
+    ``strict_knobs=True`` (the reference's own __init__ rejects them)."""
+    strict = cfg.pop("strict_knobs", False)
+    for knob, baked in _BAKED_IN.items():
+        if knob in cfg:
+            v = cfg.pop(knob)
+            if v != baked and v is not None:
+                msg = (f"{knob}={v!r} has baked-in semantics "
+                       f"{knob}={baked!r} — the reference collapses these "
+                       "knobs to constants and its own __init__ rejects "
+                       "them; proceeding with the baked-in behavior")
+                if strict:
+                    raise ValueError(msg)
+                warnings.warn(msg, stacklevel=3)
 
 
 @torch.no_grad()
@@ -44,10 +82,13 @@ def init_weights_(module: nn.Module, seed: int) -> None:
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.copy_(torch.empty(m.weight.shape).uniform_(
                 -bound, bound, generator=g))
-            m.bias.copy_(torch.empty(m.bias.shape).uniform_(
-                -bound, bound, generator=g))
+            if m.bias is not None:
+                m.bias.copy_(torch.empty(m.bias.shape).uniform_(
+                    -bound, bound, generator=g))
         elif isinstance(m, nn.PReLU):
             m.weight.fill_(0.25)
+    if isinstance(getattr(module, "encoder", None), SwinIR):
+        module.encoder.init_trunk_(g)
 
 
 def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
@@ -59,16 +100,20 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
     if gname in _NOT_PORTED:
         raise NotImplementedError(f"generator {gname} is not ported yet: "
                                   f"{_NOT_PORTED[gname]}")
-    if gname != "LocalImplicitSRRDN":
+    if gname not in _ENCODERS:
         raise KeyError(f"unknown generator type {gname}")
+    _check_baked_in(cfg)
+    enc_type, enc_cls = _ENCODERS[gname]
     enc_cfg = dict(cfg.pop("encoder"))
-    if enc_cfg.pop("type", "RDN") != "RDN":
-        raise NotImplementedError("LocalImplicitSRRDN takes an RDN encoder")
-    for knob in ("feat_unfold", "non_local_attn"):
-        if not cfg.pop(knob, True):
-            raise NotImplementedError(
-                f"{knob}=False is not ported yet: ROADMAP.md queue 1 item 4")
-    encoder = RDN(**enc_cfg)
+    if enc_cfg.pop("type", enc_type) != enc_type:
+        raise NotImplementedError(f"{gname} takes a {enc_type} encoder")
+    window_size = cfg.pop("window_size", None)
+    if enc_cls is SwinIR and window_size is not None:
+        enc_cfg.setdefault("window_size", window_size)
+    if not cfg.pop("feat_unfold", True):
+        raise NotImplementedError("feat_unfold=False is not ported yet: "
+                                  "ROADMAP.md queue 1 item 4")
+    encoder = enc_cls(**enc_cfg)
     imnet_q = cfg.pop("imnet_q", None)
     imnet_k = cfg.pop("imnet_k", None)
     imnet_v = cfg.pop("imnet_v", None)
@@ -80,6 +125,7 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
         hidden_k=_hidden(imnet_k),
         hidden_v=_hidden(imnet_v),
         local_size=cfg.pop("local_size", 2),
+        non_local_attn=cfg.pop("non_local_attn", True),
         multi_scale=tuple(cfg.pop("multi_scale", (2,))),
         softmax_scale=cfg.pop("softmax_scale", 1.0),
         eval_bsize=cfg.pop("eval_bsize", None),

@@ -15,10 +15,14 @@ Counterpart of ciaosr_tpu/models/ciaosr.py::CiaoSRNet:
     query_rgb_grid_rational_pallas) — CSA as above, K1, K2, then K3 in
     its rational mode.
 
+With ``non_local_attn=False`` (the 002 SwinIR-CiaoSR configs) there is no
+CSA: the value features are the unfold alone and no CSA kernel runs.
+
 State-dict layout is the reference's: the encoder's modules sit at the
-top level (``sfe1``, ``rdbs.*``, ``gff.*`` for RDN), then ``imnet_q/k/v``
-and ``cs_attn``, with channel-major unfold blocks in the imnet first and
-last layers. Public tensors are NHWC.
+top level (``sfe1``, ``rdbs.*``, ``gff.*`` for RDN; ``conv_first``,
+``layers.*``, ... for SwinIR), then ``imnet_q/k/v`` and ``cs_attn``, with
+channel-major unfold blocks in the imnet first and last layers. Public
+tensors are NHWC.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.nn as nn
 
 from ciaosr_torch.models.csa import CrossScaleAttention
 from ciaosr_torch.models.mlp import ImplicitMLP
+from ciaosr_torch.models.swinir import SwinIR
 from ciaosr_torch.ops.kernels import decoder as dk_ops
 from ciaosr_torch.ops.kernels.decoder import (grid_axis_tables,
                                               shift_offsets, take2)
@@ -68,6 +73,7 @@ class CiaoSRNet(nn.Module):
                  out_dim: int = 3, hidden_q: Sequence[int] = (256,) * 4,
                  hidden_k: Sequence[int] = (256,) * 4,
                  hidden_v: Sequence[int] = (256,) * 4, local_size: int = 2,
+                 non_local_attn: bool = True,
                  multi_scale: Sequence[int] = (2,),
                  softmax_scale: float = 1.0,
                  eval_bsize: int | None = 30000,
@@ -81,8 +87,9 @@ class CiaoSRNet(nn.Module):
         for name, mod in encoder.named_children():
             self.add_module(name, mod)
         base = feat_dim * 9
-        nla = feat_dim * len(multi_scale)
+        nla = feat_dim * len(multi_scale) if non_local_attn else 0
         self.local_size = local_size
+        self.non_local_attn = non_local_attn
         self.softmax_scale = softmax_scale
         self.eval_bsize = eval_bsize   # query chunk of the per-query path
         self.dtype = dtype
@@ -90,17 +97,25 @@ class CiaoSRNet(nn.Module):
         self.imnet_q = ImplicitMLP(base + nla, out_dim, hidden_q)
         self.imnet_k = ImplicitMLP(base + 4, base, hidden_k)
         self.imnet_v = ImplicitMLP(base + nla + 4, base + nla, hidden_v)
-        self.cs_attn = CrossScaleAttention(channels=feat_dim,
-                                           scales=multi_scale)
+        if non_local_attn:
+            self.cs_attn = CrossScaleAttention(channels=feat_dim,
+                                               scales=multi_scale)
 
     # ------------------------------------------------------------ features
     def gen_feature(self, x: torch.Tensor) -> torch.Tensor:
-        """Encoder trunk features (B, H, W, C) in the compute dtype."""
+        """Encoder trunk features (B, H, W, C) in the compute dtype; the
+        SwinIR encoder's blocks take their kernel with ``use_kernels`` (the
+        RDN has no kernel of its own: its convs go to cuDNN)."""
+        if isinstance(self.encoder, SwinIR):
+            return self.encoder(x, self.dtype, self.use_kernels)
         return self.encoder(x, self.dtype)
 
     def nl_feature(self, feature: torch.Tensor,
-                   use_kernel: bool = False) -> torch.Tensor:
-        """Cross-scale attention features (B, H, W, C·|scales|)."""
+                   use_kernel: bool = False) -> torch.Tensor | None:
+        """Cross-scale attention features (B, H, W, C·|scales|); None
+        without non-local attention."""
+        if not self.non_local_attn:
+            return None
         return self.cs_attn(feature, use_kernel, self.dtype)
 
     # ----------------------------------------------------------- per query
@@ -137,12 +152,14 @@ class CiaoSRNet(nn.Module):
         iy = nearest_index(coord_s[..., 0], h).clamp(0, h - 1)
         ix = nearest_index(coord_s[..., 1], w).clamp(0, w - 1)
         key = gather_patches(feature, iy, ix)
-        idx = (iy * w + ix).reshape(b, -1).long()
-        nl = torch.gather(
-            nl_feat.reshape(b, h * w, -1), 1,
-            idx[..., None].expand(-1, -1, nl_feat.shape[-1])).reshape(
-                *iy.shape, -1)
-        value = torch.cat([key, nl.to(key.dtype)], -1)
+        value = key
+        if nl_feat is not None:
+            idx = (iy * w + ix).reshape(b, -1).long()
+            nl = torch.gather(
+                nl_feat.reshape(b, h * w, -1), 1,
+                idx[..., None].expand(-1, -1, nl_feat.shape[-1])).reshape(
+                    *iy.shape, -1)
+            value = torch.cat([key, nl.to(key.dtype)], -1)
 
         coord_k = torch.stack([-1.0 + (2.0 * iy.float() + 1.0) / h,
                                -1.0 + (2.0 * ix.float() + 1.0) / w], -1)
@@ -162,17 +179,17 @@ class CiaoSRNet(nn.Module):
     # ---------------------------------------------------------- plain grid
     def _plain_maps(self, feature: torch.Tensor):
         """The plain dense decodes' per-image maps in the compute dtype:
-        u (3×3 unfold, tap-major), v = [u | CSA], the hoisted first-layer
-        products g_k = u@W_k0 and g_v = v@W_v0, and the permutations
-        between the tap-major maps and the MLPs' channel-major blocks
-        (perm for k, vperm for v; inv takes imnet_q's input back)."""
+        u (3×3 unfold, tap-major), v = [u | CSA] (u alone without CSA), the
+        hoisted first-layer products g_k = u@W_k0 and g_v = v@W_v0, and the
+        permutations between the tap-major maps and the MLPs' channel-major
+        blocks (perm for k, vperm for v; inv takes imnet_q's input back)."""
         dt = self.dtype
         dk = 9 * feature.shape[-1]
         perm = torch.as_tensor(tap_major_perm(feature.shape[-1]),
                                device=feature.device)
         u_map = unfold_nhwc(feature).to(dt)
-        csa = self.nl_feature(feature, use_kernel=False).to(dt)
-        v_map = torch.cat([u_map, csa], -1)
+        csa = self.nl_feature(feature, use_kernel=False)
+        v_map = u_map if csa is None else torch.cat([u_map, csa.to(dt)], -1)
         vperm = torch.cat([perm, torch.arange(dk, v_map.shape[-1],
                                               device=perm.device)])
         g_k = u_map @ self.imnet_k.linears[0].weight.to(dt)[:, perm].t()
@@ -237,13 +254,20 @@ class CiaoSRNet(nn.Module):
     # --------------------------------------------------------- kernel grid
     def _kernel_maps(self, feature: torch.Tensor, cell):
         """The kernel routes' per-image inputs in the compute dtype: the
-        feature, CSA through its routed kernel, the packed weights for
-        ``cell``, g_k and g_v through K1, wt and ck through K2."""
+        feature zero-padded to the decode kernels' channel width, CSA
+        through its routed kernel (None without CSA), the packed weights
+        for ``cell`` (zero rows at the padded channels), g_k and g_v
+        through K1, wt and ck through K2."""
         dt = self.dtype
-        feature = feature.to(dt).contiguous()
-        csa = self.nl_feature(feature, use_kernel=True).to(dt).contiguous()
+        c = feature.shape[-1]
+        feature = feature.to(dt)
+        csa = self.nl_feature(feature.contiguous(), use_kernel=True)
+        if csa is not None:
+            csa = csa.to(dt).contiguous()
+        cp = dk_ops.padded_channels(c)
+        feature = torch.nn.functional.pad(feature, (0, cp - c)).contiguous()
         pk = dk_ops.pack_decoder(self.imnet_k, self.imnet_v, self.imnet_q,
-                                 feature.shape[-1], cell, dt)
+                                 c, cell, dt, c_pad=cp)
         gk, gv = dk_ops.f3p_build(feature, csa, pk["wk0"], pk["wvu"],
                                   pk["wvc"])
         wt, ck = dk_ops.wt_hoist(feature, pk["wkout"], pk["bkout"])

@@ -42,6 +42,22 @@ def as_scale_fraction(s) -> Fraction:
     return snap if abs(float(snap) - float(f)) < 1e-9 else f
 
 
+def tile_layout(h: int, w: int, scale, tile: int,
+                tile_overlap: int = 32) -> tuple[int, list[int], list[int]]:
+    """``predict_tiled``'s tiles on an h × w LR image at ``scale`` p/q:
+    the tile size and the tiles' row and column starts, on the image
+    reflect-padded to a multiple of q."""
+    q = as_scale_fraction(scale).denominator
+    h, w = _ceil_to(h, q), _ceil_to(w, q)
+    tile = min(tile, h, w) // q * q
+    if tile <= 0:
+        raise ValueError(f"tile too small for scale {scale}")
+    stride = max(tile - tile_overlap, q) // q * q
+    hs = sorted(set(list(range(0, h - tile, stride)) + [h - tile]))
+    ws = sorted(set(list(range(0, w - tile, stride)) + [w - tile]))
+    return tile, hs, ws
+
+
 class CiaoSRRestorer:
     """Classical CiaoSR restorer (eval). Runs on ``device`` (default: the
     CUDA device; raises without one unless ``device="cpu"``)."""
@@ -108,7 +124,8 @@ class CiaoSRRestorer:
                          tw: int) -> np.ndarray:
         """Per-query decode of the th × tw grid in chunks of eval_bsize
         queries; the last chunk is padded with coord 0 / cell 0.5. The
-        features and CSA are computed once for all chunks."""
+        features and CSA (None without non-local attention) are computed
+        once for all chunks."""
         gen = self.generator
         q = th * tw
         chunk = min(self.eval_bsize or q, q)
@@ -146,12 +163,7 @@ class CiaoSRRestorer:
             lq = np.pad(lq, ((0, hp - h), (0, wp - w), (0, 0)),
                         mode="reflect")
             h, w = hp, wp
-        tile = min(tile, h, w) // q * q
-        if tile <= 0:
-            raise ValueError(f"tile too small for scale {p}/{q}")
-        stride = max(tile - tile_overlap, q) // q * q
-        hs = sorted(set(list(range(0, h - tile, stride)) + [h - tile]))
-        ws = sorted(set(list(range(0, w - tile, stride)) + [w - tile]))
+        tile, hs, ws = tile_layout(h, w, scale, tile, tile_overlap)
         out_t = tile * p // q
         lq_t = self._to_device(lq)
         acc = torch.zeros(h * p // q, w * p // q, 3, device=self.device)

@@ -16,6 +16,14 @@ matrices in the compute dtype, f32 biases, the cell terms folded into the
 first-layer bias, imnet_v's output layer and imnet_q's first layer split
 at 9C. The decoder reads u (the 3×3 unfold) nowhere from memory: K2 and K3
 rebuild it from the raw feature.
+
+Widths. The kernels are compiled for two (C, DC) pairs, ``INSTANCES``: the
+RDN flagship (64 feature, 64 CSA channels) and SwinIR-CiaoSR without CSA
+(DC = 0, csa None) at C = 192, its 180 channels zero-padded
+(``padded_channels``; ``pack_decoder(c_pad=...)`` puts zero rows and
+columns at the padded channels of every unfold block, so the padding
+changes no result). The wrappers read C and DC from their tensors and
+raise for any other pair.
 """
 
 from __future__ import annotations
@@ -32,8 +40,29 @@ from ciaosr_torch.ops.kernels import _build
 from ciaosr_torch.ops.neighborhood import (shift_edge, tap_major_perm,
                                            unfold_nhwc)
 
-# the widths the kernels are compiled for
-C, DC, HID, N_HIDDEN = 64, 64, 256, 4
+# the (C, DC) pairs the kernels are compiled for, and the MLP widths
+INSTANCES = ((64, 64), (192, 0))
+HID, N_HIDDEN = 256, 4
+# at C = 192 the decode kernel blends the value chunk by chunk straight
+# into imnet_q's first layer, which needs every shift's row in one product
+WIDE_MAX_SHIFT = 4
+
+
+def padded_channels(c: int) -> int:
+    """The kernel width a c-channel feature is zero-padded to: the
+    smallest compiled C ≥ c (c itself past the widest)."""
+    return min((w for w, _ in INSTANCES if w >= c), default=c)
+
+
+def widths(feature, csa) -> tuple[int, int]:
+    """(C, DC) of a decode's inputs; DC = 0 without CSA."""
+    return feature.shape[-1], 0 if csa is None else csa.shape[-1]
+
+
+def _check_instance(c: int, dc: int, name: str) -> None:
+    if (c, dc) not in INSTANCES:
+        raise ValueError(f"{name}: the kernels are compiled for (C, DC) in "
+                         f"{INSTANCES}, got ({c}, {dc})")
 
 # the 3×3 edge-clamped shifts d = (dy, dx) in the order of the wt planes
 SHIFTS9 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -83,15 +112,18 @@ def phase_tables(s: int, h: int, w: int, shifts):
 
 
 def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
-                 c: int, cell: Sequence[float], dtype: torch.dtype) -> dict:
+                 c: int, cell: Sequence[float], dtype: torch.dtype,
+                 c_pad: int | None = None) -> dict:
     """Decoder weights in kernel layout from the reference-layout MLPs.
 
     The MLPs' unfold blocks are channel-major (c·9 + tap); the packed ones
-    are tap-major (tap·C + c). Matrices are (in, out) in ``dtype``;
+    are tap-major (tap·C + c) over ``c_pad`` ≥ c channels per tap, zero
+    at the padded ones. Matrices are (in, out) in ``dtype``;
     biases, rel rows and the out layers feeding f32 dot products are f32
     (rounded through ``dtype`` where the kernel multiplies them as such).
     ``cell`` = (cell_y·H, cell_x·W), folded into the first-layer biases:
     (2/s, 2/s) at integer scale s."""
+    cp = c if c_pad is None else c_pad
     dk = 9 * c
     perm = torch.as_tensor(tap_major_perm(c))
     lk, lv, lq = imnet_k.linears, imnet_v.linears, imnet_q.linears
@@ -99,6 +131,17 @@ def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
         raise ValueError("imnet_k/v/q need the same depth")
     dv = lv[0].in_features - 4
     vperm = torch.cat([perm, torch.arange(dk, dv)])
+    dkp, dvp = 9 * cp, 9 * cp + dv - dk
+
+    def spread(t, n, dim=0):   # the real unfold entries to their packed ones
+        if cp == c:
+            return t
+        at = torch.as_tensor([i * cp + ch for i in range(9)
+                              for ch in range(c)] + list(range(dkp, dvp)),
+                             device=t.device)
+        out = t.new_zeros(*t.shape[:dim], n, *t.shape[dim + 1:])
+        return out.index_copy_(dim, at[:t.shape[dim]], t)
+
     cell_y, cell_x = cell
 
     def mat(w):  # torch (out, in) weight → (in, out) in dtype
@@ -119,21 +162,23 @@ def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
 
     wk0, krel, kb0 = first(lk[0], perm, dk)
     wv0, vrel, vb0 = first(lv[0], vperm, dv)
+    wk0, wv0 = spread(wk0, dkp), spread(wv0, dvp)
     kout, vout = lk[-1], lv[-1]
     return {
         "wk0": wk0, "krel": krel, "kb0": kb0,
-        "wvu": wv0[:dk].contiguous(), "wvc": wv0[dk:].contiguous(),
+        "wvu": wv0[:dkp].contiguous(), "wvc": wv0[dkp:].contiguous(),
         "vrel": vrel, "vb0": vb0,
         "kw": torch.stack([mat(l.weight.detach()) for l in lk[1:-1]]),
         "kb": torch.stack([f32(l.bias) for l in lk[1:-1]]),
         "vw": torch.stack([mat(l.weight.detach()) for l in lv[1:-1]]),
         "vb": torch.stack([f32(l.bias) for l in lv[1:-1]]),
         # imnet_k out layer, hoisted: wt = qk @ W, ck = qk · b (tap-major)
-        "wkout": kout.weight.detach()[perm].contiguous().to(dtype),
-        "bkout": f32(kout.bias.detach()[perm].to(dtype)),
-        "vout": mat(vout.weight.detach()[vperm]),
-        "vbout": f32(vout.bias.detach()[vperm]),
-        "qw0": mat(lq[0].weight.detach()[:, vperm]),
+        "wkout": spread(kout.weight.detach()[perm], dkp).contiguous().to(
+            dtype),
+        "bkout": f32(spread(kout.bias.detach()[perm], dkp).to(dtype)),
+        "vout": spread(mat(vout.weight.detach()[vperm]), dvp, 1),
+        "vbout": f32(spread(vout.bias.detach()[vperm], dvp)),
+        "qw0": spread(mat(lq[0].weight.detach()[:, vperm]), dvp),
         "qb0": f32(lq[0].bias),
         "qw": torch.stack([mat(l.weight.detach()) for l in lq[1:-1]]),
         "qb": torch.stack([f32(l.bias) for l in lq[1:-1]]),
@@ -223,32 +268,37 @@ def grid_axis_tables(n: int, tn: int, p: int, local_size: int) -> dict:
 # ------------------------------------------------------------------ K1 --
 
 def f3p_build_plain(feature, csa, wk0, wvu, wvc):
-    """g_k = u@W_k0, g_v = u@W_vu + csa@W_vc with u = unfold(feature)."""
+    """g_k = u@W_k0, g_v = u@W_vu + csa@W_vc (u@W_vu without CSA) with
+    u = unfold(feature)."""
     u = unfold_nhwc(feature)
-    return u @ wk0, u @ wvu + csa @ wvc
+    gv = u @ wvu
+    return u @ wk0, gv if csa is None else gv + csa @ wvc
 
 
 def f3p_build(feature, csa, wk0, wvu, wvc):
-    """K1 on CUDA tensors, the plain version on CPU tensors. feature,
-    csa: (B, H, W, 64); W_k0, W_vu: (576, 256); W_vc: (64, 256).
-    Returns g_k, g_v (B, H, W, 256)."""
+    """K1 on CUDA tensors, the plain version on CPU tensors. feature
+    (B, H, W, C), csa (B, H, W, DC) or None; W_k0, W_vu: (9C, 256); W_vc:
+    (DC, 256). Returns g_k, g_v (B, H, W, 256)."""
     if feature.device.type == "cpu":
         return f3p_build_plain(feature, csa, wk0, wvu, wvc)
     b, h, w, _ = feature.shape
-    _build.check_tensor(feature, (b, h, w, C), "feature")
-    _build.check_tensor(csa, (b, h, w, DC), "csa")
-    _build.check_tensor(wk0, (9 * C, HID), "wk0")
-    _build.check_tensor(wvu, (9 * C, HID), "wvu")
-    _build.check_tensor(wvc, (DC, HID), "wvc")
+    c, dc = widths(feature, csa)
+    _check_instance(c, dc, "f3p_build")
+    _build.check_tensor(feature, (b, h, w, c), "feature")
+    if csa is not None:
+        _build.check_tensor(csa, (b, h, w, dc), "csa")
+    _build.check_tensor(wk0, (9 * c, HID), "wk0")
+    _build.check_tensor(wvu, (9 * c, HID), "wvu")
+    _build.check_tensor(wvc, (dc, HID), "wvc")
     gk = torch.empty(b, h, w, HID, device=feature.device,
                      dtype=torch.bfloat16)
     gv = torch.empty_like(gk)
     fn = _build.load("f3p_build").f3p_build
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    err = fn(*(_build.ptr(t) for t in (feature, csa, wk0, wvu, wvc, gk, gv)),
-             b, h, w, _build.stream_ptr(feature.device))
+    err = fn(*(_ptr(t) for t in (feature, csa, wk0, wvu, wvc, gk, gv)),
+             b, h, w, c, dc, _build.stream_ptr(feature.device))
     kernels.LAUNCHES["f3p_build"] += 1
     _build.check(err, "f3p_build")
     return gk, gv
@@ -270,23 +320,26 @@ def wt_hoist_plain(feature, wkout, bkout):
 
 def wt_hoist(feature, wkout, bkout):
     """K2 on CUDA tensors, the plain version on CPU tensors. feature
-    (B, H, W, 64), W_kout (576, 256), b_kout (576,) f32. Returns wt
+    (B, H, W, C), W_kout (9C, 256), b_kout (9C,) f32. Returns wt
     (9, B, H, W, 256) and ck (9, B, H, W) f32."""
     if feature.device.type == "cpu":
         return wt_hoist_plain(feature, wkout, bkout)
-    b, h, w, _ = feature.shape
-    _build.check_tensor(feature, (b, h, w, C), "feature")
-    _build.check_tensor(wkout, (9 * C, HID), "wkout")
-    _build.check_tensor(bkout, (9 * C,), "bkout", torch.float32)
+    b, h, w, c = feature.shape
+    if c not in (ci for ci, _ in INSTANCES):
+        raise ValueError(f"wt_hoist: the kernel is compiled for C in "
+                         f"{[ci for ci, _ in INSTANCES]}, got {c}")
+    _build.check_tensor(feature, (b, h, w, c), "feature")
+    _build.check_tensor(wkout, (9 * c, HID), "wkout")
+    _build.check_tensor(bkout, (9 * c,), "bkout", torch.float32)
     wt = torch.empty(9, b, h, w, HID, device=feature.device,
                      dtype=torch.bfloat16)
     ck = torch.empty(9, b, h, w, device=feature.device, dtype=torch.float32)
     fn = _build.load("wt_hoist").wt_hoist
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     err = fn(*(_build.ptr(t) for t in (feature, wkout, bkout, wt, ck)),
-             b, h, w, _build.stream_ptr(feature.device))
+             b, h, w, c, _build.stream_ptr(feature.device))
     kernels.LAUNCHES["wt_hoist"] += 1
     _build.check(err, "wt_hoist")
     return wt, ck
@@ -328,8 +381,9 @@ def grid_decode_plain(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
             hv = _mlp_hidden(
                 first(gv, pk["vrel"].to(dt), pk["vb0"].to(dt)),
                 pk["vw"].to(dt), pk["vb"].to(dt))
-            x = torch.cat([shift_edge(u, dy, dx), shift_edge(csa, dy, dx)],
-                          -1)
+            x = shift_edge(u, dy, dx)
+            if csa is not None:
+                x = torch.cat([x, shift_edge(csa, dy, dx)], -1)
             preds.append(x * (hv @ pk["vout"].to(dt) + pk["vbout"].to(dt)))
         out.append(_blend_q(logits, preds, pk, softmax_scale))
     return torch.stack(out, 1)
@@ -350,15 +404,24 @@ _DECODE_ORDER = ("kw", "vw", "vout", "qw0", "qw", "kb", "vb", "vbout",
                  "qbout")
 
 
-def _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk: dict) -> None:
+def _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk: dict,
+                         n_shift: int) -> tuple[int, int]:
     """Raise unless the decode kernel's LR inputs and packed weights have
-    the widths, dtypes and layout it is compiled for."""
+    the widths, dtypes and layout of an instantiation it is compiled for;
+    returns its (C, DC)."""
     b, h, w, _ = feature.shape
+    C, DC = widths(feature, csa)
+    _check_instance(C, DC, "grid_decode")
     if pk["kw"].shape[0] != N_HIDDEN - 1 or pk["qw"].shape[0] != N_HIDDEN - 1:
         raise ValueError(f"grid_decode kernel is built for {N_HIDDEN} "
                          "hidden layers")
+    max_shift = 9 if (C, DC) == INSTANCES[0] else WIDE_MAX_SHIFT
+    if not 1 <= n_shift <= max_shift:
+        raise ValueError(f"grid_decode at C={C} takes 1..{max_shift} "
+                         f"shifts, got {n_shift}")
     _build.check_tensor(feature, (b, h, w, C), "feature")
-    _build.check_tensor(csa, (b, h, w, DC), "csa")
+    if csa is not None:
+        _build.check_tensor(csa, (b, h, w, DC), "csa")
     _build.check_tensor(gk, (b, h, w, HID), "gk")
     _build.check_tensor(gv, (b, h, w, HID), "gv")
     _build.check_tensor(wt, (9, b, h, w, HID), "wt")
@@ -374,6 +437,12 @@ def _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk: dict) -> None:
               "qwout": ((3, HID), f), "qbout": ((3,), f)}
     for k in _DECODE_ORDER:
         _build.check_tensor(pk[k], shapes[k][0], k, shapes[k][1])
+    return C, DC
+
+
+def _ptr(t) -> int:
+    """A tensor's device address; 0 for an absent (None) input."""
+    return 0 if t is None else t.data_ptr()
 
 
 def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
@@ -385,24 +454,22 @@ def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
                                  softmax_scale)
     b, h, w, _ = feature.shape
     n_phase, n_shift = tabs["dys"].shape
-    _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk)
+    c, dc = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk, n_shift)
     f = torch.float32
     _build.check_tensor(tabs["dys"], (n_phase, n_shift), "dys", torch.int32)
     _build.check_tensor(tabs["dxs"], (n_phase, n_shift), "dxs", torch.int32)
     _build.check_tensor(tabs["rely"], (n_phase, n_shift, h), "rely", f)
     _build.check_tensor(tabs["relx"], (n_phase, n_shift, w), "relx", f)
-    if not 1 <= n_shift <= 9:
-        raise ValueError(f"grid_decode takes 1..9 shifts, got {n_shift}")
     out = torch.empty(b, n_phase, h, w, 3, device=feature.device, dtype=f)
     args = [feature, csa, gk, gv, wt, ck, *(pk[k] for k in _DECODE_ORDER),
             tabs["dys"], tabs["dxs"], tabs["rely"], tabs["relx"], out]
-    ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
+    ptrs = (ctypes.c_void_p * len(args))(*(_ptr(t) for t in args))
     fn = _build.load("grid_decode").grid_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, n_phase, n_shift,
-             float(softmax_scale), _build.stream_ptr(feature.device))
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc, n_phase,
+             n_shift, float(softmax_scale), _build.stream_ptr(feature.device))
     kernels.LAUNCHES["grid_decode"] += 1
     _build.check(err, "grid_decode")
     return out
@@ -455,7 +522,9 @@ def grid_decode_rational_plain(feature, csa, gk, gv, wt, ck, pk: dict,
                           + ck_q.permute(2, 0, 1).to(dt))
             hv = _mlp_hidden(first(gv, pk["vrel"].to(dt), pk["vb0"].to(dt)),
                              pk["vw"].to(dt), pk["vb"].to(dt))
-            x = torch.cat([take2(u, ky, kx), take2(csa, ky, kx)], -1)
+            x = take2(u, ky, kx)
+            if csa is not None:
+                x = torch.cat([x, take2(csa, ky, kx)], -1)
             preds.append(x * (hv @ pk["vout"].to(dt) + pk["vbout"].to(dt)))
         out.append(_blend_q(logits, preds, pk, softmax_scale))
     return torch.stack(out, 1)
@@ -472,7 +541,7 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     b, h, w, _ = feature.shape
     py, n_shift, oh = tabs["yk"].shape
     px, _, ow = tabs["xk"].shape
-    _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk)
+    c, dc = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk, n_shift)
     i32, f = torch.int32, torch.float32
     _build.check_tensor(tabs["yq"], (py, oh), "yq", i32)
     _build.check_tensor(tabs["yk"], (py, n_shift, oh), "yk", i32)
@@ -480,19 +549,18 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     _build.check_tensor(tabs["xk"], (px, n_shift, ow), "xk", i32)
     _build.check_tensor(tabs["yrel"], (py, n_shift, oh), "yrel", f)
     _build.check_tensor(tabs["xrel"], (px, n_shift, ow), "xrel", f)
-    if not 1 <= n_shift <= 9:
-        raise ValueError(f"grid_decode takes 1..9 shifts, got {n_shift}")
     out = torch.empty(b, py * px, oh, ow, 3, device=feature.device, dtype=f)
     args = [feature, csa, gk, gv, wt, ck, *(pk[k] for k in _DECODE_ORDER),
             tabs["yq"], tabs["yk"], tabs["xq"], tabs["xk"], tabs["yrel"],
             tabs["xrel"], out]
-    ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
+    ptrs = (ctypes.c_void_p * len(args))(*(_ptr(t) for t in args))
     fn = _build.load("grid_decode").grid_decode_rational
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, oh, ow, py, px,
-             n_shift, float(softmax_scale), _build.stream_ptr(feature.device))
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc, oh, ow, py,
+             px, n_shift, float(softmax_scale),
+             _build.stream_ptr(feature.device))
     kernels.LAUNCHES["grid_decode_rational"] += 1
     _build.check(err, "grid_decode_rational")
     return out

@@ -2,11 +2,13 @@
 (f32, the same input values): max|Δ|/max|ref| ≤ 1e-2, the bf16 class the
 JAX kernels hold. The decode kernel is held at integer scales and, in its
 rational mode, at ×2.5, ×7/3, ×1.5, 5/3 × 7/2 and an odd width; the CSA
-kernels (K4, rows 5-8) at ragged, non-square geometries. Needs a
+kernels (K4, rows 5-8) at ragged, non-square geometries; the Swin block
+(row 11) and K1-K3 at SwinIR-CiaoSR's 180 channels without CSA. Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
 ``python -m pytest --noconftest -q tests/test_torch_kernels.py`` (this file
 imports no JAX). Shapes are flagship widths (C = 64, hidden 256) at small,
-odd spatial sizes so the block tails and partial tiles are exercised.
+odd spatial sizes so the block tails and partial tiles are exercised
+(C = 180, 6 heads, hidden 360 for SwinIR).
 """
 
 import numpy as np
@@ -39,7 +41,7 @@ def _f32(x):
         return {k: _f32(v) for k, v in x.items()}
     if isinstance(x, tuple):
         return tuple(_f32(v) for v in x)
-    return x.float() if x.is_floating_point() else x
+    return x.float() if x is not None and x.is_floating_point() else x
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -283,3 +285,137 @@ def test_csa_bank_wrappers_reject(case):
                                      4, 10, 2)
     with pytest.raises(ValueError, match="P = Hp"):
         ca.csa_attention_overlap_add(q, k, v, 10.0, 4, 8, 2)
+
+
+# ---- the SwinIR-CiaoSR generator of the 002 configs: row 11 and K1-K3 at
+# C = 180 (no CSA), at full width with the depth cut to one group of two
+SWIN_CFG = dict(
+    type="LocalImplicitSRSWINIR", window_size=8,
+    encoder=dict(type="SwinIR", embed_dim=180, depths=[2], num_heads=[6]),
+    imnet_q=dict(type="MLPRefiner", out_dim=3, hidden_list=[256] * 4),
+    imnet_k=dict(type="MLPRefiner", out_dim=64, hidden_list=[256] * 4),
+    imnet_v=dict(type="MLPRefiner", out_dim=64, hidden_list=[256] * 4),
+    non_local_attn=False, dtype="bf16", use_kernels=True)
+
+
+@pytest.fixture(scope="module")
+def swin_case():
+    from ciaosr_torch.models.builder import build_generator
+    net = build_generator(SWIN_CFG, device="cuda", seed=2)
+    lq = np.random.default_rng(1).random((2, 21, 37, 3), dtype=np.float32)
+    x = torch.as_tensor(lq, device="cuda") - 0.45
+    with torch.inference_mode():
+        feat = net.gen_feature(x)
+    return net, x, feat
+
+
+# (24, 40) shifted and not; (16, 16) is two windows a side; (6, 6) shrinks
+# the window to 6 (36 tokens, no shift)
+@pytest.mark.parametrize("hw,block", [((24, 40), 0), ((24, 40), 1),
+                                      ((16, 16), 1), ((6, 6), 1)],
+                         ids=["24x40", "24x40_shifted", "16x16_shifted",
+                              "6x6_window_6"])
+@torch.inference_mode()
+def test_swin_block(swin_case, hw, block):
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    net = swin_case[0]
+    blk = net.encoder.layers[0].residual_group.blocks[block]
+    ws, shift = blk.geometry(*hw)
+    x = torch.as_tensor(np.random.default_rng(hw[0]).standard_normal(
+        (2, *hw, 180)).astype(np.float32), device="cuda")
+    pk = blk.packed(ws, torch.bfloat16)
+    n0 = kernels.LAUNCHES["swin_block"]
+    got = sb.swin_block(x, pk, ws, shift)
+    assert kernels.LAUNCHES["swin_block"] == n0 + 1
+    ref = sb.swin_block_plain(x, _f32(pk), ws, shift)
+    assert got.shape == x.shape
+    assert _rel(got, ref) <= REL_TOL
+    # the residual dominates y: hold the block's own increment too
+    assert _rel(got - x, ref - x) <= REL_TOL
+
+
+def test_swin_block_rejects(swin_case):
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    blk = swin_case[0].encoder.layers[0].residual_group.blocks[0]
+    x = torch.zeros(1, 16, 16, 180, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        sb.swin_block(x, blk.packed(8, torch.float32), 8, 0)
+    with pytest.raises(ValueError, match="window"):
+        sb.swin_block(x[:, :12], blk.packed(8, torch.bfloat16), 8, 0)
+
+
+@pytest.mark.parametrize("scale,local_size", [(4, 2), (3, 2), (2, 1)])
+@torch.inference_mode()
+def test_decode_kernels_c180(swin_case, scale, local_size):
+    """K1, K2 and K3 on the 180-channel feature, zero-padded to 192, no
+    CSA: 4 shifts (one group) and 1."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net, _, feat = swin_case
+    feat_p = torch.nn.functional.pad(feat, (0, 12)).contiguous()
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 180,
+                         (2.0 / scale, 2.0 / scale), torch.bfloat16,
+                         c_pad=192)
+    args = (feat_p, None, pk["wk0"], pk["wvu"], pk["wvc"])
+    gk, gv = dk.f3p_build(*args)
+    assert _rel((gk, gv), dk.f3p_build_plain(*_f32(args))) <= REL_TOL
+    wt, ck = dk.wt_hoist(feat_p, pk["wkout"], pk["bkout"])
+    assert _rel((wt, ck), dk.wt_hoist_plain(
+        feat_p.float(), pk["wkout"].float(), pk["bkout"])) <= REL_TOL
+    tabs = dk.decoder_tables(scale, *feat.shape[1:3], local_size,
+                             feat.device)
+    got = dk.grid_decode(feat_p, None, gk, gv, wt, ck, pk, tabs, 1.0)
+    ref = dk.grid_decode_plain(*_f32((feat_p, None, gk, gv, wt, ck)),
+                               _f32(pk), tabs, 1.0)
+    assert got.shape == (2, scale * scale, 21, 37, 3)
+    assert _rel(got, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("py,qy,px,qx,hw", [(5, 2, 5, 2, (20, 38)),
+                                            (7, 3, 7, 3, (21, 39))],
+                         ids=["x2.5", "x7/3"])
+@torch.inference_mode()
+def test_grid_decode_rational_c180(swin_case, py, qy, px, qx, hw):
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = swin_case[0]
+    x = torch.as_tensor(np.random.default_rng(py).random(
+        (2, *hw, 3), dtype=np.float32), device="cuda") - 0.45
+    h, w = hw
+    maps = net._kernel_maps(net.gen_feature(x), rational_cell(
+        h, w, h * py // qy, w * px // qx))
+    tabs = dk.rational_tables(h, w, py, qy, px, qx, 2, x.device)
+    got = dk.grid_decode_rational(*maps, tabs, 1.0)
+    ref = dk.grid_decode_rational_plain(*_f32(maps[:6]), _f32(maps[6]),
+                                        tabs, 1.0)
+    assert got.shape == (2, py * px, h // qy, w // qx, 3)
+    assert _rel(got, ref) <= REL_TOL
+
+
+def test_wide_decode_rejects_nine_shifts(swin_case):
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net, _, feat = swin_case
+    with torch.inference_mode():
+        maps = net._kernel_maps(feat, (0.5, 0.5))
+    tabs = dk.decoder_tables(4, *feat.shape[1:3], 3, feat.device)
+    with pytest.raises(ValueError, match="shifts"):
+        dk.grid_decode(*maps, tabs, 1.0)
+    with pytest.raises(ValueError, match="compiled for"):
+        dk.f3p_build(maps[0][..., :160].contiguous(), None, maps[6]["wk0"],
+                     maps[6]["wvu"], maps[6]["wvc"])
+
+
+@torch.inference_mode()
+def test_swin_route_matches_plain_route(swin_case):
+    """The whole SwinIR kernel route (Swin block kernels, K1-K3, bf16)
+    against the plain f32 route of the same weights, ×4 on 21 × 37 (the
+    encoder pads to 24 × 40)."""
+    net, x, _ = swin_case
+    got = net.decode_grid(x, 4)
+    net.dtype, net.use_kernels = torch.float32, False
+    try:
+        ref = net.decode_grid(x, 4)
+    finally:
+        net.dtype, net.use_kernels = torch.bfloat16, True
+    assert got.shape == ref.shape == (2, 84, 148, 3)
+    assert _rel(got, ref) <= REL_TOL

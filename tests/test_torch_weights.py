@@ -61,6 +61,17 @@ FLAGSHIP = dict(
     feat_unfold=True, eval_bsize=30000)
 
 
+# a small SwinIR-CiaoSR generator of the 002 kind: no CSA, window 8
+SWIN_SMALL = dict(
+    type="LocalImplicitSRSWINIR", window_size=8,
+    encoder=dict(type="SwinIR", embed_dim=12, depths=(2, 2),
+                 num_heads=(3, 3)),
+    imnet_q=dict(type="MLPRefiner", out_dim=3, hidden_list=[32, 32]),
+    imnet_k=dict(type="MLPRefiner", out_dim=1, hidden_list=[32, 32]),
+    imnet_v=dict(type="MLPRefiner", out_dim=1, hidden_list=[32, 32]),
+    non_local_attn=False)
+
+
 def seeded_params(module, seed, *args):
     """``module``'s param tree (jax.eval_shape: nothing compiles) filled
     from a seeded numpy generator at PyTorch's default init scale:
@@ -106,14 +117,18 @@ def _same_tree(a, b):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
-@pytest.mark.parametrize("cfg,feat_dim,n_hidden",
-                         [(SMALL, 16, 2), (FLAGSHIP, 64, 4)],
-                         ids=["small", "flagship"])
-def test_state_dict_roundtrip(cfg, feat_dim, n_hidden):
+@pytest.mark.parametrize("cfg,feat_dim,n_hidden,encoder,nla",
+                         [(SMALL, 16, 2, "rdn", True),
+                          (FLAGSHIP, 64, 4, "rdn", True),
+                          (SWIN_SMALL, 12, 2, "swinir", False)],
+                         ids=["small", "flagship", "swinir"])
+def test_state_dict_roundtrip(cfg, feat_dim, n_hidden, encoder, nla):
     _, params = generator_params(cfg, seed=n_hidden)
-    sd = state_dict_from_jax(params, feat_dim=feat_dim, n_hidden=n_hidden)
-    back = convert_generator(sd, encoder="rdn", feat_dim=feat_dim,
-                             n_hidden=n_hidden, strict=True)
+    sd = state_dict_from_jax(params, feat_dim=feat_dim, n_hidden=n_hidden,
+                             encoder=encoder, non_local_attn=nla)
+    back = convert_generator(sd, encoder=encoder, feat_dim=feat_dim,
+                             n_hidden=n_hidden, non_local_attn=nla,
+                             strict=True)
     _same_tree(back, params)
     # the port's own modules take the same keys and shapes
     net = build_generator(cfg, device="cpu")
