@@ -37,8 +37,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      block 36 × tiles, K1-K3 once per tile, no CSA kernel); the kernel
      route against the plain f32 route on 48² and 70² at ×4; the stage
      breakdown of one 256 tile and the warm time of the 384² request;
-  7. prints the script's total time, the kernels line, the card line, and
+  7. trains that generator as the 002 recipe does (batch 6 of 64² LR
+     patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
+     classical L1 objective): the Swin block backward (row 12, shifted and
+     unshifted, on the batch's tokens) held against autograd of its f32
+     plain version and checked reproducible; 5 steps of ``make_train_step``
+     with exact launch counts (rows 11 and 12 and its two reduction kernels
+     36 times a step, nothing else), finite losses and every parameter
+     with a gradient changed; the warm step time, samples/s, a stage split
+     and the peak memory; one step's gradients, kernel route against the
+     plain f32 route, on a small batch;
+  8. prints the script's total time, the kernels line, the card line, and
      the result line last.
+The f32 references run with TF32 off in matmuls and cuDNN.
 ``python3 chip_smoke.py --full-image`` builds the kernels and only times
 the full-image requests (no result line): copied into another checkout,
 it times that tree's routes the same way.
@@ -121,6 +132,27 @@ SWIN_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=256,
 # SWIN_ODD image (one tile; the encoder pads it to a window multiple), and
 # the route checks' SWIN_SMALL and SWIN_ODD images
 SWIN_IMG, SWIN_TILE, SWIN_SMALL, SWIN_ODD = 384, 256, (48, 48), (70, 70)
+
+# the 002 recipe's training (configs/002_real_wogan_*: samples_per_gpu 6,
+# lq_patch_size 64, sample_quantity 4096 (a 64 × 64 block of one HR grid,
+# the √ns reshape real_restorer.py needs); Adam 2e-4, betas (0.9, 0.99);
+# Step policy with gamma 1): 5 classical L1 steps on seeded batches
+TRAIN_B, TRAIN_LR, TRAIN_QSIDE, TRAIN_STEPS = 6, 64, 64, 5
+TRAIN_OPT = dict(type="Adam", lr=2e-4, betas=(0.9, 0.99))
+TRAIN_LR_CFG = dict(policy="Step", by_epoch=False,
+                    step=[200000, 400000, 600000, 800000], gamma=1)
+BWD_KERNELS = ("swin_block_bwd", "swin_block_wgrad", "swin_block_gsum")
+# row 12 against its f32 plain version: dx - dy (the increment) and each
+# packed parameter gradient; the kernel rounds dq, dk, dv, dl, dz1 and dx1
+# to bf16 as the TPU kernel does, then sums over every token
+BWD_TOL_DX, BWD_TOL_PARAM = 1e-2, 2e-2
+# one step's gradients, kernel route (bf16) against the plain f32 route:
+# each parameter tensor's ||Δ||/||ref|| within the JAX package's bound for
+# its fused block's gradients, or within TRAIN_ROUTE_FACTOR times the
+# plain bf16 route's own distance from f32 where bf16 alone goes further
+# (the decoder's imnet_k and the relative-position tables: bf16 gradients
+# of sums that cancel)
+TRAIN_ROUTE_TOL, TRAIN_ROUTE_FACTOR = 5e-2, 2.0
 
 
 def log(msg: str) -> None:
@@ -736,6 +768,264 @@ def swin_breakdown(swin, lq_tile: torch.Tensor) -> None:
             log(f"stage SwinIR {name}: {time_ms(fn, reps=3, warm=1):.3f} ms")
 
 
+def train_batch(rng, b: int, lr: int, q_side: int) -> dict:
+    """A seeded batch on the card: LR patches uniform in [0, 1], and per
+    sample a q_side × q_side block of the ×4 HR grid's coords and cells
+    (make_coord_cell) at a random offset, gt uniform in [0, 1]."""
+    from ciaosr_torch.core.coords import make_coord_cell
+
+    coord, cell = make_coord_cell((4 * lr, 4 * lr))
+    coord = coord.reshape(4 * lr, 4 * lr, 2)
+    cs = []
+    for _ in range(b):
+        i, j = rng.integers(0, 4 * lr - q_side + 1, size=2)
+        cs.append(coord[i:i + q_side, j:j + q_side].reshape(-1, 2))
+    dev = dict(device="cuda")
+    return dict(lq=torch.as_tensor(rng.random((b, lr, lr, 3),
+                                              dtype=np.float32), **dev),
+                gt=torch.as_tensor(rng.random((b, q_side ** 2, 3),
+                                              dtype=np.float32), **dev),
+                coord=torch.stack(cs).to(**dev),
+                cell=cell[:q_side ** 2].expand(b, -1, -1).contiguous().to(
+                    **dev))
+
+
+def check_swin_bwd(swin, batch: dict) -> dict:
+    """Row 12 on the training batch's first-group tokens (TRAIN_B, 64, 64,
+    180): the first, unshifted block and the second, shifted one on the
+    first's output, with a seeded dy and the same bf16 packed weights in
+    both versions; the kernel against the f32 plain version (autograd
+    through the plain block): dx - dy ≤ BWD_TOL_DX and each packed
+    gradient ≤ BWD_TOL_PARAM (max|Δ|/max|ref|), the sums reproducible run
+    to run. CUDA-event times of both; ``ms`` is the shifted block's."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+
+    net, dt = swin.generator, torch.bfloat16
+    blk0, blk1 = swin_blocks(net)[:2]
+    with torch.no_grad():
+        tok0 = net.encoder.embed(swin.normalize(batch["lq"]), dt)[0]
+        tok0 = tok0.contiguous()
+        b, h, w, c = tok0.shape
+        ws, shift = blk1.geometry(h, w)
+        tok1 = torch.roll(blk0(tok0, dt, True), (-shift, -shift),
+                          (1, 2)).contiguous()
+    dy = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (b, h, w, c)).astype(np.float32), device="cuda")
+    hid = blk0.mlp.fc1.out_features
+    heads, n_ = blk0.attn.num_heads, ws * ws
+    t_ = b * h * w
+    fwd = 2 * t_ * c * (4 * c + 2 * hid) + 4 * t_ * n_ * c
+    n_par = 4 * c * c + 2 * c * hid + 9 * c + hid
+    nbytes = (3 * t_ * c * 4 + (4 * c * c + 2 * c * hid) * 2
+              + (9 * c + hid) * 4 + 2 * heads * n_ * n_ * 4 + n_par * 4)
+    bms, by = bound_ms(3 * fwd, nbytes)
+    row = dict(name=f"swin_block_bwd@{b}x{h}x{w}", route="cuda",
+               source="ciaosr_torch/csrc/swin_block_bwd.cu",
+               replaces="ciaosr_tpu/ops/pallas/swin_block.py:290 "
+                        "(_swin_block_bwd_call)",
+               launches=0, max_abs_err=0.0, max_rel_err=0.0,
+               max_rel_err_dx=0.0, tol_rel=BWD_TOL_PARAM,
+               tol_rel_dx=BWD_TOL_DX, bound_ms=bms, bound_by=by,
+               library_ms=None)
+    for tok, blk, sh, tag in ((tok1, blk1, shift, ""),
+                              (tok0, blk0, 0, "_noshift")):
+        pk = blk.packed(ws, dt)
+        dx, g = sb.swin_block_bwd(tok, dy, pk, ws, sh)
+        dx2, g2 = sb.swin_block_bwd(tok, dy, pk, ws, sh)
+        torch.cuda.synchronize()
+        same = torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k])
+                                            for k in g)
+        rdx, rg = sb.swin_block_bwd_plain(tok, dy, f32(pk), ws, sh)
+        d_abs, d_rel = errors(dx - dy, rdx - dy)
+        worst = max(((errors(g[k], rg[k]), k) for k in rg),
+                    key=lambda e: e[0][1])
+        (p_abs, p_rel), p_name = worst
+        log(f"kernel {row['name']} shift {sh}: dx - dy max|d|={d_abs:.3e} "
+            f"max|d|/max|ref|={d_rel:.3e}; worst parameter gradient "
+            f"{p_name} max|d|={p_abs:.3e} max|d|/max|ref|={p_rel:.3e}; "
+            f"reproducible {same}")
+        if not (d_rel <= BWD_TOL_DX and p_rel <= BWD_TOL_PARAM and same):
+            raise AssertionError(f"{row['name']} shift {sh}: dx error "
+                                 f"{d_rel:.3e}, {p_name} error {p_rel:.3e}, "
+                                 f"reproducible {same}")
+        del dx, g, dx2, g2, rdx, rg
+        row["ms" + tag] = time_ms(lambda: sb.swin_block_bwd(tok, dy, pk, ws,
+                                                            sh))
+        row["plain_ms" + tag] = time_ms(lambda: sb.swin_block_bwd_plain(
+            tok, dy, f32(pk), ws, sh), reps=3, warm=1)
+        row["max_abs_err"] = max(row["max_abs_err"], p_abs)
+        row["max_rel_err"] = max(row["max_rel_err"], p_rel)
+        row["max_rel_err_dx"] = max(row["max_rel_err_dx"], d_rel)
+    row["reproducible"] = True
+    # the shifted block's backward by kernel: device time of each launch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pk1 = blk1.packed(ws, dt)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sb.swin_block_bwd(tok1, dy, pk1, ws, shift)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    split = {}
+    for name in ("swin_bwd_kernel", "swin_wgrad_kernel", "swin_gsum_kernel"):
+        hits = [e for e in evs if name in e.key]
+        split[name] = (sum(e.device_time_total for e in hits),
+                       sum(e.count for e in hits))
+    log(f"kernel {row['name']} by launch (profiler, shifted, 3 calls): "
+        + ", ".join(f"{k} {t / max(n, 1) / 1e3:.3f} ms x{n}"
+                    for k, (t, n) in split.items())
+        + "; other device kernels: " + ", ".join(
+            f"{e.key[:40]} x{e.count}" for e in evs
+            if not any(k in e.key for k in split)))
+    return row
+
+
+def train_path(drive, kind: str, smi: str, bwd_row: dict) -> None:
+    """TRAIN_STEPS steps of make_train_step on the full 002 generator at
+    the 002 batch, with exact launch counts per step; the warm step time,
+    samples/s, a stage split and the peak memory; then one step's
+    gradients, kernel route against the plain f32 route, on a small
+    batch."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    from ciaosr_torch.train.optim import build_optimizer
+    from ciaosr_torch.train.trainer import TrainState, make_train_step
+
+    res = CiaoSRRestorer(SWIN_002, rgb_mean=RGB_MEAN, device="cuda", seed=0)
+    gen = res.generator
+    n_blocks = len(swin_blocks(gen))
+    opt, sched = build_optimizer(gen.parameters(), TRAIN_OPT, TRAIN_LR_CFG)
+    state = TrainState(0, gen, opt, sched)
+    step = make_train_step(res, opt, sched)
+    rng = np.random.default_rng(4)
+    batches = [train_batch(rng, TRAIN_B, TRAIN_LR, TRAIN_QSIDE)
+               for _ in range(TRAIN_STEPS + 3)]
+    before = {k: p.detach().clone() for k, p in gen.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        nonlocal state
+        losses, secs = [], []
+        for bt in batches[:TRAIN_STEPS]:
+            t = time.perf_counter()
+            state, m = step(state, bt)
+            torch.cuda.synchronize()   # for the per-step time only
+            secs.append(time.perf_counter() - t)
+            losses.append(m["loss_pix"])
+        return torch.stack(losses).cpu(), secs
+
+    fwd_kernels = ["swin_block", *BWD_KERNELS]
+    (losses, secs), launches, _ = drive(
+        f"SwinIR train {TRAIN_STEPS} steps (batch {TRAIN_B} x "
+        f"{TRAIN_LR}^2, {TRAIN_QSIDE ** 2} queries)", run, fwd_kernels,
+        [k for k in kernels.LAUNCHES if k not in fwd_kernels])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: n_blocks * TRAIN_STEPS for k in fwd_kernels}
+    got = {k: launches[k] for k in fwd_kernels}
+    if got != want:
+        raise AssertionError(f"train path: launches {got}, want {want}")
+    bwd_row["launches"] = launches["swin_block_bwd"]
+    bwd_row["launches_wgrad"] = launches["swin_block_wgrad"]
+    bwd_row["launches_gsum"] = launches["swin_block_gsum"]
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"train path: losses {losses.tolist()}")
+    unchanged = [k for k, p in gen.named_parameters()
+                 if p.grad is not None and float(p.grad.abs().max()) > 0
+                 and torch.equal(p.detach(), before[k])]
+    if unchanged:
+        raise AssertionError(f"train path: parameters with gradients did "
+                             f"not change: {unchanged}")
+    warm = statistics.median(secs[1:]) * 1e3
+    log(f"train: losses {[round(float(v), 6) for v in losses]}; step ms "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in secs)}; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"e2e ({kind}; {smi}): SwinIR-CiaoSR 002 train step, batch "
+        f"{TRAIN_B} x {TRAIN_LR}^2 LR, {TRAIN_QSIDE ** 2} queries/sample: "
+        f"warm {warm:.1f} ms/step (median of {len(secs) - 1}), "
+        f"{TRAIN_B / warm * 1e3:.2f} samples/s, peak {peak:.2f} GiB")
+
+    # stage split: CUDA events around the parts of a step (median of 3)
+    stages: dict = {"forward (36 re-packs included)": [],
+                    "backward": [], "optimizer + scheduler": []}
+    for bt in batches[TRAIN_STEPS:]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = res.train_forward(bt["lq"], bt["gt"], bt["coord"],
+                                    bt["cell"])
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        sched.step()
+        ev[3].record()
+        ev[3].synchronize()
+        for i, k in enumerate(stages):
+            stages[k].append(ev[i].elapsed_time(ev[i + 1]))
+    bwd_ms = statistics.median(stages["backward"])
+    row12 = n_blocks * (bwd_row["ms"] + bwd_row["ms_noshift"]) / 2
+    pack_ms = time_ms(lambda: [sb.pack_swin_block(blk, gen.encoder.window_size,
+                                                  torch.bfloat16)
+                               for blk in swin_blocks(gen)], reps=3, warm=1)
+    for k, v in stages.items():
+        log(f"stage train {k}: {statistics.median(v):.3f} ms")
+    log(f"stage train row 12 ({n_blocks} x the kernel row's mean ms): "
+        f"{row12:.3f} ms = {row12 / bwd_ms:.3f} of backward")
+    log(f"stage train packing ({n_blocks} Swin blocks, bf16): "
+        f"{pack_ms:.3f} ms")
+
+    # one step's gradients: the kernel route (bf16) and the plain bf16
+    # route (JAX's XLA route, no kernel) against the plain f32 route
+    small = train_batch(np.random.default_rng(5), 1, 16, 16)
+    grads = {}
+    for name, cfg in (("kernel", SWIN_002),
+                      ("plain bf16", dict(SWIN_002, use_kernels=False)),
+                      ("plain f32", dict(SWIN_002, dtype=None,
+                                         use_kernels=False))):
+        r = CiaoSRRestorer(cfg, rgb_mean=RGB_MEAN, device="cuda", seed=0)
+        loss, _ = r.train_forward(small["lq"], small["gt"], small["coord"],
+                                  small["cell"])
+        loss.backward()
+        grads[name] = (float(loss.detach()),
+                       {k: p.grad for k, p in r.generator.named_parameters()})
+        del r
+    ref = grads["plain f32"][1]
+
+    def l2(name):   # per tensor ||Δ|| / ||ref||, and max|Δ| / max|ref|
+        return {k: (float((g - ref[k]).norm() / ref[k].norm()),
+                    errors(g, ref[k])[1])
+                for k, g in grads[name][1].items()}
+
+    e_k, e_b = l2("kernel"), l2("plain bf16")
+    # the plain bf16 route runs no kernel: its own distance from f32 is the
+    # bf16 class of each tensor (0.11 on the decoder's imnet_k, ~5e-2 on
+    # the relative-position tables)
+    limit = {k: max(TRAIN_ROUTE_TOL, TRAIN_ROUTE_FACTOR * e_b[k][0])
+             for k in e_k}
+    dec = {k for k in e_k if k.startswith("imnet_")}
+
+    def worst(keys, i):
+        return max(((e_k[k][i], k) for k in keys))
+
+    enc = set(e_k) - dec
+    log(f"train route check (B=1, 16^2 LR, 256 queries): loss "
+        + ", ".join(f"{n} {v[0]:.6f}" for n, v in grads.items())
+        + "; kernel route vs f32 ||d||/||ref||: encoder worst "
+        "{:.3e} ({}, plain bf16 {:.3e}), decoder worst {:.3e} ({}, plain "
+        "bf16 {:.3e}); max|d|/max|ref|: encoder worst {:.3e} ({}), decoder "
+        "worst {:.3e} ({})".format(
+            *worst(enc, 0), e_b[worst(enc, 0)[1]][0], *worst(dec, 0),
+            e_b[worst(dec, 0)[1]][0], *worst(enc, 1), *worst(dec, 1))
+        + "; worst ratio to the plain bf16 route {:.3f}".format(
+            max(e_k[k][0] / e_b[k][0] for k in e_k)))
+    bad = {k: (v[0], limit[k]) for k, v in e_k.items()
+           if not v[0] <= limit[k]}
+    if bad:
+        raise AssertionError(f"train route check: {bad}")
+
+
 def main() -> int:
     """``--full-image``: build, then only time_full_images (no result
     line)."""
@@ -762,6 +1052,9 @@ def main() -> int:
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    # the f32 references compute in full f32: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"build: {_build.build_all():.2f} s ({_build.build_dir()})")
 
     restorer = CiaoSRRestorer(FLAGSHIP, rgb_mean=RGB_MEAN,
@@ -987,8 +1280,9 @@ def main() -> int:
             f"{name} ({tiles} tiles of {SWIN_TILE})",
             lambda: swin.forward_test(img, scale=scale),
             ["swin_block", "f3p_build", "wt_hoist", decode],
-            no_csa + [k for k in ("grid_decode", "grid_decode_rational")
-                      if k != decode])
+            no_csa + list(BWD_KERNELS)
+            + [k for k in ("grid_decode", "grid_decode_rational")
+               if k != decode])
         want = {"swin_block": n_blocks * tiles, "f3p_build": tiles,
                 "wt_hoist": tiles, decode: tiles}
         got = {k: launches[k] for k in want}
@@ -1030,6 +1324,20 @@ def main() -> int:
         f"{(4 * SWIN_IMG) ** 2 / 1e3 / ms_swin:.3f} MP/s")
     swin_route_checks(swin, lq_s)
     swin_breakdown(swin, swin_tile)
+
+    # ---- training the 002 generator: row 12, then the train path
+    bwd_row = check_swin_bwd(swin, train_batch(np.random.default_rng(4),
+                                               TRAIN_B, TRAIN_LR,
+                                               TRAIN_QSIDE))
+    train_path(drive, kind, smi, bwd_row)
+    log(f"kernel {bwd_row['name']}: max|d|={bwd_row['max_abs_err']:.3e} "
+        f"max|d|/max|ref|={bwd_row['max_rel_err']:.3e} (dx - dy "
+        f"{bwd_row['max_rel_err_dx']:.3e}) ms={bwd_row['ms']:.4f} "
+        f"ms_noshift={bwd_row['ms_noshift']:.4f} "
+        f"plain_ms={bwd_row['plain_ms']:.4f} "
+        f"bound_ms={bwd_row['bound_ms']:.4f} ({bwd_row['bound_by']}) "
+        f"launches={bwd_row['launches']}")
+    rows.append(bwd_row)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -28,8 +28,8 @@ from ciaosr_torch.models.rdn import RDN
 from ciaosr_torch.models.swinir import SwinIR
 
 _NOT_PORTED = {
-    "LocalImplicitSREDSR": "ROADMAP.md queue 1 item 8 (EDSR encoder)",
-    "LocalImplicitSRNet": "ROADMAP.md queue 1 item 8 (EDSR encoder)",
+    "LocalImplicitSREDSR": "ROADMAP.md queue 1 item 2 (EDSR encoder)",
+    "LocalImplicitSRNet": "ROADMAP.md queue 1 item 2 (EDSR encoder)",
 }
 _ENCODERS = {"LocalImplicitSRRDN": ("RDN", RDN),
              "LocalImplicitSRSWINIR": ("SwinIR", SwinIR)}

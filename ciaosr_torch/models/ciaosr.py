@@ -1,6 +1,7 @@
-"""CiaoSR implicit attention-in-attention decoder (eval).
+"""CiaoSR implicit attention-in-attention decoder.
 
 Counterpart of ciaosr_tpu/models/ciaosr.py::CiaoSRNet:
+  * ``forward``: the training forward, features then ``query_rgb``;
   * ``query_rgb``: the per-query decoder (the reference's own eval
     semantics), used for targets with too many phases for a dense decode;
   * ``query_rgb_grid``: the plain dense-grid decode at integer scale (JAX
@@ -109,6 +110,17 @@ class CiaoSRNet(nn.Module):
         if isinstance(self.encoder, SwinIR):
             return self.encoder(x, self.dtype, self.use_kernels)
         return self.encoder(x, self.dtype)
+
+    def forward(self, x: torch.Tensor, coord: torch.Tensor,
+                cell: torch.Tensor) -> torch.Tensor:
+        """The training forward (JAX ``__call__``): features of the
+        normalized LR x (B, H, W, 3), then the per-query decoder at coord /
+        cell (B, Q, 2): (B, Q, 3) f32. The Swin blocks take rows 11 and 12
+        with ``use_kernels``; CSA runs its plain version, as JAX's
+        ``query_rgb`` calls it (no CSA kernel has a backward)."""
+        feature = self.gen_feature(x)
+        return self.query_rgb(feature, x, coord, cell,
+                              self.nl_feature(feature, use_kernel=False))
 
     def nl_feature(self, feature: torch.Tensor,
                    use_kernel: bool = False) -> torch.Tensor | None:

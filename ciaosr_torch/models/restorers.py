@@ -1,9 +1,9 @@
-"""Eval restorer around CiaoSRNet: normalization, dense-grid prediction
-at integer and rational scales, the per-query fallback, overlap-average
-tiling and the metric protocol.
+"""Restorer around CiaoSRNet: normalization, the L1 training objective,
+dense-grid prediction at integer and rational scales, the per-query
+fallback, overlap-average tiling and the metric protocol.
 
-Counterpart of ciaosr_tpu/models/restorers.py::CiaoSRRestorer (eval). The
-module holds its weights; there is no params argument.
+Counterpart of ciaosr_tpu/models/restorers.py::CiaoSRRestorer. The module
+holds its weights; there is no params argument.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def tile_layout(h: int, w: int, scale, tile: int,
 
 
 class CiaoSRRestorer:
-    """Classical CiaoSR restorer (eval). Runs on ``device`` (default: the
+    """Classical CiaoSR restorer. Runs on ``device`` (default: the
     CUDA device; raises without one unless ``device="cpu"``)."""
 
     allowed_metrics = {"PSNR": psnr, "SSIM": ssim}
@@ -82,6 +82,15 @@ class CiaoSRRestorer:
 
     def denormalize(self, rgb: torch.Tensor) -> torch.Tensor:
         return rgb * self.rgb_std + self.rgb_mean
+
+    def train_forward(self, lq: torch.Tensor, gt: torch.Tensor,
+                      coord: torch.Tensor, cell: torch.Tensor):
+        """The normalized L1 training objective (JAX ``train_forward``):
+        lq (B, H, W, 3), gt (B, Q, 3) in [0, 1], coord / cell (B, Q, 2).
+        Returns (loss, pred)."""
+        pred = self.generator(self.normalize(lq), coord, cell)
+        loss = torch.mean(torch.abs(pred - self.normalize(gt)))
+        return loss, pred
 
     @torch.inference_mode()
     def _decode(self, lq_tiles: torch.Tensor, sy, sx=None) -> torch.Tensor:

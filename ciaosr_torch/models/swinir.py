@@ -1,4 +1,4 @@
-"""SwinIR encoder trunk (window attention), eval.
+"""SwinIR encoder trunk (window attention), eval and training.
 
 Counterpart of ciaosr_tpu/models/swinir.py::SwinIREncoder: reflect-pad to
 a window multiple → conv_first → patch-embed LayerNorm → residual Swin
@@ -13,7 +13,8 @@ index and the shift masks are recomputed, not stored.
 Each block takes the route the JAX package's SwinBlock takes: with
 ``use_kernels`` and a map that tiles into its windows (H % ws == W % ws ==
 0), the whole block runs as one kernel on the rolled map (row 11,
-ops/kernels/swin_block.py); otherwise the plain block below, which is the
+ops/kernels/swin_block.py), and under autograd as ``SwinBlockFunction``,
+whose backward is row 12; otherwise the plain block below, which is the
 JAX package's own XLA route, not a fallback. The residual stream between
 blocks is f32 in both packages; the convs run in the compute dtype
 through cuDNN, as XLA convs in JAX.
@@ -28,7 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ciaosr_torch.models.rdn import conv
-from ciaosr_torch.ops.kernels.swin_block import (attn_mask, gelu,
+from ciaosr_torch.ops.kernels.swin_block import (SwinBlockFunction,
+                                                 attn_mask, gelu,
                                                  pack_swin_block,
                                                  relative_bias, swin_block,
                                                  window_partition,
@@ -128,8 +130,12 @@ class SwinBlock(nn.Module):
         ws, shift = self.geometry(h, w)
         if use_kernels and h % ws == 0 and w % ws == 0:
             xi = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
-            y = swin_block(xi.float().contiguous(), self.packed(ws, dtype),
-                           ws, shift)
+            xi = xi.float().contiguous()
+            if torch.is_grad_enabled():   # training: rows 11 and 12
+                y = SwinBlockFunction.apply(xi, self, ws, shift, dtype,
+                                            *self.parameters())
+            else:
+                y = swin_block(xi, self.packed(ws, dtype), ws, shift)
             return torch.roll(y, (shift, shift), (1, 2)) if shift else y
         # the JAX package's XLA block (its route when the map does not tile
         # into windows, and whenever kernels are off)

@@ -13,7 +13,8 @@ LAUNCHES: dict[str, int] = {"f3p_build": 0, "wt_hoist": 0,
                             "csa_stencil_fused": 0, "csa_stencil": 0,
                             "csa_fused": 0, "csa_attention": 0,
                             "csa_attention_overlap_add": 0,
-                            "swin_block": 0}
+                            "swin_block": 0, "swin_block_bwd": 0,
+                            "swin_block_wgrad": 0, "swin_block_gsum": 0}
 
 
 def reset_launches() -> None:

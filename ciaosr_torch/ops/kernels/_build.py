@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 KERNELS = ("f3p_build", "wt_hoist", "grid_decode", "csa_stencil",
-           "csa_attention", "swin_block")
+           "csa_attention", "swin_block", "swin_block_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
               "-lineinfo"]

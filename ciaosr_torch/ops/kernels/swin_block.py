@@ -1,9 +1,12 @@
-"""Row 11: one whole Swin transformer block — wrapper, plain version,
-weight packing and the window helpers both block routes share.
+"""Rows 11 and 12: one whole Swin transformer block and its backward —
+wrappers, plain versions, weight packing and its transpose, the autograd
+Function, and the window helpers both block routes share.
 
 Counterpart of ciaosr_tpu/ops/pallas/swin_block.py::swin_block_fused
-(forward, ``_swin_block_call`` / ``_block_kernel``; csrc/swin_block.cu) and
-of models/swinir.py::_attn_mask and WindowAttention._bias. On a token map
+(forward, ``_swin_block_call`` / ``_block_kernel``; csrc/swin_block.cu),
+of its custom VJP (backward, ``_swin_block_bwd_call`` /
+``_block_bwd_kernel``; csrc/swin_block_bwd.cu) and of
+models/swinir.py::_attn_mask and WindowAttention._bias. On a token map
 that is already rolled by the shift:
 
   xn = LN1(x); q = xn@Wq·scale + bq·scale; k, v likewise (no scale)
@@ -108,6 +111,12 @@ def gelu(z: torch.Tensor) -> torch.Tensor:
     return 0.5 * z * (1.0 + torch.erf(z * 2.0 ** -0.5))
 
 
+def _slots(c: int, hd: int, device) -> torch.Tensor:
+    """Packed column of each real q/k/v channel: head slot 32h + d."""
+    return torch.as_tensor([HD * (i // hd) + i % hd for i in range(c)],
+                           device=device)
+
+
 @torch.no_grad()
 def pack_swin_block(block, ws: int, dtype: torch.dtype) -> dict:
     """A Swin block's weights in the kernel's layout (see the module
@@ -126,9 +135,7 @@ def pack_swin_block(block, ws: int, dtype: torch.dtype) -> dict:
             f"does not fit the packed layout (C ≤ {CP}, heads × {HD} ≤ "
             f"{CP}, head_dim ≤ {HD}, hidden ≤ {HIDP}, ws² ≤ {NT})")
     dev = block.norm1.weight.device
-    # packed column of each real q/k/v channel: head slot 32h + d
-    slot = torch.as_tensor([HD * (i // hd) + i % hd for i in range(c)],
-                           device=dev)
+    slot = _slots(c, hd, dev)
 
     def vec(t, n):   # f32, zero-padded to n
         return F.pad(t.float(), (0, n - t.shape[0]))
@@ -218,6 +225,22 @@ def _check_packed(pk: dict, heads_max: int) -> int:
     return heads
 
 
+def _check_call(x: torch.Tensor, pk: dict, ws: int, shift: int,
+                name: str) -> int:
+    """Raise unless the kernels take this map, window and packing; returns
+    the head count."""
+    b, h, w, c = x.shape
+    _build.check_tensor(x, (b, h, w, c), "x", torch.float32)
+    heads = _check_packed(pk, CP // HD)
+    if not (1 <= ws and ws * ws <= NT and h % ws == 0 and w % ws == 0
+            and pk["bias"].shape[1] == ws * ws and c <= CP
+            and c // heads <= HD and 0 <= shift < ws):
+        raise ValueError(f"{name} kernel: {h}x{w}x{c} map, window {ws}, "
+                         f"shift {shift}, {heads} heads is outside what it "
+                         f"takes (ws² ≤ {NT}, C ≤ {CP}, head_dim ≤ {HD})")
+    return heads
+
+
 def swin_block(x: torch.Tensor, pk: dict, ws: int,
                shift: int) -> torch.Tensor:
     """Row 11 on CUDA tensors, the plain version on CPU tensors. x: the
@@ -227,14 +250,7 @@ def swin_block(x: torch.Tensor, pk: dict, ws: int,
     if x.device.type == "cpu":
         return swin_block_plain(x, pk, ws, shift)
     b, h, w, c = x.shape
-    _build.check_tensor(x, (b, h, w, c), "x", torch.float32)
-    heads = _check_packed(pk, CP // HD)
-    if not (1 <= ws and ws * ws <= NT and h % ws == 0 and w % ws == 0
-            and pk["bias"].shape[1] == ws * ws and c <= CP
-            and c // heads <= HD and 0 <= shift < ws):
-        raise ValueError(f"swin_block kernel: {h}x{w}x{c} map, window {ws}, "
-                         f"shift {shift}, {heads} heads is outside what it "
-                         f"takes (ws² ≤ {NT}, C ≤ {CP}, head_dim ≤ {HD})")
+    heads = _check_call(x, pk, ws, shift, "swin_block")
     out = torch.empty_like(x)
     args = [x, *(pk[k] for k in _TENSORS), out]
     ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
@@ -247,3 +263,177 @@ def swin_block(x: torch.Tensor, pk: dict, ws: int,
     kernels.LAUNCHES["swin_block"] += 1
     _build.check(err, "swin_block")
     return out
+
+
+# ---------------------------------------------------------------- backward
+# Row 12 (csrc/swin_block_bwd.cu). The kernel returns one flat f32 buffer:
+# the per-window sums (these vectors, then the (heads, N, N) bias
+# gradient), then the weight gradients (these matrices, row-major).
+WGRAD_SPLITS = 8   # token chunks of the weight-gradient products
+_VECTORS = (("g1", CP), ("b1", CP), ("bqkv", 3 * CP), ("bp", CP),
+            ("g2", CP), ("b2", CP), ("b1m", HIDP), ("b2m", CP))
+_MATRICES = (("wqkv", (CP, 3 * CP)), ("wp", (CP, CP)), ("w1", (CP, HIDP)),
+             ("w2", (HIDP, CP)))
+# per-token operand pairs of the weight gradients: (name, width)
+_PAIRS = (("xn", CP), ("dqkv", 3 * CP), ("o", CP), ("dx1", CP), ("yn", CP),
+          ("dz1", HIDP), ("hdn", HIDP), ("dyb", CP))
+
+
+def swin_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, pk: dict,
+                         ws: int, shift: int) -> tuple[torch.Tensor, dict]:
+    """Autograd through ``swin_block_plain`` on f32 copies of x and the
+    packed tensors: (dx, gradients of the packed tensors, f32, keyed as
+    ``pk``). The q-bias entry is the gradient of the pre-scaled b_q·scale."""
+    with torch.enable_grad():   # clones: the packs may be inference tensors
+        xl = x.detach().float().clone().requires_grad_()
+        leaves = {k: pk[k].detach().float().clone().requires_grad_()
+                  for k in _TENSORS}
+        y = swin_block_plain(xl, leaves, ws, shift)
+        grads = torch.autograd.grad(y, [xl, *leaves.values()], dy.float())
+    return grads[0], dict(zip(_TENSORS, grads[1:]))
+
+
+def _split_grads(flat: torch.Tensor, heads: int, n: int) -> dict:
+    out, at = {}, 0
+    for k, size in _VECTORS:
+        out[k] = flat[at:at + size]
+        at += size
+    out["bias"] = flat[at:at + heads * n * n].view(heads, n, n)
+    at += heads * n * n
+    for k, shape in _MATRICES:
+        out[k] = flat[at:at + shape[0] * shape[1]].view(shape)
+        at += shape[0] * shape[1]
+    return out
+
+
+def swin_block_bwd(x: torch.Tensor, dy: torch.Tensor, pk: dict, ws: int,
+                   shift: int) -> tuple[torch.Tensor, dict]:
+    """Row 12 on CUDA tensors, the plain version on CPU tensors: the
+    backward of ``swin_block`` at the rolled f32 map x (B, H, W, C) for the
+    output cotangent dy (same shape, f32). Returns dx (f32) and the packed
+    tensors' gradients (f32, keyed as ``pk``; padded entries 0), summed in
+    a fixed order (reproducible run to run)."""
+    if x.device.type == "cpu":
+        return swin_block_bwd_plain(x, dy, pk, ws, shift)
+    b, h, w, c = x.shape
+    heads = _check_call(x, pk, ws, shift, "swin_block_bwd")
+    _build.check_tensor(dy, (b, h, w, c), "dy", torch.float32)
+    n = ws * ws
+    nwin = b * (h // ws) * (w // ws)
+    lw = sum(size for _, size in _VECTORS) + heads * n * n
+    ld = sum(r * cl for _, (r, cl) in _MATRICES)
+    dev = x.device
+    dx = torch.empty_like(x)
+    pairs = [torch.empty(nwin * NT, width, device=dev, dtype=torch.bfloat16)
+             for _, width in _PAIRS]
+    part = torch.empty(nwin, lw, device=dev)
+    wpart = torch.empty(WGRAD_SPLITS, ld, device=dev)
+    flat = torch.empty(lw + ld, device=dev)
+    lib = _build.load("swin_block_bwd")
+    stream = _build.stream_ptr(dev)
+
+    args = [x, dy, *(pk[k] for k in _TENSORS), dx, *pairs, part]
+    ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
+    fn = lib.swin_block_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, heads, ws,
+             shift, float(c // heads) ** -0.5, stream)
+    kernels.LAUNCHES["swin_block_bwd"] += 1
+    _build.check(err, "swin_block_bwd")
+
+    wargs = [*pairs, wpart]
+    wptrs = (ctypes.c_void_p * len(wargs))(*(t.data_ptr() for t in wargs))
+    fn = lib.swin_block_wgrad
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    err = fn(ctypes.cast(wptrs, ctypes.c_void_p), nwin * NT, WGRAD_SPLITS,
+             stream)
+    kernels.LAUNCHES["swin_block_wgrad"] += 1
+    _build.check(err, "swin_block_wgrad")
+
+    fn = lib.swin_block_gsum
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    err = fn(_build.ptr(part), nwin, lw, _build.ptr(wpart), WGRAD_SPLITS, ld,
+             _build.ptr(flat), stream)
+    kernels.LAUNCHES["swin_block_gsum"] += 1
+    _build.check(err, "swin_block_gsum")
+    return dx, _split_grads(flat, heads, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_gather(ws: int, full: int) -> np.ndarray:
+    """(table rows, k) indices into the ws⁴ (query, key) pairs that read
+    each row of the bias table (``_bias_index``), padded with ws⁴ (a zero
+    row appended by the caller)."""
+    idx = _bias_index(ws, full)
+    groups = [np.flatnonzero(idx == t) for t in range((2 * full - 1) ** 2)]
+    out = np.full((len(groups), max(len(g) for g in groups)), idx.size)
+    for t, g in enumerate(groups):
+        out[t, :len(g)] = g
+    return out
+
+
+def unpack_swin_grads(block, grads: dict, ws: int) -> dict:
+    """The transpose of ``pack_swin_block``: gradients of the packed tensors
+    (``swin_block_bwd``'s) → gradients of the block's parameters, keyed by
+    their ``named_parameters`` names, each in its parameter's shape, f32.
+    Head slots are gathered back, padding is dropped, the q-bias gradient
+    takes the pre-scale's factor, and the (heads, ws², ws²) bias gradient
+    is summed into the relative-position table in a fixed order."""
+    attn = block.attn
+    c = block.norm1.weight.shape[0]
+    heads, full = attn.num_heads, attn.window_size
+    hd, hid = c // heads, block.mlp.fc1.out_features
+    g = grads
+    slot = _slots(c, hd, g["g1"].device)
+    out = {
+        "norm1.weight": g["g1"][:c], "norm1.bias": g["b1"][:c],
+        "attn.qkv.weight": torch.cat([g["wqkv"][:c, p * CP + slot].t()
+                                      for p in range(3)]),
+        "attn.proj.weight": g["wp"][slot, :c].t(),
+        "attn.proj.bias": g["bp"][:c],
+        "norm2.weight": g["g2"][:c], "norm2.bias": g["b2"][:c],
+        "mlp.fc1.weight": g["w1"][:c, :hid].t(), "mlp.fc1.bias": g["b1m"][:hid],
+        "mlp.fc2.weight": g["w2"][:hid, :c].t(), "mlp.fc2.bias": g["b2m"][:c],
+    }
+    if attn.qkv.bias is not None:
+        out["attn.qkv.bias"] = torch.cat([g["bqkv"][slot] * hd ** -0.5,
+                                          g["bqkv"][CP + slot],
+                                          g["bqkv"][2 * CP + slot]])
+    n = ws * ws
+    flat = g["bias"].permute(1, 2, 0).reshape(n * n, heads)
+    flat = torch.cat([flat, flat.new_zeros(1, heads)])
+    gather = torch.as_tensor(_bias_gather(ws, full), device=flat.device)
+    out["attn.relative_position_bias_table"] = flat[gather].sum(1)
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+class SwinBlockFunction(torch.autograd.Function):
+    """One Swin block on the rolled map, differentiable: row 11 forward and
+    row 12 backward (their plain versions on CPU tensors). Inputs are x and
+    the block's f32 parameters in ``named_parameters`` order, so their
+    gradients come back in f32; the packed bf16 copies are made inside
+    (``block.packed``) and are not inputs. Only x is saved: the backward
+    recomputes the block, as the TPU kernel's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, block, ws, shift, dtype, *params):
+        pk = block.packed(ws, dtype)
+        ctx.save_for_backward(x)
+        ctx.block, ctx.pk, ctx.ws, ctx.shift = block, pk, ws, shift
+        return swin_block(x, pk, ws, shift)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        dx, g = swin_block_bwd(x, dy.float().contiguous(), ctx.pk, ctx.ws,
+                               ctx.shift)
+        grads = unpack_swin_grads(ctx.block, g, ctx.ws)
+        return (dx, None, None, None, None,
+                *(grads[k] for k, _ in ctx.block.named_parameters()))

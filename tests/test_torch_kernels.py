@@ -3,7 +3,8 @@
 JAX kernels hold. The decode kernel is held at integer scales and, in its
 rational mode, at ×2.5, ×7/3, ×1.5, 5/3 × 7/2 and an odd width; the CSA
 kernels (K4, rows 5-8) at ragged, non-square geometries; the Swin block
-(row 11) and K1-K3 at SwinIR-CiaoSR's 180 channels without CSA. Needs a
+(row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
+≤ 2e-2) and K1-K3 at SwinIR-CiaoSR's 180 channels without CSA. Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
 ``python -m pytest --noconftest -q tests/test_torch_kernels.py`` (this file
 imports no JAX). Shapes are flagship widths (C = 64, hidden 256) at small,
@@ -419,3 +420,71 @@ def test_swin_route_matches_plain_route(swin_case):
         net.dtype, net.use_kernels = torch.bfloat16, True
     assert got.shape == ref.shape == (2, 84, 148, 3)
     assert _rel(got, ref) <= REL_TOL
+
+
+BWD_KEYS = ("swin_block_bwd", "swin_block_wgrad", "swin_block_gsum")
+
+
+# (2, 16, 24) shifted; the 002 training batch's token map (6, 64, 64),
+# shifted and not; (1, 6, 6) shrinks the window to 6 (36 tokens)
+@pytest.mark.parametrize("shape,block", [((2, 16, 24), 1), ((6, 64, 64), 1),
+                                         ((6, 64, 64), 0), ((1, 6, 6), 1)],
+                         ids=["2x16x24_shifted", "6x64x64_shifted",
+                              "6x64x64", "1x6x6_window_6"])
+def test_swin_block_bwd(swin_case, shape, block):
+    """Row 12 against autograd through the f32 plain block on the same
+    bf16 packed weights: dx - dy ≤ 1e-2 and each packed gradient ≤ 2e-2
+    (the kernel rounds dq, dk, dv, dl, dz1 and dx1 to bf16 as the TPU
+    kernel does); its sums are the same bits run to run."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    blk = swin_case[0].encoder.layers[0].residual_group.blocks[block]
+    b, h, w = shape
+    ws, shift = blk.geometry(h, w)
+    rng = np.random.default_rng(h + block)
+    x, dy = (torch.as_tensor(rng.standard_normal((b, h, w, 180)).astype(
+        np.float32), device="cuda") for _ in range(2))
+    pk = blk.packed(ws, torch.bfloat16)
+    n0 = {k: kernels.LAUNCHES[k] for k in BWD_KEYS}
+    dx, g = sb.swin_block_bwd(x, dy, pk, ws, shift)
+    assert {k: kernels.LAUNCHES[k] - n0[k] for k in BWD_KEYS} == dict.fromkeys(
+        BWD_KEYS, 1)
+    rdx, rg = sb.swin_block_bwd_plain(x, dy, _f32(pk), ws, shift)
+    assert dx.shape == x.shape
+    assert _rel(dx - dy, rdx - dy) <= 1e-2
+    for k, ref in rg.items():
+        assert g[k].shape == ref.shape and g[k].dtype == torch.float32
+        assert _rel(g[k], ref) <= 2e-2, k
+    dx2, g2 = sb.swin_block_bwd(x, dy, pk, ws, shift)
+    assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+
+
+def test_swin_block_bwd_rejects(swin_case):
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    blk = swin_case[0].encoder.layers[0].residual_group.blocks[0]
+    x = torch.zeros(1, 16, 16, 180, device="cuda")
+    pk = blk.packed(8, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):   # f32 weights
+        sb.swin_block_bwd(x, x, blk.packed(8, torch.float32), 8, 0)
+    with pytest.raises(ValueError, match="float32"):    # a bf16 dy
+        sb.swin_block_bwd(x, x.bfloat16(), pk, 8, 0)
+    five = dict(pk, bias=pk["bias"][:5].contiguous())   # head_dim 36 > 32
+    with pytest.raises(ValueError, match="head_dim"):
+        sb.swin_block_bwd(x, x, five, 8, 0)
+    x9 = torch.zeros(1, 18, 18, 180, device="cuda")     # ws² = 81 > 64
+    with pytest.raises(ValueError, match="window"):
+        sb.swin_block_bwd(x9, x9, pk, 9, 0)
+
+
+def test_swin_training_step_runs_row_12(swin_case):
+    """A backward through the generator with kernels on launches row 12
+    once per Swin block (forward: row 11 once per block)."""
+    from ciaosr_torch.ops import kernels
+    net, x, _ = swin_case
+    n_blocks = sum(len(l.residual_group.blocks) for l in net.encoder.layers)
+    n0 = dict(kernels.LAUNCHES)
+    feat = net.gen_feature(x)
+    feat.float().square().mean().backward()
+    got = {k: kernels.LAUNCHES[k] - n0[k] for k in ("swin_block", *BWD_KEYS)}
+    assert got == dict.fromkeys(got, n_blocks)
+    net.zero_grad(set_to_none=True)
