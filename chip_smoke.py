@@ -36,7 +36,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      the 70² image at ×2.5, each with its exact launch counts (the Swin
      block 36 × tiles, K1-K3 once per tile, no CSA kernel); the kernel
      route against the plain f32 route on 48² and 70² at ×4; the stage
-     breakdown of one 256 tile and the warm time of the 384² request;
+     breakdown of one 256 tile and the warm time of the 384² request; then
+     the ``time_kernels`` line: K1 at both widths and row 7 (the kernels
+     redesigned for Hopper), rows 5, 6, 8 and K4, and one tile of each
+     generator;
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
      classical L1 objective): the Swin block backward (row 12, shifted and
@@ -47,12 +50,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      with a gradient changed; the warm step time, samples/s, a stage split
      and the peak memory; one step's gradients, kernel route against the
      plain f32 route, on a small batch;
-  8. prints the script's total time, the kernels line, the card line, and
-     the result line last.
+  8. prints the script's total time, the kernels line (each row with its
+     achieved TFLOP/s: the function's own FLOPs over its time), the card
+     line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
 ``python3 chip_smoke.py --full-image`` builds the kernels and only times
-the full-image requests (no result line): copied into another checkout,
-it times that tree's routes the same way.
+the full-image requests; ``--kernel-times`` builds them and only prints
+the ``time_kernels`` line (neither prints a result line). Copied into
+another checkout (e.g. the parent commit from ``git archive``), either
+times that tree the same way, in the same call.
 Any failure exits non-zero. Without CUDA, or without the repository's
 ciaosr_torch next to it, it exits non-zero and prints no result.
 """
@@ -65,6 +71,7 @@ import subprocess
 import sys
 import time
 from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +80,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 REL_TOL = 1e-2
+BATCH = 10  # calls a timing sample spans where one call is under 1 ms
 
 FLAGSHIP = dict(
     type="LocalImplicitSRRDN",
@@ -160,20 +168,33 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 5, warm: int = 2) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
+    """Median CUDA-event time of one fn() in ms, after warm-up. Where one
+    call takes under 1 ms, each sample spans BATCH calls enqueued back to
+    back, divided by BATCH: the path enqueues its kernels behind each
+    other, so the host's dispatch (argument checks, tensor maps) overlaps
+    the device's work, which a lone call between two events would not
+    show."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+
+    def sample(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        return a.elapsed_time(b) / n
+
+    n = BATCH if sample(1) < 1.0 else 1
+    return statistics.median(sample(n) for _ in range(reps))
+
+
+def tflops(flops: float, ms: float) -> float:
+    """The function's own FLOPs over a measured time, in TFLOP/s."""
+    return flops / ms / 1e9
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -222,7 +243,7 @@ def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=abs_err, max_rel_err=err,
                 tol_rel=REL_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, tflops=tflops(flops, ms))
 
 
 def check_kernels(restorer, lq_tile: torch.Tensor,
@@ -553,6 +574,64 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
         log(f"  {t / 1e3:9.3f} ms  x{n:<4d} {key[:90]}")
 
 
+def time_kernels(label: str, restorer, swin, lq: np.ndarray,
+                 lq_s: np.ndarray, big: np.ndarray) -> None:
+    """CUDA-event times (median of several after warm-up) of the kernels
+    redesigned for Hopper (K1 at both widths, row 7), of the CSA kernels
+    that share sources or tiles with row 7 (rows 5, 6 and 8, K4), and of
+    the two tiles that run K1 (a flagship 192 tile at x4, a SwinIR 256
+    tile at x4), at the main path's shapes: one line, printed the same way
+    by ``--kernel-times`` in another checkout, so that a parent tree's
+    times and these are read in one call."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.kernels import decoder as dk
+    from ciaosr_torch.ops.neighborhood import plane_major_perm
+
+    tile = torch.as_tensor(lq[:TILE, :TILE], device="cuda")[None]
+    swin_tile = torch.as_tensor(lq_s[:SWIN_TILE, :SWIN_TILE],
+                                device="cuda")[None]
+    times = {}
+    with torch.inference_mode():
+        net = restorer.generator
+        feature = net.gen_feature(restorer.normalize(tile)).contiguous()
+        _, csa, _, _, _, _, pk = net._kernel_maps(feature, (0.5, 0.5))
+        times["f3p_build"] = time_ms(lambda: dk.f3p_build(
+            feature, csa, pk["wk0"], pk["wvu"], pk["wvc"]), reps=20)
+        sfeat = swin.generator.gen_feature(swin.normalize(swin_tile))
+        feat_p, _, _, _, _, _, spk = swin.generator._kernel_maps(
+            sfeat, (0.5, 0.5))
+        times["f3p_build@C180"] = time_ms(lambda: dk.f3p_build(
+            feat_p, None, spk["wk0"], spk["wvu"], spk["wvc"]), reps=20)
+        cs = net.cs_attn.softmax_scale
+        match, keys, embed, q, v = csa_inputs(restorer, lq[:SET5[0][0],
+                                                           :SET5[0][1]],
+                                              banks=True)
+        hp, wp = match.shape[1:3]
+        v_pm = v[..., torch.as_tensor(plane_major_perm(2, embed.shape[-1]),
+                                      device="cuda")].contiguous()
+        s5 = f"{hp}x{wp}"
+        times[f"csa_attention@{s5}"] = time_ms(
+            lambda: ca.csa_attention(q, keys, v, cs), reps=20)
+        times[f"csa_attention_overlap_add@{s5}"] = time_ms(
+            lambda: ca.csa_attention_overlap_add(q, keys, v_pm, cs, hp, wp,
+                                                 2), reps=20)
+        k4_maps = net.cs_attn.stencil_inputs(feature, 2, torch.bfloat16)
+        times["csa_stencil_fused"] = time_ms(
+            lambda: st.csa_stencil_fused(*k4_maps, cs, 2))
+        for _, hw, kern in CSA_FULL:
+            maps = csa_inputs(restorer, big[:hw[0], :hw[1]])
+            fn = ca.csa_fused if kern == "csa_fused" else st.csa_stencil
+            times["{}@{}x{}".format(kern, *hw)] = time_ms(
+                lambda: fn(*maps, cs, 2), reps=3, warm=1)
+    times["flagship x4 tile (grid_predict)"] = time_ms(
+        lambda: restorer.grid_predict(tile, 4), reps=3, warm=1)
+    times["SwinIR x4 256 tile (grid_predict)"] = time_ms(
+        lambda: swin.grid_predict(swin_tile, 4), reps=3, warm=1)
+    log(f"kernel times ({label}): " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
 def swin_blocks(net):
     """The Swin blocks of a SwinIR generator, in order."""
     return [blk for layer in net.encoder.layers
@@ -857,6 +936,7 @@ def check_swin_bwd(swin, batch: dict) -> dict:
         row["max_rel_err"] = max(row["max_rel_err"], p_rel)
         row["max_rel_err_dx"] = max(row["max_rel_err_dx"], d_rel)
     row["reproducible"] = True
+    row["tflops"] = tflops(3 * fwd, row["ms"])
     # the shifted block's backward by kernel: device time of each launch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1027,10 +1107,15 @@ def train_path(drive, kind: str, smi: str, bwd_row: dict) -> None:
 
 
 def main() -> int:
-    """``--full-image``: build, then only time_full_images (no result
-    line)."""
+    """``--full-image``: build, then only time_full_images;
+    ``--kernel-times``: build, then only time_kernels (neither prints a
+    result line)."""
     t_start = time.perf_counter()
-    full_only = sys.argv[1:] == ["--full-image"]
+    flags = sys.argv[1:]
+    if flags not in ([], ["--full-image"], ["--kernel-times"]):
+        print(f"chip_smoke: unknown arguments {flags}", file=sys.stderr)
+        return 2
+    full_only = flags == ["--full-image"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1071,6 +1156,14 @@ def main() -> int:
     big = np.random.default_rng(1).random((192, 1024, 3), dtype=np.float32)
     if full_only:
         time_full_images(restorer, big)
+        return 0
+    lq_s = np.random.default_rng(2).random((SWIN_IMG, SWIN_IMG, 3),
+                                           dtype=np.float32)
+    tree = str(Path(__file__).resolve().parent)
+    if flags == ["--kernel-times"]:
+        swin = CiaoSRRestorer(SWIN_002, rgb_mean=RGB_MEAN,
+                              test_cfg=SWIN_TEST_CFG, device="cuda", seed=0)
+        time_kernels(tree, restorer, swin, lq, lq_s, big)
         return 0
 
     def full(hw):
@@ -1207,7 +1300,7 @@ def main() -> int:
             f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={r['library_ms']} "
-            f"launches={r['launches']}")
+            f"launches={r['launches']} tflops={r['tflops']:.1f}")
 
     # warm timing of the whole tiled requests
     def warm_ms(fn):
@@ -1261,8 +1354,6 @@ def main() -> int:
     # ---- the SwinIR-CiaoSR generator of the 002 configs
     swin = CiaoSRRestorer(SWIN_002, rgb_mean=RGB_MEAN,
                           test_cfg=SWIN_TEST_CFG, device="cuda", seed=0)
-    lq_s = np.random.default_rng(2).random((SWIN_IMG, SWIN_IMG, 3),
-                                           dtype=np.float32)
     swin_tile = torch.as_tensor(lq_s[:SWIN_TILE, :SWIN_TILE],
                                 device="cuda")[None]
     swin_rows = check_swin_kernels(swin, swin_tile)
@@ -1312,7 +1403,7 @@ def main() -> int:
             f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={r['library_ms']} "
-            f"launches={r['launches']}"
+            f"launches={r['launches']} tflops={r['tflops']:.1f}"
             + (f" ms_noshift={r['ms_noshift']:.4f}" if "ms_noshift" in r
                else ""))
     rows += swin_rows
@@ -1324,6 +1415,7 @@ def main() -> int:
         f"{(4 * SWIN_IMG) ** 2 / 1e3 / ms_swin:.3f} MP/s")
     swin_route_checks(swin, lq_s)
     swin_breakdown(swin, swin_tile)
+    time_kernels(tree, restorer, swin, lq, lq_s, big)
 
     # ---- training the 002 generator: row 12, then the train path
     bwd_row = check_swin_bwd(swin, train_batch(np.random.default_rng(4),
@@ -1336,7 +1428,7 @@ def main() -> int:
         f"ms_noshift={bwd_row['ms_noshift']:.4f} "
         f"plain_ms={bwd_row['plain_ms']:.4f} "
         f"bound_ms={bwd_row['bound_ms']:.4f} ({bwd_row['bound_by']}) "
-        f"launches={bwd_row['launches']}")
+        f"launches={bwd_row['launches']} tflops={bwd_row['tflops']:.1f}")
     rows.append(bwd_row)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,27 +1,24 @@
-// Rows 6-8 of the kernel table: the CSA middle as attention over the
-// (3s)^2 C value bank, one template for three entry points.
+// Rows 6 and 8 of the kernel table: the CSA middle as attention over the
+// (3s)^2 C value bank, pasted by the overlap-add; one template for two
+// entry points. (Row 7, the same attention with the bank-shaped output,
+// is the one-launch kernel of csa_flash.cu.)
 //
 // Replaces, in ciaosr_tpu/ops/pallas/csa_attention.py:
-//   csa_attention             (_attn_kernel)          -> csa_attention
 //   csa_attention_overlap_add (_attn_oa_kernel)       -> csa_attention_overlap_add
 //   csa_fused (_csa_full_kernel, _csa_windowed_kernel) -> csa_fused
-// All three compute, for query pixel i and key l,
+// Both compute, for query pixel i and key l,
 //   A = softmax_l(scale * q_i . k_l),   K_i = sum_l A[i, l] v_l
 // with q_i the 3x3 zero-padded match neighbourhood (9Cr = 288, tap-major),
 // k_l the normalized 3x3 key patch and v_l the (3s)x(3s) stride-s patch of
-// the embedding ((3s)^2 C = 2304). They differ in two places:
-//   - rows: csa_attention and csa_attention_overlap_add read explicit banks
-//     q (B, P, 288) and v (B, L, 2304); csa_fused assembles q_i from the
-//     match map (B, Hp, Wp, Cr) and v_l from the embedding (B, Hp, Wp, C);
-//   - epilogue: csa_attention writes K (B, P, 2304) f32; the other two
-//     paste it with the (3s, 3s) stride-s overlap-add (conv_transpose2d,
-//     ciaosr_tpu/models/csa.py::_overlap_add) into (B, s*Hp, s*Wp, C) f32,
-//     before the down conv and the /6.
-// The value columns come in nine tap planes (t, r) of s^2 C = 256: for the
-// plane-major bank of csa_attention_overlap_add and for csa_fused the plane
-// is (t, r) with columns (a, b, c), v_l[(t, r), (a, b), c] =
-// embed[s(ly + t - 1) + a, s(lx + r - 1) + b, c]; for the tap-major bank of
-// csa_attention a "plane" is just 256 consecutive columns.
+// the embedding ((3s)^2 C = 2304), and paste K with the (3s, 3s) stride-s
+// overlap-add (conv_transpose2d, ciaosr_tpu/models/csa.py::_overlap_add)
+// into (B, s*Hp, s*Wp, C) f32, before the down conv and the /6. They
+// differ in the rows: csa_attention_overlap_add reads explicit banks
+// q (B, P, 288) and v (B, L, 2304); csa_fused assembles q_i from the
+// match map (B, Hp, Wp, Cr) and v_l from the embedding (B, Hp, Wp, C).
+// The value columns come in nine tap planes (t, r) of s^2 C = 256, with
+// columns (a, b, c): v_l[(t, r), (a, b), c] =
+// embed[s(ly + t - 1) + a, s(lx + r - 1) + b, c] (the plane-major bank).
 //
 // The TPU keeps a (TP, 2304) f32 accumulator in VMEM and runs one online
 // softmax over L. A 64-row f32 accumulator 2304 wide is 590 KB; an SM has
@@ -36,8 +33,8 @@
 //       cores.
 // Keys past L are masked (p = 0); L is not padded.
 //
-// Bound on the H100: operations at the bf16 dense peak. Rows 7 and 8 take
-// explicit, unstructured banks and need 2PL(9Cr + (3s)^2 C) = 2PL * 2592
+// Bound on the H100: operations at the bf16 dense peak. Row 8 takes
+// explicit, unstructured banks and needs 2PL(9Cr + (3s)^2 C) = 2PL * 2592
 // FLOPs. Row 6 computes the same function as K4 from the same inputs, so
 // its bound is K4's: 2PL(9Cr + s^2 C) = 2PL * 544 (2.66 ms at Hp x Wp =
 // 192 x 512). The two passes here run 2PL(288 + 9 * 288 + 2304) =
@@ -66,7 +63,7 @@ struct Args {
   const bf16* v;  // value bank (B, L, DV), or the embedding (B, Hp, Wp, C)
   float* m;       // (B, P) row max
   float* l;       // (B, P) row sum
-  float* out;     // (B, P, DV), or (B, S*Hp, S*Wp, C) zeroed
+  float* out;     // (B, S*Hp, S*Wp, C), zeroed
   int P, L, Hp, Wp;
   float scale;
 };
@@ -104,7 +101,7 @@ constexpr int OFF_ML = OFF_V + TK * LDV * 2;     // m, 1/l
 constexpr int SMEM_B = OFF_ML + 2 * TQ * 4;
 static_assert(TQ * SC2 * 4 <= OFF_S, "epilogue tile overlays q and k");
 
-template <bool BANKS, bool PASTE>
+template <bool BANKS>
 __global__ void __launch_bounds__(THREADS) pv_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -175,10 +172,6 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(Args a) {
     const int r = idx / SC2, n = idx % SC2;
     const int i = i0 + r;
     if (i >= a.P) continue;
-    if (!PASTE) {
-      a.out[((size_t)b * a.P + i) * DV + pl * SC2 + n] = st[idx];
-      continue;
-    }
     const int oy = i / a.Wp + pl / 3 - 1, ox = i % a.Wp + pl % 3 - 1;
     if (oy < 0 || oy >= a.Hp || ox < 0 || ox >= a.Wp) continue;
     const int ph = n / C, c = n % C;
@@ -188,10 +181,10 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(Args a) {
   }
 }
 
-template <bool BANKS, bool PASTE>
+template <bool BANKS>
 int launch(const Args& a, int B, void* stream) {
   static cudaError_t attr_a = allow_smem(stats_kernel<BANKS>, SMEM_STATS);
-  static cudaError_t attr_b = allow_smem(pv_kernel<BANKS, PASTE>, SMEM_B);
+  static cudaError_t attr_b = allow_smem(pv_kernel<BANKS>, SMEM_B);
   if (attr_a != cudaSuccess) return (int)attr_a;
   if (attr_b != cudaSuccess) return (int)attr_b;
   if (a.P <= 0 || a.L <= 0) return (int)cudaErrorInvalidValue;
@@ -201,21 +194,11 @@ int launch(const Args& a, int B, void* stream) {
       a.q, a.k, a.m, a.l, a.P, a.L, a.Hp, a.Wp, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pv_kernel<BANKS, PASTE><<<dim3(tiles, NPL, B), THREADS, SMEM_B, st>>>(a);
+  pv_kernel<BANKS><<<dim3(tiles, NPL, B), THREADS, SMEM_B, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// row 7: q (B, P, 288), k (B, L, 288), v (B, L, 2304) tap-major ->
-// out (B, P, 2304) f32
-extern "C" int csa_attention(const void* q, const void* k, const void* v,
-                             void* m_buf, void* l_buf, void* out, int B,
-                             int P, int L, float scale, void* stream) {
-  const Args a{(const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)m_buf,
-               (float*)l_buf, (float*)out, P, L, P, 1, scale};
-  return launch<true, false>(a, B, stream);
-}
 
 // row 8: q (B, Hp*Wp, 288), k (B, L, 288), v_pm (B, L, 2304) plane-major ->
 // out (B, 2Hp, 2Wp, 64) f32, zeroed by the caller
@@ -227,7 +210,7 @@ extern "C" int csa_attention_overlap_add(const void* q, const void* k,
   const Args a{(const bf16*)q, (const bf16*)k, (const bf16*)v_pm,
                (float*)m_buf, (float*)l_buf, (float*)out, Hp * Wp, L, Hp,
                Wp, scale};
-  return launch<true, true>(a, B, stream);
+  return launch<true>(a, B, stream);
 }
 
 // row 6: match (B, Hp, Wp, 32), keys (B, Hp/2 * Wp/2, 288), embed
@@ -240,5 +223,5 @@ extern "C" int csa_fused(const void* match, const void* keys,
   const Args a{(const bf16*)match, (const bf16*)keys, (const bf16*)embed,
                (float*)m_buf, (float*)l_buf, (float*)out, Hp * Wp,
                (Hp / S) * (Wp / S), Hp, Wp, scale};
-  return launch<false, true>(a, B, stream);
+  return launch<false>(a, B, stream);
 }

@@ -1,5 +1,5 @@
 // What the CSA kernels share (csa_stencil.cu: K4 and row 5; csa_attention.cu:
-// rows 6-8): the flagship constants they are compiled for, the query and
+// rows 6 and 8): the flagship constants they are compiled for, the query and
 // key tile loads, the 64 x 64 score tile and pass (a), the per-query
 // softmax stats m_i = max_l scale q_i . k_l and l_i = sum_l exp(scale
 // q_i . k_l - m_i).

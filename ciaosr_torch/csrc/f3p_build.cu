@@ -16,108 +16,200 @@
 // + csa in, g_k + g_v out, ~47 MB) take 14 us, so it is compute-bound.
 // SwinIR-CiaoSR (C = 180 padded to 192 with zero weight rows, no CSA) on
 // a 256 x 256 map: 109 GFLOP of the function's, 0.11 ms.
-// Design: an implicit-im2col GEMM. A block builds the unfolded rows of 32
-// pixels (plus their CSA row) in shared memory once, straight from the
-// feature, and 8 warps multiply them by the weights on the tensor cores
-// (wmma bf16, f32 accumulate); weight fragments stream from L2. Compiled
-// for (C, DC) = (64, 64), the flagship, and (192, 0).
+//
+// Design: an implicit-im2col GEMM on wgmma, fed by TMA (csrc/sm90.cuh).
+// A block owns a 16 x 8 pixel patch (M = 128 rows) and one output, g_k or
+// g_v (256 columns): two consumer warpgroups hold 64 x 256 f32
+// accumulators, one producer warp streams 64-deep K chunks through a
+// 4-stage shared-memory ring synchronised by mbarriers. Chunk kc is one
+// tap's 64-channel slice: the A tile is one 4-D TMA box (64 channels x
+// 16 x 8 pixels) of the feature shifted by the tap, so the unfold is never
+// formed and TMA's zero fill out of bounds is the 3x3 zero padding; the
+// CSA chunk of g_v is the same box of the CSA map at the centre. The B
+// tile is four TMA boxes (64 columns x 64 rows) of the (9C, 256) weight
+// matrix as it is, read MN-major by wgmma. Each weight byte read from L2
+// serves 128 pixels, and loads overlap products. The epilogue stages the
+// bf16 tile in shared memory and stores it by TMA: 4-byte stores from the
+// accumulator registers took half of the kernel's time.
+// Compiled for (C, DC) = (64, 64), the flagship, and (192, 0).
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int HID = 256;      // MLP hidden width
-constexpr int ROWS = 32;      // pixels per block
-constexpr int THREADS = 256;
+using namespace sm90;
 
-// C feature channels, DC CSA channels (0: no CSA)
+constexpr int HID = 256;           // MLP hidden width: the output columns
+constexpr int BW = 16, BH = 8;     // pixel patch of a block
+constexpr int BM = BW * BH;        // 128 rows
+constexpr int KC = 64;             // K chunk: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * KC * 2;        // 16 KB
+constexpr int SLAB = KC * 128;              // 64 weight rows x 64 columns
+constexpr int B_BYTES = (HID / 64) * SLAB;  // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int CONSUMERS = 2;                // warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS * 128 + 32;
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+static_assert(CONSUMERS * HID * 64 * 2 <= STAGES * STAGE_BYTES,
+              "the epilogue tiles overlay the ring");
+
 template <int C, int DC>
-struct F3p {
-  static constexpr int DK = 9 * C;
-  static constexpr int LDA = DK + DC + 16;  // 16-row starts 32B-aligned
-  static constexpr int SMEM = ROWS * LDA * 2 + 8 * 256 * 4;
-};
+__global__ void __launch_bounds__(THREADS, 1)
+f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
+           const __grid_constant__ CUtensorMap tm_csa,
+           const __grid_constant__ CUtensorMap tm_wk,
+           const __grid_constant__ CUtensorMap tm_wvu,
+           const __grid_constant__ CUtensorMap tm_wvc,
+           const __grid_constant__ CUtensorMap tm_gk,
+           const __grid_constant__ CUtensorMap tm_gv) {
+  constexpr int CS = C / KC;    // channel slices a tap
+  constexpr int NKU = 9 * CS;   // K chunks of the unfold
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int x0 = blockIdx.x * BW, y0 = blockIdx.y * BH;
+  const int b = blockIdx.z >> 1;
+  const bool is_v = blockIdx.z & 1;
+  const int nk = NKU + (is_v && DC > 0 ? 1 : 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-template <int C, int DC>
-__global__ void __launch_bounds__(THREADS)
-f3p_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ csa,
-           const bf16* __restrict__ wk, const bf16* __restrict__ wvu,
-           const bf16* __restrict__ wvc, bf16* __restrict__ gk,
-           bf16* __restrict__ gv, int H, int W, int M) {
-  constexpr int DK = F3p<C, DC>::DK, LDA = F3p<C, DC>::LDA;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a = reinterpret_cast<bf16*>(smem);
-  float* scratch = reinterpret_cast<float*>(smem + ROWS * LDA * 2);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int p0 = blockIdx.x * ROWS;
-
-  // A rows: [u (9 taps x C) | csa (DC)], 8 bf16 per vector
-  constexpr int VPR = (DK + DC) / 8;  // vectors per row (80 at C = DC = 64)
-  for (int idx = tid; idx < ROWS * VPR; idx += THREADS) {
-    const int r = idx / VPR, j = idx % VPR;
-    const int p = p0 + r;
-    uint4 v = zero8();
-    if (p < M) {
-      if (j < DK / 8) {
-        const int t = j / (C / 8), cv = j % (C / 8);
-        const int x = p % W, y = (p / W) % H, b = p / (W * H);
-        const int yy = y + t / 3 - 1, xx = x + t % 3 - 1;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-          v = ld8(feat + ((size_t)(b * H + yy) * W + xx) * C + cv * 8);
-      } else {
-        v = ld8(csa + (size_t)p * DC + (j - DK / 8) * 8);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
     }
-    st8(a + r * LDA + j * 8, v);
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // warps 0-3: g_k columns [64w, 64w+64); warps 4-7: g_v columns
-  const bool is_v = warp >= 4;
-  const int col0 = (warp & 3) * 64;
-  const bf16* wmain = is_v ? wvu : wk;
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[i][j], 0.f);
-  FragA fa[2];
-  FragB fb;
-  const int kend = is_v ? DK + DC : DK;
-  for (int k = 0; k < kend; k += 16) {
-    const bf16* wrow = k < DK ? wmain + (size_t)k * HID
-                              : wvc + (size_t)(k - DK) * HID;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wm::load_matrix_sync(fa[i], a + (16 * i) * LDA + k, LDA);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wm::load_matrix_sync(fb, wrow + col0 + 16 * j, HID);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wm::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+  if (warp == CONSUMERS * 4) {  // the producer warp: one thread issues
+    if (lane == 0) {
+      const CUtensorMap* wmap = is_v ? &tm_wvu : &tm_wk;
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc % STAGES;
+        if (kc >= STAGES) mbar_wait(&empty[s], (kc / STAGES - 1) & 1);
+        unsigned char* a = smem + s * STAGE_BYTES;
+        unsigned char* bt = a + A_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        if (kc < NKU) {
+          const int t = kc / CS, cs = kc % CS;
+          tma_load_4d(a, &tm_feat, &full[s], cs * KC, x0 + t % 3 - 1,
+                      y0 + t / 3 - 1, b);
+          for (int j = 0; j < HID / 64; ++j)
+            tma_load_2d(bt + j * SLAB, wmap, &full[s], j * 64, kc * KC);
+        } else {  // the CSA chunk of g_v, at the centre tap
+          tma_load_4d(a, &tm_csa, &full[s], 0, x0, y0, b);
+          for (int j = 0; j < HID / 64; ++j)
+            tma_load_2d(bt + j * SLAB, &tm_wvc, &full[s], j * 64, 0);
+        }
+      }
     }
+    return;
   }
-  bf16* out = is_v ? gv : gk;
-  float* ws = scratch + warp * 256;
+
+  // consumer warpgroup wg: patch rows 64 wg .. 64 wg + 63 (pixel rows
+  // y0 + 4 wg .. y0 + 4 wg + 3)
+  const int wg = warp >> 2;
+  float acc[128];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc % STAGES;
+    mbar_wait(&full[s], (kc / STAGES) & 1);
+    const unsigned char* a = smem + s * STAGE_BYTES + wg * (64 * 128);
+    const unsigned char* bt = smem + s * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+    fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store_frag_bf16(acc[i][j], ws, out, HID, p0 + 16 * i, M,
-                      col0 + 16 * j);
+    for (int k = 0; k < KC / 16; ++k)
+      wgmma_m64n256k16<1>(acc, desc_sw128(a + 32 * k, 16, 1024),
+                          desc_sw128(bt + 2048 * k, SLAB, 1024), 1);
+    wgmma_commit();
+    fence_regs(acc);
+    // the previous chunk's products are done: release its stage
+    wgmma_wait<1>();
+    if (kc > 0) mbar_arrive(&empty[(kc - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: both warpgroups are past their last products, so the ring
+  // is free (every chunk issued has landed and been read). Warpgroup wg
+  // writes its 64 x 256 tile in bf16 into 32 KB of it as four 64-column
+  // slabs with the 128-byte swizzle (conflict-free: the 8 rows of a store
+  // land in 8 different 16-byte chunks), then one thread stores the slabs
+  // by TMA as 64 x 16 x 4 boxes of the output map; TMA drops the elements
+  // past W and H.
+  bar_sync(1, CONSUMERS * 128);
+  unsigned char* st = smem + wg * (HID / 64) * 8192;
+  const int w4 = warp & 3, q4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * w4 + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int j = 0; j < HID / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          st + (j >> 3) * 8192 + r * 128 + (((j & 7) ^ (r & 7)) << 4) +
+          4 * q4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  fence_proxy_async();
+  bar_sync(2 + wg, 128);
+  if ((threadIdx.x & 127) == 0) {
+    const CUtensorMap* om = is_v ? &tm_gv : &tm_gk;
+    for (int j = 0; j < HID / 64; ++j)
+      tma_store_4d(om, st + j * 8192, 64 * j, x0, y0 + 4 * wg, b);
+    bulk_commit();
+    bulk_wait_read();
+  }
+}
+
+// tensor maps: a (B, H, W, ch) map as (ch, W, H, B) in 64 x 16 x box_h x 1
+// boxes; a (rows, 256) weight matrix as (256, rows) in 64 x 64 boxes
+int map_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int ch,
+             int box_h) {
+  const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ch * 2, (cuuint64_t)W * ch * 2,
+                                 (cuuint64_t)H * W * ch * 2};
+  const cuuint32_t box[4] = {KC, BW, (cuuint32_t)box_h, 1};
+  return tmap_encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 4, dims, strides,
+                     box);
+}
+
+int map_weights(CUtensorMap* m, const void* p, int rows) {
+  const cuuint64_t dims[2] = {HID, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {HID * 2};
+  const cuuint32_t box[2] = {64, KC};
+  return tmap_encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 2, dims, strides,
+                     box);
 }
 
 template <int C, int DC>
 int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
            const void* wvc, void* gk, void* gv, int B, int H, int W,
            void* stream) {
-  constexpr int SMEM = F3p<C, DC>::SMEM;
   static cudaError_t attr = allow_smem(f3p_kernel<C, DC>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const int M = B * H * W;
-  dim3 grid((M + ROWS - 1) / ROWS);
+  CUtensorMap tf, tc, tk, tv, tvc, tok, tov;
+  int err = map_nhwc(&tf, feat, B, H, W, C, BH);
+  if (!err) err = map_weights(&tk, wk, 9 * C);
+  if (!err) err = map_weights(&tv, wvu, 9 * C);
+  if (!err) err = map_nhwc(&tok, gk, B, H, W, HID, BH / CONSUMERS);
+  if (!err) err = map_nhwc(&tov, gv, B, H, W, HID, BH / CONSUMERS);
+  if (err) return err;
+  if (DC > 0) {
+    if ((err = map_nhwc(&tc, csa, B, H, W, DC, BH))) return err;
+    if ((err = map_weights(&tvc, wvc, DC))) return err;
+  } else {  // never read without CSA
+    tc = tf;
+    tvc = tk;
+  }
+  const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH, 2 * B);
   f3p_kernel<C, DC><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)feat, (const bf16*)csa, (const bf16*)wk,
-      (const bf16*)wvu, (const bf16*)wvc, (bf16*)gk, (bf16*)gv, H, W, M);
+      tf, tc, tk, tv, tvc, tok, tov);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 wrappers and plain versions.
 
 Counterparts of ciaosr_tpu/ops/pallas/csa_attention.py::csa_attention
-(row 7), ::csa_attention_overlap_add (row 8) and ::csa_fused (row 6); the
-kernels are one template in csrc/csa_attention.cu. With q_i the 3×3 match
+(row 7, the one-launch kernel of csrc/csa_flash.cu),
+::csa_attention_overlap_add (row 8) and ::csa_fused (row 6) (one two-pass
+template in csrc/csa_attention.cu). With q_i the 3×3 match
 neighbourhood of query pixel i (9Cr), k_l the normalized key patches and
 v_l the (3s)×(3s) stride-s patches of the embedding:
 
@@ -67,8 +68,9 @@ def csa_fused_plain(match: torch.Tensor, keys: torch.Tensor,
     return overlap_add(csa_attention_plain(q, keys, v, scale), hp, wp, s, c)
 
 
-def _launch(name: str, tensors, ints, scale: float, dev) -> None:
-    fn = getattr(_build.load("csa_attention"), name)
+def _launch(name: str, tensors, ints, scale: float, dev,
+            lib: str = "csa_attention") -> None:
+    fn = getattr(_build.load(lib), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(
         ints) + [ctypes.c_float, ctypes.c_void_p]
@@ -103,8 +105,8 @@ def csa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return csa_attention_plain(q, k, v, scale)
     b, p, l_ = _check_banks("csa_attention", q, k, v)
     out = torch.empty(b, p, DV, device=q.device, dtype=torch.float32)
-    _launch("csa_attention", (q, k, v, *_stats(b, p, q.device), out),
-            (b, p, l_), scale, q.device)
+    _launch("csa_attention", (q, k, v, out), (b, p, l_), scale, q.device,
+            "csa_flash")
     return out
 
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels (bf16) against their plain PyTorch versions
 (f32, the same input values): max|Δ|/max|ref| ≤ 1e-2, the bf16 class the
-JAX kernels hold. The decode kernel is held at integer scales and, in its
-rational mode, at ×2.5, ×7/3, ×1.5, 5/3 × 7/2 and an odd width; the CSA
-kernels (K4, rows 5-8) at ragged, non-square geometries; the Swin block
+JAX kernels hold. K1 is held at patch-ragged shapes at both widths; the
+decode kernel at integer scales and, in its rational mode, at ×2.5, ×7/3,
+×1.5, 5/3 × 7/2 and an odd width; the CSA kernels (K4, rows 5-8) at
+ragged, non-square geometries, and row 7 also on seeded banks at the
+edges of its tiles and of its online softmax; the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
 ≤ 2e-2) and K1-K3 at SwinIR-CiaoSR's 180 channels without CSA. Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
@@ -65,13 +67,40 @@ def case():
     return net, feat.contiguous(), csa.contiguous(), dk
 
 
+def _bf16(rng, *shape, scale=1.0):
+    """A seeded normal tensor on the card, in bf16."""
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                           * scale, device="cuda").to(torch.bfloat16)
+
+
+# K1 on the network's own maps (21 × 37), then on seeded maps whose H and
+# W are not multiples of the kernel's 8 × 16 pixel patch (nor B·H·W of its
+# 128 rows), at both compiled (C, DC) pairs
+@pytest.mark.parametrize("b,h,w,c,dc", [(2, 21, 37, 64, 64),
+                                        (2, 13, 29, 64, 64),
+                                        (1, 60, 47, 64, 64),
+                                        (2, 13, 29, 192, 0),
+                                        (1, 60, 47, 192, 0)],
+                         ids=["net_21x37", "13x29", "60x47", "13x29_C192",
+                              "60x47_C192"])
 @torch.inference_mode()
-def test_f3p_build(case):
+def test_f3p_build(case, b, h, w, c, dc):
+    from ciaosr_torch.ops import kernels
     net, feat, csa, dk = case
-    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
-                         (0.5, 0.5), torch.bfloat16)
-    args = (feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+    if feat.shape[1:3] == (h, w) and c == 64:
+        pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                             (0.5, 0.5), torch.bfloat16)
+        args = (feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+    else:
+        rng = np.random.default_rng(h * w + c)
+        args = (_bf16(rng, b, h, w, c), _bf16(rng, b, h, w, dc) if dc
+                else None, _bf16(rng, 9 * c, 256, scale=0.05),
+                _bf16(rng, 9 * c, 256, scale=0.05),
+                _bf16(rng, dc, 256, scale=0.05))
+    n0 = kernels.LAUNCHES["f3p_build"]
     got = dk.f3p_build(*args)
+    assert kernels.LAUNCHES["f3p_build"] == n0 + 1
+    assert got[0].shape == got[1].shape == (b, h, w, 256)
     assert _rel(got, dk.f3p_build_plain(*_f32(args))) <= REL_TOL
 
 
@@ -231,6 +260,34 @@ def test_csa_attention_banks(case, hw):
     # the same function as row 6 on the maps the banks came from
     assert _rel(got8, ca.csa_fused_plain(match.float(), keys.float(),
                                          embed.float(), 10.0, 2)) <= REL_TOL
+
+
+# row 7 on seeded banks: fewer than 64 queries and 48 keys (the kernel's
+# tiles), P and L off the tiles, B = 2, scores that rise along L (the
+# running max rises on tile after tile, so every accumulator is rescaled),
+# a large scale, and tiles met exactly
+@pytest.mark.parametrize("b,p,l_,scale,rising", [
+    (1, 40, 30, 10.0, False), (2, 100, 200, 10.0, False),
+    (2, 130, 1000, 10.0, True), (1, 77, 500, 300.0, False),
+    (2, 64, 48, 1.0, False)],
+    ids=["P40_L30", "B2_P100_L200", "rising_L1000", "scale300", "tiles"])
+@torch.inference_mode()
+def test_csa_attention_edges(case, b, p, l_, scale, rising):
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    rng = np.random.default_rng(p + l_)
+    q = (_bf16(rng, b, p, 288, scale=0.1).float() + 0.05).to(torch.bfloat16)
+    k = _bf16(rng, b, l_, 288, scale=0.1)
+    if rising:   # q · k_l grows by ~0.7 (7 logits at scale 10) along L
+        ramp = torch.linspace(0, 0.05, l_, device="cuda")[None, :, None]
+        k = (k.float() + ramp).to(torch.bfloat16)
+    v = _bf16(rng, b, l_, 2304)
+    n0 = kernels.LAUNCHES["csa_attention"]
+    got = ca.csa_attention(q, k, v, scale)
+    assert kernels.LAUNCHES["csa_attention"] == n0 + 1
+    ref = ca.csa_attention_plain(q.float(), k.float(), v.float(), scale)
+    assert got.shape == ref.shape == (b, p, 2304)
+    assert _rel(got, ref) <= REL_TOL
 
 
 @torch.inference_mode()
