@@ -37,8 +37,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      block 36 × tiles, K1-K3 once per tile, no CSA kernel); the kernel
      route against the plain f32 route on 48² and 70² at ×4; the stage
      breakdown of one 256 tile and the warm time of the 384² request; then
-     the ``time_kernels`` line: K1 at both widths and row 7 (the kernels
-     redesigned for Hopper), rows 5, 6, 8 and K4, and one tile of each
+     the ``time_kernels`` line: K1 and K3 at both widths, K3 at the odd
+     width, and row 7 (the kernels redesigned for Hopper), K3's rational
+     mode at both widths, rows 5, 6, 8 and K4, and one tile of each
      generator;
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
@@ -326,7 +327,8 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
             + 3 * hid * hid + hid * 3
         nbytes = sum(t.numel() * t.element_size()
                      for t in (*maps[-1].values(), *tabs.values()))
-        run(name, "ciaosr_torch/csrc/grid_decode.cu", replaces,
+        run(name, "ciaosr_torch/csrc/grid_decode.cu" if rational
+            else "ciaosr_torch/csrc/grid_decode_sm90.cu", replaces,
             lambda: kern(*maps[:6], maps[6], tabs, ss),
             lambda: plain(*f32(maps[:6]), f32(maps[6]), tabs, ss),
             2 * n_phase * m_out * mlp,
@@ -577,12 +579,15 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
 def time_kernels(label: str, restorer, swin, lq: np.ndarray,
                  lq_s: np.ndarray, big: np.ndarray) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
-    redesigned for Hopper (K1 at both widths, row 7), of the CSA kernels
-    that share sources or tiles with row 7 (rows 5, 6 and 8, K4), and of
-    the two tiles that run K1 (a flagship 192 tile at x4, a SwinIR 256
-    tile at x4), at the main path's shapes: one line, printed the same way
-    by ``--kernel-times`` in another checkout, so that a parent tree's
-    times and these are read in one call."""
+    redesigned for Hopper (K1 and K3's integer mode at both widths, K3 at
+    row 9's odd width, row 7), of K3's rational mode at both widths (its
+    source lost the integer entry point: its times must not move), of the
+    CSA kernels that share sources or tiles with row 7 (rows 5, 6 and 8,
+    K4), and of the two tiles that run K1 and K3 (a flagship 192 tile at
+    x4, a SwinIR 256 tile at x4), at the main path's shapes: one line,
+    printed the same way by ``--kernel-times`` in another checkout, so
+    that a parent tree's times and these are read in one call."""
+    from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
     from ciaosr_torch.ops.kernels import decoder as dk
@@ -603,6 +608,32 @@ def time_kernels(label: str, restorer, swin, lq: np.ndarray,
             sfeat, (0.5, 0.5))
         times["f3p_build@C180"] = time_ms(lambda: dk.f3p_build(
             feat_p, None, spk["wk0"], spk["wvu"], spk["wvc"]), reps=20)
+
+        def decode_times(suffix, gen, feat, rational):
+            """K3 at x4 on feat's maps, and with ``rational`` its rational
+            mode at x2.5 (25 phases of (H/2) x (W/2))."""
+            h, w = feat.shape[1:3]
+            maps = gen._kernel_maps(feat, (0.5, 0.5))
+            tabs = dk.decoder_tables(4, h, w, gen.local_size, feat.device)
+            times["grid_decode" + suffix] = time_ms(
+                lambda: dk.grid_decode(*maps, tabs, gen.softmax_scale),
+                reps=3, warm=1)
+            if rational:
+                maps = gen._kernel_maps(feat, rational_cell(
+                    h, w, h * 5 // 2, w * 5 // 2))
+                tabs = dk.rational_tables(h, w, 5, 2, 5, 2, gen.local_size,
+                                          feat.device)
+                times["grid_decode_rational" + suffix] = time_ms(
+                    lambda: dk.grid_decode_rational(*maps, tabs,
+                                                    gen.softmax_scale),
+                    reps=3, warm=1)
+            del maps, tabs
+
+        decode_times("", net, feature, True)
+        decode_times("@C180", swin.generator, sfeat, True)
+        decode_times("@{}x{}".format(*ODD), net, net.gen_feature(
+            restorer.normalize(torch.as_tensor(lq[:ODD[0], :ODD[1]],
+                                               device="cuda")[None])), False)
         cs = net.cs_attn.softmax_scale
         match, keys, embed, q, v = csa_inputs(restorer, lq[:SET5[0][0],
                                                            :SET5[0][1]],
@@ -735,23 +766,26 @@ def check_swin_kernels(swin, lq_tile: torch.Tensor) -> list[dict]:
         2 * 9 * m * dk_ * (hid + 1),
         m * c * 2 + dk_ * hid * 2 + dk_ * 4 + 9 * m * (hid * 2 + 4), None))
 
-    def decode_row(name, replaces, kern, plain, mp, tb, n_phase, m_out):
+    def decode_row(name, source, replaces, kern, plain, mp, tb, n_phase,
+                   m_out):
         n_shift = len(dk.shift_offsets(net.local_size))
         mlp = n_shift * (6 * hid * hid + hid * dk_ + hid) + dk_ * hid \
             + 3 * hid * hid + hid * 3
         weights = (6 * hid * hid + 2 * hid * dk_ + 3 * hid * hid) * 2
         tab_bytes = sum(t.numel() * t.element_size() for t in tb.values())
         rows.append(kernel_row(
-            name, "ciaosr_torch/csrc/grid_decode.cu", replaces,
+            name, source, replaces,
             lambda: kern(*mp[:6], mp[6], tb, net.softmax_scale),
             lambda: plain(*f32(mp[:6]), f32(mp[6]), tb, net.softmax_scale),
             2 * n_phase * m_out * mlp,
             m * (c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
             + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3))
 
-    decode_row("grid_decode@C180", src + "1329 (_grid_decode_halo)",
-               dk.grid_decode, dk.grid_decode_plain, maps, tabs, 16, m)
+    decode_row("grid_decode@C180", "ciaosr_torch/csrc/grid_decode_sm90.cu",
+               src + "1329 (_grid_decode_halo)", dk.grid_decode,
+               dk.grid_decode_plain, maps, tabs, 16, m)
     decode_row("grid_decode_rational@C180",
+               "ciaosr_torch/csrc/grid_decode.cu",
                src + "1224 (grid_decode_fused_rational)",
                dk.grid_decode_rational, dk.grid_decode_rational_plain,
                maps_r, tabs_r, py * py, b * (h // qy) * (w // qy))

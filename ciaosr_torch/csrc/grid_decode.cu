@@ -1,27 +1,28 @@
-// K3 grid_decode: the integer-scale dense-grid decoder.
+// K3's rational mode: the dense-grid decoder at rational scales.
 //
-// Replaces ciaosr_tpu/ops/pallas/decoder_kernel.py::_grid_decode_halo
-// (kernel _decode_kernel_halo, integer mode, entered from
-// grid_decode_fused). For each LR pixel p, HR phase ph (s^2 of them) and
-// local-ensemble shift i (4), with (dy, dx) = the shift's constant offset
-// for this phase and q = the edge-clamped pixel p + (dy, dx):
+// Replaces ciaosr_tpu/ops/pallas/decoder_kernel.py::grid_decode_fused_rational
+// (kernel _decode_kernel_halo in its rational mode). The integer mode,
+// K3 itself, runs on csrc/grid_decode_sm90.cu (wgmma and TMA). For each
+// output pixel p of a phase image, HR phase ph and local-ensemble shift i,
+// the tables
+// give the query pixel and the key pixel q (within one pixel of it) with
+// its rel terms; then, with (dy, dx) = q - query:
 //   h_k = MLP_k hidden layers of relu(g_k[q] + rely*w_ry + relx*w_rx + b0)
-//   logit_i = wt_{dy,dx}[p] . h_k + ck_{dy,dx}[p]
+//   logit_i = wt_{dy,dx}[query] . h_k + ck_{dy,dx}[query]
 //   h_v = MLP_v hidden layers of relu(g_v[q] + rel terms + b0)
 //   pred_i = [u[q] | csa[q]] (.) (h_v @ W_vout + b_vout)        (640 wide)
 // then softmax_i(logit_i / softmax_scale), outv = sum_i attn_i pred_i, and
-// rgb = imnet_q(outv). Output: (B, s^2, H, W, 3) f32 phase images before
-// the bilinear residual. b0 has the cell terms folded in (host side).
+// rgb = imnet_q(outv). Output: (B, py * px, OH, OW, 3) f32 phase images
+// before the bilinear residual. b0 has the cell terms folded in (host side).
 //
 // Casts follow the TPU kernel so the result stays within bf16 tolerance
 // of the f32 plain version: h is rounded to bf16 before every matmul,
 // h_k stays f32 for the logit, pred is rounded to bf16 before the blend
 // (decoder_kernel.py:930-933), the blend and the softmax are f32.
 //
-// Bound on the H100: 2*s^2*M*(4*(3*256^2 + 3*256^2 + 256*640 + 256)
-// + 640*256 + 3*256^2 + 256*3) = 3.05 TFLOP at s = 4, M = 192*192: 3.1 ms
-// at the bf16 dense peak; it is compute-bound (the gathered inputs are
-// L2-resident and the output is 7 MB).
+// Bound on the H100 at x2.5 on a 192 x 192 tile (25 phases of 96 x 96):
+// 1.2 ms at the bf16 dense peak; it is compute-bound (the gathered inputs
+// are L2-resident and the output is small).
 // Design: a block decodes 32 pixels of one phase. Like the TPU kernel, it
 // stacks the 4 shifts along the rows, so every k/v MLP layer is one
 // 128 x 256 x 256 product: each weight tile is fetched once per 128 rows.
@@ -47,7 +48,7 @@
 // 32 x 256 f32 sum in shared memory (196 KB in all). It needs every
 // shift's hidden rows at once, so it takes at most 4 shifts (one group:
 // local_size 1 or 2), checked on the host. Bound at C = 180 on a 256 x 256
-// map at x4: 8.07 TFLOP of the function's, 8.2 ms.
+// map at x2.5: 3.2 ms.
 #include "common.cuh"
 
 namespace {
@@ -92,12 +93,10 @@ struct Params {
   const float *kb, *vb, *vbout, *qb0, *qb;  // f32 biases
   const float *krel, *kb0, *vrel, *vb0;     // first-layer rel rows, bias
   const float *qwout, *qbout;               // (3, 256) and (3,)
-  const int *dys, *dxs;                     // (n_phase, n_shift)
-  // rational: (py, OH) and (px, OW) query, (py, n_shift, OH) and
-  // (px, n_shift, OW) key indices
+  // (py, OH) and (px, OW) query, (py, n_shift, OH) and (px, n_shift, OW)
+  // key indices
   const int *yq, *yk, *xq, *xk;
-  // integer: (n_phase, n_shift, H / W); rational: (py / px, n_shift, OH / OW)
-  const float *rely, *relx;
+  const float *rely, *relx;                 // (py / px, n_shift, OH / OW)
   float* out;
   int H, W, M, n_phase, n_shift;
   int OH, OW, MO, px;  // phase image rows, columns, pixels; phase columns
@@ -195,9 +194,8 @@ __device__ void epi_hidden(FragC (&acc)[RF][CF], float* scr,
     }
 }
 
-// RAT = false: integer scale, key = clamp(p + (dy, dx)) with per-phase
-// offsets; RAT = true: rational scale, query and key from the tables.
-template <int C, int DC, bool RAT>
+// query and key pixels, and their rel terms, from the rational tables
+template <int C, int DC>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
   using L = Lay<C, DC>;
   constexpr int DK = L::DK, DV = L::DV;
@@ -212,18 +210,18 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
   float* logit = reinterpret_cast<float*>(smem + L::OFF_LOG);  // [shift][PIX]
   float* attn = logit + MAX_SHIFT * PIX;
   __shared__ int row_p[PIX], row_b[PIX], row_y[PIX], row_x[PIX];
-  __shared__ int r_q[ROWS], r_qy[ROWS], r_qx[ROWS], r_ps[ROWS];
+  __shared__ int r_q[ROWS], r_qy[ROWS], r_qx[ROWS];
   __shared__ size_t r_wt[ROWS];
-  __shared__ int row_q[PIX];             // rational: LR query pixel
-  __shared__ float r_ry[ROWS], r_rx[ROWS];  // rational: rel of each row
+  __shared__ int row_q[PIX];                // LR query pixel
+  __shared__ float r_ry[ROWS], r_rx[ROWS];  // rel of each row
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int p0 = blockIdx.x * PIX;
   const int ph = blockIdx.y;
   const int H = P.H, W = P.W, M = P.M, NS = P.n_shift;
   // output pixels p enumerate (b, row, col) of one phase image
-  const int OH = RAT ? P.OH : H, OW = RAT ? P.OW : W, MO = RAT ? P.MO : M;
-  const int pa = RAT ? ph / P.px : 0, pb = RAT ? ph % P.px : 0;
+  const int OH = P.OH, OW = P.OW, MO = P.MO;
+  const int pa = ph / P.px, pb = ph % P.px;
   FragC acc[4][4];
 
   if (tid < PIX) {
@@ -233,9 +231,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
     row_x[tid] = ok ? p % OW : 0;
     row_y[tid] = ok ? (p / OW) % OH : 0;
     row_b[tid] = ok ? p / (OW * OH) : 0;
-    if (RAT)
-      row_q[tid] = (row_b[tid] * H + P.yq[pa * OH + row_y[tid]]) * W +
-                   P.xq[pb * OW + row_x[tid]];
+    row_q[tid] = (row_b[tid] * H + P.yq[pa * OH + row_y[tid]]) * W +
+                 P.xq[pb * OW + row_x[tid]];
   }
   __syncthreads();
 
@@ -244,29 +241,18 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
     if (tid < ROWS) {
       const int si = tid / PIX, pix = tid % PIX, s = g0 + si;
       const bool ok = s < NS && row_p[pix] >= 0;
-      const int ps = ph * NS + (s < NS ? s : 0);
-      int dy, dx, qy, qx, query;
-      if (RAT) {  // key and query pixels from the tables; d = key - query
-        const int sy = (pa * NS + (s < NS ? s : 0)) * OH + row_y[pix];
-        const int sx = (pb * NS + (s < NS ? s : 0)) * OW + row_x[pix];
-        qy = P.yk[sy];
-        qx = P.xk[sx];
-        dy = qy - P.yq[pa * OH + row_y[pix]];
-        dx = qx - P.xq[pb * OW + row_x[pix]];
-        query = row_q[pix];
-        r_ry[tid] = P.rely[sy];
-        r_rx[tid] = P.relx[sx];
-      } else {
-        dy = P.dys[ps];
-        dx = P.dxs[ps];
-        qy = clampi(row_y[pix] + dy, 0, H - 1);
-        qx = clampi(row_x[pix] + dx, 0, W - 1);
-        query = row_p[pix];
-      }
+      // key and query pixels from the tables; d = key - query
+      const int sy = (pa * NS + (s < NS ? s : 0)) * OH + row_y[pix];
+      const int sx = (pb * NS + (s < NS ? s : 0)) * OW + row_x[pix];
+      const int qy = P.yk[sy], qx = P.xk[sx];
+      const int dy = qy - P.yq[pa * OH + row_y[pix]];
+      const int dx = qx - P.xq[pb * OW + row_x[pix]];
+      const int query = row_q[pix];
+      r_ry[tid] = P.rely[sy];
+      r_rx[tid] = P.relx[sx];
       r_q[tid] = ok ? (row_b[pix] * H + qy) * W + qx : -1;
       r_qy[tid] = qy;
       r_qx[tid] = qx;
-      r_ps[tid] = ps;
       // row of the wt plane (and of ck) for this shift at the query pixel
       r_wt[tid] = ((size_t)((dy + 1) * 3 + (dx + 1)) * M +
                    (ok ? query : 0)) * HID;
@@ -276,15 +262,11 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
   // relu(g[q] + rely*w_ry + relx*w_rx + b0) -> act (bf16)
   auto first_layer = [&](const bf16* g, const float* rel, const float* b0) {
     for (int idx = tid; idx < ROWS * HID; idx += THREADS) {
-      const int r = idx / HID, j = idx % HID, pix = r % PIX;
+      const int r = idx / HID, j = idx % HID;
       float v = 0.f;
       if (r_q[r] >= 0) {
-        const float ry =
-            RAT ? r_ry[r] : P.rely[(size_t)r_ps[r] * H + row_y[pix]];
-        const float rx =
-            RAT ? r_rx[r] : P.relx[(size_t)r_ps[r] * W + row_x[pix]];
-        v = fmaxf(bf2f(g[(size_t)r_q[r] * HID + j]) + ry * rel[j] +
-                      rx * rel[HID + j] + b0[j], 0.f);
+        v = fmaxf(bf2f(g[(size_t)r_q[r] * HID + j]) + r_ry[r] * rel[j] +
+                      r_rx[r] * rel[HID + j] + b0[j], 0.f);
       }
       act[r * LDA + j] = f2bf(v);
     }
@@ -484,7 +466,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
   }
 }
 
-// the 22 pointers both entry points take first: feat, csa, gk, gv, wt, ck,
+// the 22 pointers the entry point takes first: feat, csa, gk, gv, wt, ck,
 // kw, vw, vout, qw0, qw, kb, vb, vbout, qb0, qb, krel, kb0, vrel, vb0,
 // qwout, qbout
 Params common_params(void* const* ptrs, int B, int H, int W, int n_phase,
@@ -522,43 +504,25 @@ Params common_params(void* const* ptrs, int B, int H, int W, int n_phase,
   return P;
 }
 
-template <int C, int DC, bool RAT>
+template <int C, int DC>
 int launch(const Params& P, dim3 grid, void* stream) {
   using L = Lay<C, DC>;
-  static cudaError_t attr = allow_smem(decode_kernel<C, DC, RAT>, L::SMEM);
+  static cudaError_t attr = allow_smem(decode_kernel<C, DC>, L::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   if (P.n_shift < 1 || P.n_shift > (L::WIDE ? SG : MAX_SHIFT))
     return (int)cudaErrorInvalidValue;
-  decode_kernel<C, DC, RAT>
+  decode_kernel<C, DC>
       <<<grid, THREADS, L::SMEM, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
-template <bool RAT>
 int dispatch(int C, int DC, const Params& P, dim3 grid, void* stream) {
-  if (C == 64 && DC == 64) return launch<64, 64, RAT>(P, grid, stream);
-  if (C == 192 && DC == 0) return launch<192, 0, RAT>(P, grid, stream);
+  if (C == 64 && DC == 64) return launch<64, 64>(P, grid, stream);
+  if (C == 192 && DC == 0) return launch<192, 0>(P, grid, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
-
-// ptrs: the 22 common pointers, then dys, dxs, rely, relx, out
-extern "C" int grid_decode(void* const* ptrs, int B, int H, int W, int C,
-                           int DC, int n_phase, int n_shift,
-                           float softmax_scale, void* stream) {
-  Params P = common_params(ptrs, B, H, W, n_phase, n_shift, softmax_scale);
-  P.dys = (const int*)ptrs[22];
-  P.dxs = (const int*)ptrs[23];
-  P.rely = (const float*)ptrs[24];
-  P.relx = (const float*)ptrs[25];
-  P.out = (float*)ptrs[26];
-  P.OH = H;
-  P.OW = W;
-  P.MO = P.M;
-  return dispatch<false>(C, DC, P, dim3((P.M + PIX - 1) / PIX, n_phase),
-                         stream);
-}
 
 // ptrs: the 22 common pointers, then yq, yk, xq, xk, rely, relx, out.
 // Phases p = a * px + b, n_phase = py * px; out (B, n_phase, OH, OW, 3).
@@ -579,6 +543,6 @@ extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
   P.OW = OW;
   P.MO = B * OH * OW;
   P.px = px;
-  return dispatch<true>(C, DC, P, dim3((P.MO + PIX - 1) / PIX, py * px),
+  return dispatch(C, DC, P, dim3((P.MO + PIX - 1) / PIX, py * px),
                         stream);
 }

@@ -222,6 +222,26 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
 }
 
+// d (64 x 128) += A (64 x 16, K-major) B (16 x 128); TNSPB as above
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, %67;\n"
+      "}\n"
+      : SM90_F32(0), SM90_F32(32)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
+}
+
 // d (64 x 16) += A (64 x 16, K-major) B (16 x 16, K-major)
 __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
                                                 uint64_t db, int scale_d) {

@@ -4,10 +4,11 @@ tables.
 Counterparts in ciaosr_tpu/ops/pallas/decoder_kernel.py:
   f3p_build   ← _build_f3p (K1, csrc/f3p_build.cu)
   wt_hoist    ← _wt_hoist_planes (K2, csrc/wt_hoist.cu)
-  grid_decode ← _grid_decode_halo, integer mode (K3, csrc/grid_decode.cu)
+  grid_decode ← _grid_decode_halo, integer mode (K3,
+                csrc/grid_decode_sm90.cu: wgmma and TMA)
   grid_decode_rational ← grid_decode_fused_rational, the rational mode of
-                _grid_decode_halo (csrc/grid_decode.cu, the same kernel
-                reading per-row index tables)
+                _grid_decode_halo (csrc/grid_decode.cu, reading per-row
+                index tables)
 plus host copies of _phase_tables, _split_first_layer/_pack_weights and
 models/ciaosr.py::shift_offsets / _grid_axis_tables.
 
@@ -43,8 +44,10 @@ from ciaosr_torch.ops.neighborhood import (shift_edge, tap_major_perm,
 # the (C, DC) pairs the kernels are compiled for, and the MLP widths
 INSTANCES = ((64, 64), (192, 0))
 HID, N_HIDDEN = 256, 4
-# at C = 192 the decode kernel blends the value chunk by chunk straight
-# into imnet_q's first layer, which needs every shift's row in one product
+# at C = 192 the rational mode's kernel blends the value chunk by chunk
+# straight into imnet_q's first layer, which needs every shift's row in one
+# product; both modes take at most 4 shifts there (local_size ≤ 2, as every
+# config at that width)
 WIDE_MAX_SHIFT = 4
 
 
@@ -464,7 +467,7 @@ def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     args = [feature, csa, gk, gv, wt, ck, *(pk[k] for k in _DECODE_ORDER),
             tabs["dys"], tabs["dxs"], tabs["rely"], tabs["relx"], out]
     ptrs = (ctypes.c_void_p * len(args))(*(_ptr(t) for t in args))
-    fn = _build.load("grid_decode").grid_decode
+    fn = _build.load("grid_decode_sm90").grid_decode
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]

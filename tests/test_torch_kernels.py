@@ -114,23 +114,34 @@ def test_wt_hoist(case):
     assert _rel(got, ref) <= REL_TOL
 
 
-@pytest.mark.parametrize("scale,local_size", [(3, 2), (4, 2), (2, 1),
-                                              (2, 3)])
+# K3 at s = 2, 3, 4 with 1, 4 and 9 shifts (9: two groups of 4 and one
+# of 1, each blend rounded on its own), B = 2 and B·H·W off the kernel's
+# 32-pixel blocks; 60 × 47 is row 9's odd width; a softmax scale of 0.02
+# spreads the logits so that one shift takes almost all the weight
+@pytest.mark.parametrize("scale,local_size,hw,softmax_scale", [
+    (3, 2, (21, 37), 1.0), (4, 2, (21, 37), 1.0), (2, 1, (21, 37), 1.0),
+    (2, 3, (21, 37), 1.0), (4, 2, (60, 47), 1.0), (4, 3, (60, 47), 1.0),
+    (4, 2, (21, 37), 0.02), (3, 3, (13, 29), 0.02)],
+    ids=["x3", "x4", "x2_1shift", "x2_9shifts", "60x47", "60x47_9shifts",
+         "x4_spread", "x3_9shifts_spread"])
 @torch.inference_mode()
-def test_grid_decode(case, scale, local_size):
-    """local_size 1/2/3 gives 1/4/9 shifts: the kernel stacks them 4 at a
-    time, so 9 covers a partial group."""
+def test_grid_decode(case, scale, local_size, hw, softmax_scale):
+    from ciaosr_torch.ops import kernels
     net, feat, csa, dk = case
+    if feat.shape[1:3] != hw:
+        _, feat, csa = _features(net, hw, hw[0] * hw[1])
     pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
                          (2.0 / scale, 2.0 / scale), torch.bfloat16)
-    tabs = dk.decoder_tables(scale, *feat.shape[1:3], local_size,
-                             feat.device)
+    tabs = dk.decoder_tables(scale, *hw, local_size, feat.device)
     gk, gv = dk.f3p_build(feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
     wt, ck = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
-    got = dk.grid_decode(feat, csa, gk, gv, wt, ck, pk, tabs, 1.0)
+    n0 = kernels.LAUNCHES["grid_decode"]
+    got = dk.grid_decode(feat, csa, gk, gv, wt, ck, pk, tabs, softmax_scale)
+    assert kernels.LAUNCHES["grid_decode"] == n0 + 1
     ref = dk.grid_decode_plain(*_f32((feat, csa, gk, gv, wt, ck)), _f32(pk),
-                               tabs, 1.0)
-    assert got.shape == (2, scale * scale, 21, 37, 3)
+                               tabs, softmax_scale)
+    assert got.shape == (2, scale * scale, *hw, 3)
+    assert bool(torch.isfinite(got).all())
     assert _rel(got, ref) <= REL_TOL
 
 
@@ -403,13 +414,23 @@ def test_swin_block_rejects(swin_case):
         sb.swin_block(x[:, :12], blk.packed(8, torch.bfloat16), 8, 0)
 
 
-@pytest.mark.parametrize("scale,local_size", [(4, 2), (3, 2), (2, 1)])
+# K1-K3 at C = 192: s = 2, 3, 4, 4 shifts (one group) and 1, row 9's odd
+# width, and logits spread until one shift takes almost all the weight
+@pytest.mark.parametrize("scale,local_size,hw,softmax_scale", [
+    (4, 2, (21, 37), 1.0), (3, 2, (21, 37), 1.0), (2, 1, (21, 37), 1.0),
+    (4, 2, (60, 47), 1.0), (4, 2, (21, 37), 0.02)],
+    ids=["x4", "x3", "x2_1shift", "60x47", "x4_spread"])
 @torch.inference_mode()
-def test_decode_kernels_c180(swin_case, scale, local_size):
+def test_decode_kernels_c180(swin_case, scale, local_size, hw,
+                             softmax_scale):
     """K1, K2 and K3 on the 180-channel feature, zero-padded to 192, no
-    CSA: 4 shifts (one group) and 1."""
+    CSA."""
+    from ciaosr_torch.ops import kernels
     from ciaosr_torch.ops.kernels import decoder as dk
     net, _, feat = swin_case
+    if feat.shape[1:3] != hw:
+        feat = net.gen_feature(torch.as_tensor(np.random.default_rng(3).random(
+            (2, *hw, 3), dtype=np.float32), device="cuda") - 0.45)
     feat_p = torch.nn.functional.pad(feat, (0, 12)).contiguous()
     pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 180,
                          (2.0 / scale, 2.0 / scale), torch.bfloat16,
@@ -420,12 +441,15 @@ def test_decode_kernels_c180(swin_case, scale, local_size):
     wt, ck = dk.wt_hoist(feat_p, pk["wkout"], pk["bkout"])
     assert _rel((wt, ck), dk.wt_hoist_plain(
         feat_p.float(), pk["wkout"].float(), pk["bkout"])) <= REL_TOL
-    tabs = dk.decoder_tables(scale, *feat.shape[1:3], local_size,
-                             feat.device)
-    got = dk.grid_decode(feat_p, None, gk, gv, wt, ck, pk, tabs, 1.0)
+    tabs = dk.decoder_tables(scale, *hw, local_size, feat.device)
+    n0 = kernels.LAUNCHES["grid_decode"]
+    got = dk.grid_decode(feat_p, None, gk, gv, wt, ck, pk, tabs,
+                         softmax_scale)
+    assert kernels.LAUNCHES["grid_decode"] == n0 + 1
     ref = dk.grid_decode_plain(*_f32((feat_p, None, gk, gv, wt, ck)),
-                               _f32(pk), tabs, 1.0)
-    assert got.shape == (2, scale * scale, 21, 37, 3)
+                               _f32(pk), tabs, softmax_scale)
+    assert got.shape == (2, scale * scale, *hw, 3)
+    assert bool(torch.isfinite(got).all())
     assert _rel(got, ref) <= REL_TOL
 
 
