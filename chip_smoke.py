@@ -38,9 +38,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      route against the plain f32 route on 48² and 70² at ×4; the stage
      breakdown of one 256 tile and the warm time of the 384² request; then
      the ``time_kernels`` line: K1 and K3 at both widths, K3 at the odd
-     width, and row 7 (the kernels redesigned for Hopper), K3's rational
-     mode at both widths, rows 5, 6, 8 and K4, and one tile of each
-     generator;
+     width, row 7, K4 and row 6 (the kernels redesigned for Hopper), K3's
+     rational mode at both widths, rows 5, 8, 11 and 12, and one tile of
+     each generator;
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
      classical L1 objective): the Swin block backward (row 12, shifted and
@@ -348,7 +348,7 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
                odd_maps, tabs_odd, False)
     hp, wp = match.shape[1:3]
     p_, l_ = hp * wp, keys.shape[1]
-    run("csa_stencil_fused", "ciaosr_torch/csrc/csa_stencil.cu",
+    run("csa_stencil_fused", "ciaosr_torch/csrc/csa_stencil_sm90.cu",
         "ciaosr_tpu/ops/pallas/csa_attention.py:930 (csa_stencil_fused)",
         lambda: k4.csa_stencil_fused(match, keys, embed, cs, 2),
         lambda: k4.csa_stencil_fused_plain(match.float(), keys.float(),
@@ -412,10 +412,12 @@ def check_csa_kernels(restorer, images) -> list[dict]:
                 lambda: st.csa_stencil_plain(*maps32, cs, 2),
                 2 * b * p_ * l_ * (dk + 4 * c), map_bytes, None, reps))
         elif name == "csa_fused":
-            # K4's function from K4's inputs: its bound is K4's, not that
-            # of the bank form the kernel runs (2PL(dk + dv) and more)
+            # K4's function from K4's inputs, on K4's kernel: its bound is
+            # K4's, not that of the bank form (2PL(dk + dv))
             rows.append(kernel_row(
-                f"csa_fused@{hp}x{wp}", src, at + "447 (csa_fused)",
+                f"csa_fused@{hp}x{wp}",
+                "ciaosr_torch/csrc/csa_stencil_sm90.cu",
+                at + "447 (csa_fused)",
                 lambda: ca.csa_fused(*maps, cs, 2),
                 lambda: ca.csa_fused_plain(*maps32, cs, 2),
                 2 * b * p_ * l_ * (dk + 4 * c), map_bytes, None, reps))
@@ -580,17 +582,19 @@ def time_kernels(label: str, restorer, swin, lq: np.ndarray,
                  lq_s: np.ndarray, big: np.ndarray) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
     redesigned for Hopper (K1 and K3's integer mode at both widths, K3 at
-    row 9's odd width, row 7), of K3's rational mode at both widths (its
-    source lost the integer entry point: its times must not move), of the
-    CSA kernels that share sources or tiles with row 7 (rows 5, 6 and 8,
-    K4), and of the two tiles that run K1 and K3 (a flagship 192 tile at
-    x4, a SwinIR 256 tile at x4), at the main path's shapes: one line,
-    printed the same way by ``--kernel-times`` in another checkout, so
-    that a parent tree's times and these are read in one call."""
+    row 9's odd width, row 7, K4 and row 6), of K3's rational mode at both
+    widths, of rows 5 and 8 (their sources lost K4's and row 6's entry
+    points: their times must not move), of rows 11 and 12 (the shifted
+    Swin block and its backward), and of the two tiles that run K1 and K3
+    (a flagship 192 tile at x4, a SwinIR 256 tile at x4), at the main
+    path's shapes: one line, printed the same way by ``--kernel-times`` in
+    another checkout, so that a parent tree's times and these are read in
+    one call."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
     from ciaosr_torch.ops.kernels import decoder as dk
+    from ciaosr_torch.ops.kernels import swin_block as sb
     from ciaosr_torch.ops.neighborhood import plane_major_perm
 
     tile = torch.as_tensor(lq[:TILE, :TILE], device="cuda")[None]
@@ -655,6 +659,28 @@ def time_kernels(label: str, restorer, swin, lq: np.ndarray,
             fn = ca.csa_fused if kern == "csa_fused" else st.csa_stencil
             times["{}@{}x{}".format(kern, *hw)] = time_ms(
                 lambda: fn(*maps, cs, 2), reps=3, warm=1)
+    # rows 11 and 12: the second (shifted) Swin block on the SwinIR tile's
+    # tokens, and its backward on a training batch's (as check_swin_bwd)
+    blk0, blk1 = swin_blocks(swin.generator)[:2]
+    dt = torch.bfloat16
+
+    def block_inputs(x):
+        tok0 = swin.generator.encoder.embed(swin.normalize(x), dt)[0]
+        ws, shift = blk1.geometry(*tok0.shape[1:3])
+        tok1 = torch.roll(blk0(tok0.contiguous(), dt, True),
+                          (-shift, -shift), (1, 2)).contiguous()
+        return tok1, blk1.packed(ws, dt), ws, shift
+
+    with torch.no_grad():
+        tok, pk1, ws, shift = block_inputs(swin_tile)
+        times["swin_block@{}x{}".format(*tok.shape[1:3])] = time_ms(
+            lambda: sb.swin_block(tok, pk1, ws, shift), reps=20)
+        tok, pk1, ws, shift = block_inputs(train_batch(
+            np.random.default_rng(4), TRAIN_B, TRAIN_LR, TRAIN_QSIDE)["lq"])
+        dy = torch.as_tensor(np.random.default_rng(3).standard_normal(
+            tok.shape).astype(np.float32), device="cuda")
+        times["swin_block_bwd@{}x{}x{}".format(*tok.shape[:3])] = time_ms(
+            lambda: sb.swin_block_bwd(tok, dy, pk1, ws, shift))
     times["flagship x4 tile (grid_predict)"] = time_ms(
         lambda: restorer.grid_predict(tile, 4), reps=3, warm=1)
     times["SwinIR x4 256 tile (grid_predict)"] = time_ms(

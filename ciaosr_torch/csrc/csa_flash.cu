@@ -3,9 +3,10 @@
 //
 // Replaces ciaosr_tpu/ops/pallas/csa_attention.py::csa_attention
 // (_attn_kernel): q (B, P, 288), k (B, L, 288), v (B, L, 2304) bf16 ->
-// out (B, P, 2304) f32, any P and L. (Rows 6 and 8 compute the same
-// attention inside other epilogues; they stay on the two-pass kernels of
-// csa_attention.cu.)
+// out (B, P, 2304) f32, any P and L. (Row 8 computes the same attention
+// inside the overlap-add epilogue, on the two-pass kernel of
+// csa_attention.cu; row 6 computes its function in the stencil form, with
+// K4, in csa_stencil_sm90.cu.)
 //
 // Bound on the H100: 2PL(288 + 2304) FLOPs, 34.8 GFLOP at 72 x 72 (P =
 // 5184, L = 1296): 35 us at the bf16 dense peak; the 47.8 MB f32 output

@@ -1,11 +1,15 @@
-// The middle of cross-scale attention (average=True) in the stencil form:
-// K4 csa_stencil_fused and row 5 csa_stencil (at the end of this file).
+// Row 5 of the kernel table, csa_stencil: the middle of cross-scale
+// attention (average=True) in the stencil form, with the normalized
+// attention through device memory. (K4 csa_stencil_fused, the same
+// function with the attention's stencil halo recomputed, and row 6 are
+// the wgmma kernel of csa_stencil_sm90.cu.)
 //
-// K4 replaces ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil_fused
-// (kernel _csa_stencil_fused_kernel). With q_i the 3x3 zero-padded match
-// neighbourhood of query pixel i (9Cr wide, tap-major), k_l the normalized
-// 3x3 key patch l of the s-downsampled match map and P_l the s^2 phase
-// planes of the embedding at key l (P_l[(a,b), c] = embed[s*ly+a, s*lx+b, c]):
+// Replaces ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil (kernels
+// _csa_scores_kernel and _csa_stencil_pv_kernel). With q_i the 3x3
+// zero-padded match neighbourhood of query pixel i (9Cr wide, tap-major),
+// k_l the normalized 3x3 key patch l of the s-downsampled match map and
+// P_l the s^2 phase planes of the embedding at key l (P_l[(a,b), c] =
+// embed[s*ly+a, s*lx+b, c]):
 //   A   = softmax_l(scale * q_i . k_l)
 //   M[i, l] = sum_{d in {-1,0,1}^2} A[i + d, l + d]   (2-D shifts: d moves
 //             the query in the Hp x Wp grid and the key in the Hq x Wq grid;
@@ -13,30 +17,25 @@
 //   out[s*iy + a, s*ix + b, c] = sum_l M[i, l] P_l[(a,b), c]
 // (derivation: csa_attention.py:562-591). Output (B, s*Hp, s*Wp, C) f32,
 // before the down conv and the /6.
-//
-// The TPU keeps a (TP+2HR) x (L+2HC) block of A in VMEM (~29 MB at the
-// 192 tile); an SM has 227 KB, so this runs in two passes:
-//   (a) stats_kernel (csa_tiles.cuh, shared with rows 5-8): per query,
-//       the max m_i and the sum l_i of exp(scale q_i . k_l - m_i) over all
-//       L keys, online over key tiles;
-//   (b) pv_kernel: per 8x8 query tile, for each 8x8 key tile, recompute
-//       the scores of the 10x10 query halo against the 10x10 key halo,
-//       normalize with (m, l), apply the 9-point stencil in shared memory
-//       and accumulate M @ P on the tensor cores into a 64 x s^2C f32 tile.
-// Tiling both grids in 2-D keeps the stencil halo at one pixel per side
-// (a flat query tile would need +-(Wp+1) rows: 6x the recompute at
-// Wp = 192).
-//
-// Bound on the H100 at the 192 tile (Hp = Wp = 192, L = 96^2, Cr = 32,
-// C = 64, s = 2): 2*P*L*(9Cr + s^2C) = 370 GFLOP -> 0.37 ms at the bf16
-// dense peak; the 340 M exps are not the limit. The two passes run
-// 195 + 2.44*195 + 174 = 845 GFLOP of tensor-core work (the halo
-// recompute is the price of not writing A).
 #include "csa_tiles.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- pass (b)
+// The normalized attention A goes through device memory, as bf16
+// (B, P, ldA) with ldA = L rounded up to 64 (pad columns written as 0):
+//   sweep 1: stats_kernel (csa_tiles.cuh): per query, the max m_i and the
+//            sum l_i of exp(scale q_i . k_l - m_i) over all L keys;
+//   sweep 2: abar_kernel, one block per (64-query, 64-key) tile: recompute
+//            the scores and write A = exp(scale s - m) / l;
+//   stencil_pv_kernel: per 8x8 query tile, for each 8x8 key tile, the
+//            10x10 query halo x 10x10 key halo of A (zero off either grid,
+//            masked here, not read from a padded copy), the 9-point
+//            stencil in shared memory and M @ P on the tensor cores into a
+//            64 x s^2C f32 tile. Tiling both grids in 2-D keeps the
+//            stencil halo at one pixel per side.
+// Bound: the function's, as K4's (operations, 2PL(9Cr + s^2C)). The kernels
+// also move the A round trip, 2 * 2PL bytes (2.4 GB at Hp x Wp = 48 x 1024,
+// 0.72 ms at 3.35 TB/s), and run 2 * 2PL * 9Cr score FLOPs (two sweeps).
 constexpr int T = 8;                  // query / key tile side
 constexpr int TH = T + 2;             // halo side
 constexpr int NH = TH * TH;           // 100 halo rows
@@ -44,170 +43,7 @@ constexpr int NHP = 112;              // padded to the 16-row fragment grid
 constexpr int LDSB = NHP + 4;         // 116 f32 score row stride
 constexpr int LDM = T * T + 8;        // 72 bf16
 constexpr int LDP = SC2 + 8;          // 264 bf16
-constexpr int OFF_K = NHP * LDQ * 2;                 // key halo / P tile
-constexpr int OFF_S = OFF_K + NHP * LDQ * 2;         // scores / A
-constexpr int OFF_M = OFF_S + NHP * LDSB * 4;        // stencil result M
-constexpr int OFF_ML = OFF_M + T * T * LDM * 2;      // m, 1/l, flags
-constexpr int SMEM_B = OFF_ML + 4 * NHP * 4;
 
-__global__ void __launch_bounds__(THREADS)
-pv_kernel(const bf16* __restrict__ match, const bf16* __restrict__ keys,
-          const bf16* __restrict__ embed, const float* __restrict__ m_in,
-          const float* __restrict__ l_in, float* __restrict__ out, int Hp,
-          int Wp, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qh = reinterpret_cast<bf16*>(smem);
-  bf16* kh = reinterpret_cast<bf16*>(smem + OFF_K);
-  bf16* pt = kh;  // the phase tile reuses the key halo once scores exist
-  float* sa = reinterpret_cast<float*>(smem + OFF_S);
-  bf16* mb = reinterpret_cast<bf16*>(smem + OFF_M);
-  float* mq = reinterpret_cast<float*>(smem + OFF_ML);
-  float* linv = mq + NHP;
-  float* qok = linv + NHP;
-  float* kok = qok + NHP;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int Hq = Hp / S, Wq = Wp / S, P = Hp * Wp, L = Hq * Wq;
-  const int ntx = (Wp + T - 1) / T;
-  const int ty0 = (blockIdx.x / ntx) * T, tx0 = (blockIdx.x % ntx) * T;
-
-  // query halo rows, their softmax stats and validity
-  for (int idx = tid; idx < NHP * 9 * (CR / 8); idx += THREADS) {
-    const int h = idx / (9 * CR / 8), j = idx % (9 * CR / 8);
-    const int iy = ty0 + h / TH - 1, ix = tx0 + h % TH - 1;
-    const bool ok = h < NH && iy >= 0 && iy < Hp && ix >= 0 && ix < Wp;
-    load_query(match, b, Hp, Wp, iy, ix, ok, j / (CR / 8), j % (CR / 8),
-               qh + h * LDQ);
-  }
-  for (int h = tid; h < NHP; h += THREADS) {
-    const int iy = ty0 + h / TH - 1, ix = tx0 + h % TH - 1;
-    const bool ok = h < NH && iy >= 0 && iy < Hp && ix >= 0 && ix < Wp;
-    const size_t gi = (size_t)b * P + (ok ? iy * Wp + ix : 0);
-    qok[h] = ok ? 1.f : 0.f;
-    mq[h] = ok ? m_in[gi] : 0.f;
-    linv[h] = ok ? 1.f / l_in[gi] : 0.f;
-  }
-
-  FragC acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wm::fill_fragment(acc[i][j], 0.f);
-
-  for (int ky0 = 0; ky0 < Hq; ky0 += T) {
-    for (int kx0 = 0; kx0 < Wq; kx0 += T) {
-      // key halo
-      for (int idx = tid; idx < NHP * (QK / 8); idx += THREADS) {
-        const int h = idx / (QK / 8), v = idx % (QK / 8);
-        const int ly = ky0 + h / TH - 1, lx = kx0 + h % TH - 1;
-        const bool ok = h < NH && ly >= 0 && ly < Hq && lx >= 0 && lx < Wq;
-        st8(kh + h * LDQ + v * 8,
-            ok ? ld8(keys + ((size_t)b * L + ly * Wq + lx) * QK + v * 8)
-               : zero8());
-        if (v == 0) kok[h] = ok ? 1.f : 0.f;
-      }
-      __syncthreads();
-      // scores of the 112 x 112 halo block: 49 fragments over 8 warps
-      for (int f = warp; f < (NHP / 16) * (NHP / 16); f += 8) {
-        const int rf = f / (NHP / 16), cf = f % (NHP / 16);
-        FragC s;
-        wm::fill_fragment(s, 0.f);
-        FragA fa;
-        FragBt fb;
-        for (int k = 0; k < QK; k += 16) {
-          wm::load_matrix_sync(fa, qh + (16 * rf) * LDQ + k, LDQ);
-          wm::load_matrix_sync(fb, kh + (16 * cf) * LDQ + k, LDQ);
-          wm::mma_sync(s, fa, fb, s);
-        }
-        wm::store_matrix_sync(sa + (16 * rf) * LDSB + 16 * cf, s, LDSB,
-                              wm::mem_row_major);
-      }
-      __syncthreads();
-      // normalized attention in place; the phase tile into the key halo
-      for (int idx = tid; idx < NH * NH; idx += THREADS) {
-        const int h = idx / NH, c = idx % NH;
-        const float v = sa[h * LDSB + c];
-        sa[h * LDSB + c] = qok[h] * kok[c] *
-                           __expf(fminf(v * scale - mq[h], 0.f)) * linv[h];
-      }
-      for (int idx = tid; idx < T * T * (SC2 / 8); idx += THREADS) {
-        const int kr = idx / (SC2 / 8), v = idx % (SC2 / 8);
-        const int ph = v / (C / 8), cv = v % (C / 8);
-        const int ly = ky0 + kr / T, lx = kx0 + kr % T;
-        uint4 val = zero8();
-        if (ly < Hq && lx < Wq)
-          val = ld8(embed + ((size_t)(b * Hp + S * ly + ph / S) * Wp +
-                             S * lx + ph % S) * C + cv * 8);
-        st8(pt + kr * LDP + v * 8, val);
-      }
-      __syncthreads();
-      // 9-point diagonal stencil: M[i, l] = sum_d A[i + d, l + d]
-      for (int idx = tid; idx < T * T * T * T; idx += THREADS) {
-        const int i = idx / (T * T), l = idx % (T * T);
-        const int hi = (i / T + 1) * TH + i % T + 1;
-        const int hl = (l / T + 1) * TH + l % T + 1;
-        float m = 0.f;
-#pragma unroll
-        for (int dy = -1; dy <= 1; ++dy)
-#pragma unroll
-          for (int dx = -1; dx <= 1; ++dx)
-            m += sa[(hi + dy * TH + dx) * LDSB + hl + dy * TH + dx];
-        mb[i * LDM + l] = f2bf(m);
-      }
-      __syncthreads();
-      // acc (64 x 256) += M (64 x 64) @ P (64 x 256); warp w: cols 32w..
-      FragA fa;
-      FragB fb;
-#pragma unroll
-      for (int k = 0; k < T * T; k += 16) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wm::load_matrix_sync(fb, pt + k * LDP + 32 * warp + 16 * j, LDP);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            wm::load_matrix_sync(fa, mb + (16 * i) * LDM + k, LDM);
-            wm::mma_sync(acc[i][j], fa, fb, acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // scatter the 64 x (s^2 C) tile to the (B, s*Hp, s*Wp, C) output
-  float* st = reinterpret_cast<float*>(smem);  // reuses the query halo
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wm::store_matrix_sync(st + (16 * i) * SC2 + 32 * warp + 16 * j,
-                            acc[i][j], SC2, wm::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < T * T * SC2; idx += THREADS) {
-    const int i = idx / SC2, n = idx % SC2;
-    const int iy = ty0 + i / T, ix = tx0 + i % T;
-    if (iy >= Hp || ix >= Wp) continue;
-    const int ph = n / C, c = n % C;
-    out[((size_t)(b * S * Hp + S * iy + ph / S) * (S * Wp) + S * ix +
-         ph % S) * C + c] = st[idx];
-  }
-}
-
-// ------------------------------------------------------ row 5 csa_stencil
-// Replaces ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil (kernels
-// _csa_scores_kernel and _csa_stencil_pv_kernel): the same function as K4,
-// but the normalized attention A goes through device memory, as bf16
-// (B, P, ldA) with ldA = L rounded up to 64 (pad columns written as 0):
-//   sweep 1: stats_kernel (csa_tiles.cuh), as K4's (m_i, l_i);
-//   sweep 2: abar_kernel, one block per (64-query, 64-key) tile: recompute
-//            the scores and write A = exp(scale s - m) / l;
-//   stencil_pv_kernel: pv_kernel's 2-D tiles, with the 10x10 query halo x
-//            10x10 key halo read from A (zero off either grid, masked here,
-//            not read from a padded copy) instead of recomputed.
-// Bound: the function's, as K4's (operations, 2PL(9Cr + s^2C)). The kernels
-// also move the A round trip, 2 * 2PL bytes (2.4 GB at Hp x Wp = 48 x 1024,
-// 0.72 ms at 3.35 TB/s), and run 2 * 2PL * 9Cr score FLOPs (two sweeps)
-// against K4's 3.44 (stats plus the halo recompute).
 constexpr int LDA_ALIGN = 64;
 
 __global__ void __launch_bounds__(THREADS)
@@ -347,32 +183,8 @@ stencil_pv_kernel(const bf16* __restrict__ abar,
 
 }  // namespace
 
-// K4: (B, Hp, Wp, 32), (B, L, 288), (B, Hp, Wp, 64) -> (B, 2Hp, 2Wp, 64) f32
-extern "C" int csa_stencil_fused(const void* match, const void* keys,
-                                 const void* embed, void* m_buf, void* l_buf,
-                                 void* out, int B, int Hp, int Wp,
-                                 float scale, void* stream) {
-  static cudaError_t attr_a = allow_smem(stats_kernel<false>, SMEM_STATS);
-  static cudaError_t attr_b = allow_smem(pv_kernel, SMEM_B);
-  if (attr_a != cudaSuccess) return (int)attr_a;
-  if (attr_b != cudaSuccess) return (int)attr_b;
-  if (Hp % S || Wp % S) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int P = Hp * Wp, L = (Hp / S) * (Wp / S);
-  stats_kernel<false><<<dim3((P + TQ - 1) / TQ, B), THREADS, SMEM_STATS,
-                        st>>>((const bf16*)match, (const bf16*)keys,
-                              (float*)m_buf, (float*)l_buf, P, L, Hp, Wp,
-                              scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = ((Hp + T - 1) / T) * ((Wp + T - 1) / T);
-  pv_kernel<<<dim3(tiles, B), THREADS, SMEM_B, st>>>(
-      (const bf16*)match, (const bf16*)keys, (const bf16*)embed,
-      (const float*)m_buf, (const float*)l_buf, (float*)out, Hp, Wp, scale);
-  return (int)cudaGetLastError();
-}
-
-// row 5: as K4, with abar (B, Hp*Wp, ldA) bf16 scratch, ldA = L rounded up
+// row 5: match (B, Hp, Wp, 32), keys (B, Hp/2 * Wp/2, 288), embed
+// (B, Hp, Wp, 64) -> (B, 2Hp, 2Wp, 64) f32, with abar (B, Hp*Wp, ldA) bf16 scratch, ldA = L rounded up
 // to 64
 extern "C" int csa_stencil(const void* match, const void* keys,
                            const void* embed, void* m_buf, void* l_buf,

@@ -1,8 +1,8 @@
-// What the CSA kernels share (csa_stencil.cu: K4 and row 5; csa_attention.cu:
-// rows 6 and 8): the flagship constants they are compiled for, the query and
-// key tile loads, the 64 x 64 score tile and pass (a), the per-query
-// softmax stats m_i = max_l scale q_i . k_l and l_i = sum_l exp(scale
-// q_i . k_l - m_i).
+// What the two-pass CSA kernels share (csa_stencil.cu: row 5;
+// csa_attention.cu: row 8): the flagship constants they are compiled for,
+// the query and key tile loads, the 64 x 64 score tile and pass (a), the
+// per-query softmax stats m_i = max_l scale q_i . k_l and
+// l_i = sum_l exp(scale q_i . k_l - m_i).
 //
 // q_i is the 3x3 zero-padded match neighbourhood of query pixel i (9Cr,
 // tap-major): read from an explicit bank (B, P, 9Cr), or assembled from

@@ -24,8 +24,8 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 KERNELS = ("f3p_build", "wt_hoist", "grid_decode", "grid_decode_sm90",
-           "csa_stencil", "csa_attention", "csa_flash", "swin_block",
-           "swin_block_bwd")
+           "csa_stencil", "csa_stencil_sm90", "csa_attention", "csa_flash",
+           "swin_block", "swin_block_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
               "-lineinfo"]

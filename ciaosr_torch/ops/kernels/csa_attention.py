@@ -3,8 +3,8 @@ wrappers and plain versions.
 
 Counterparts of ciaosr_tpu/ops/pallas/csa_attention.py::csa_attention
 (row 7, the one-launch kernel of csrc/csa_flash.cu),
-::csa_attention_overlap_add (row 8) and ::csa_fused (row 6) (one two-pass
-template in csrc/csa_attention.cu). With q_i the 3×3 match
+::csa_attention_overlap_add (row 8, the two-pass kernel of
+csrc/csa_attention.cu) and ::csa_fused (row 6). With q_i the 3×3 match
 neighbourhood of query pixel i (9Cr), k_l the normalized key patches and
 v_l the (3s)×(3s) stride-s patches of the embedding:
 
@@ -14,8 +14,10 @@ v_l the (3s)×(3s) stride-s patches of the embedding:
   over a plane-major bank (``plane_major_perm``), pasted by the
   (3s, 3s) stride-s overlap-add → (B, s·Hp, s·Wp, C);
 - ``csa_fused(match, keys, embed, scale, s)``: the banks assembled from the
-  match map and the embedding, then as row 8; the output is the stencil
-  form's (ops/kernels/csa_stencil.py).
+  match map and the embedding, then as row 8. This is the stencil form's
+  function of the stencil form's inputs, so on the card it launches K4's
+  kernel (csrc/csa_stencil_sm90.cu, ops/kernels/csa_stencil.py); its
+  plain version stays the bank form.
 
 Outputs are f32. The kernels take bf16 at Cr = 32, C = 64, s = 2 only.
 """
@@ -28,7 +30,8 @@ import torch
 
 from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import _build
-from ciaosr_torch.ops.kernels.csa_stencil import (C, CR, S, check_inputs,
+from ciaosr_torch.ops.kernels.csa_stencil import (C, CR, S,
+                                                  launch_stencil_sm90,
                                                   row_blocks)
 from ciaosr_torch.ops.neighborhood import extract_patches_same, overlap_add
 
@@ -130,13 +133,8 @@ def csa_attention_overlap_add(q: torch.Tensor, k: torch.Tensor,
 
 def csa_fused(match: torch.Tensor, keys: torch.Tensor, embed: torch.Tensor,
               scale: float, s: int) -> torch.Tensor:
-    """Row 6 on CUDA tensors, the plain version on CPU tensors."""
+    """Row 6 on CUDA tensors (K4's kernel: the same function of the same
+    inputs), the plain version (the bank form) on CPU tensors."""
     if match.device.type == "cpu":
         return csa_fused_plain(match, keys, embed, scale, s)
-    b, hp, wp = check_inputs("csa_fused", match, keys, embed, s)
-    out = torch.zeros(b, s * hp, s * wp, C, device=match.device,
-                      dtype=torch.float32)
-    _launch("csa_fused",
-            (match, keys, embed, *_stats(b, hp * wp, match.device), out),
-            (b, hp, wp), scale, match.device)
-    return out
+    return launch_stencil_sm90("csa_fused", match, keys, embed, scale, s)

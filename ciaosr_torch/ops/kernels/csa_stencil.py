@@ -3,10 +3,11 @@ wrappers and plain version.
 
 K4 ``csa_stencil_fused`` is the counterpart of
 ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil_fused, row 5
-``csa_stencil`` that of ::csa_stencil; both kernels are in
-csrc/csa_stencil.cu. They compute the same function: K4 recomputes the
-attention's stencil halo, row 5 writes the normalized attention Ā
-(B, P, L) to device memory and reads it back. Contract: match
+``csa_stencil`` that of ::csa_stencil. They compute the same function:
+K4 (csrc/csa_stencil_sm90.cu, which row 6 ``csa_fused`` launches too)
+recomputes the attention's stencil halo on ``wgmma``, row 5
+(csrc/csa_stencil.cu) writes the normalized attention Ā (B, P, L) to
+device memory and reads it back. Contract: match
 (B, Hp, Wp, Cr), keys (B, L, 9Cr) L2-normalized 3×3 key patches of the
 s-downsampled match map (L = Hp/s · Wp/s), embed (B, Hp, Wp, C). Returns
 (B, s·Hp, s·Wp, C) f32, before the down conv and the /6.
@@ -95,27 +96,37 @@ def check_inputs(name: str, match, keys, embed,
     return b, hp, wp
 
 
+def launch_stencil_sm90(name: str, match: torch.Tensor, keys: torch.Tensor,
+                       embed: torch.Tensor, scale: float,
+                       s: int) -> torch.Tensor:
+    """The stencil-form kernel of csrc/csa_stencil_sm90.cu on CUDA tensors,
+    counted under ``name``: K4 and row 6 compute the same function from
+    the same inputs and both launch it."""
+    b, hp, wp = check_inputs(name, match, keys, embed, s)
+    dev = match.device
+    m_buf = torch.empty(b, hp * wp, device=dev, dtype=torch.float32)
+    l_buf = torch.empty_like(m_buf)
+    out = torch.empty(b, s * hp, s * wp, C, device=dev, dtype=torch.float32)
+    fn = _build.load("csa_stencil_sm90").csa_stencil_sm90
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(*(_build.ptr(t) for t in (match, keys, embed, m_buf, l_buf,
+                                       out)),
+             b, hp, wp, float(scale), _build.stream_ptr(dev))
+    kernels.LAUNCHES[name] += 1
+    _build.check(err, name)
+    return out
+
+
 def csa_stencil_fused(match: torch.Tensor, keys: torch.Tensor,
                       embed: torch.Tensor, scale: float,
                       s: int) -> torch.Tensor:
     """K4 on CUDA tensors, the plain version on CPU tensors."""
     if match.device.type == "cpu":
         return csa_stencil_fused_plain(match, keys, embed, scale, s)
-    b, hp, wp = check_inputs("csa_stencil_fused", match, keys, embed, s)
-    dev = match.device
-    m_buf = torch.empty(b, hp * wp, device=dev, dtype=torch.float32)
-    l_buf = torch.empty_like(m_buf)
-    out = torch.empty(b, s * hp, s * wp, C, device=dev, dtype=torch.float32)
-    fn = _build.load("csa_stencil").csa_stencil_fused
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
-    err = fn(_build.ptr(match), _build.ptr(keys), _build.ptr(embed),
-             _build.ptr(m_buf), _build.ptr(l_buf), _build.ptr(out),
-             b, hp, wp, float(scale), _build.stream_ptr(dev))
-    kernels.LAUNCHES["csa_stencil_fused"] += 1
-    _build.check(err, "csa_stencil_fused")
-    return out
+    return launch_stencil_sm90("csa_stencil_fused", match, keys, embed,
+                               scale, s)
 
 
 def csa_stencil(match: torch.Tensor, keys: torch.Tensor,

@@ -3,8 +3,10 @@
 JAX kernels hold. K1 is held at patch-ragged shapes at both widths; the
 decode kernel at integer scales and, in its rational mode, at ×2.5, ×7/3,
 ×1.5, 5/3 × 7/2 and an odd width; the CSA kernels (K4, rows 5-8) at
-ragged, non-square geometries, and row 7 also on seeded banks at the
-edges of its tiles and of its online softmax; the Swin block
+ragged, non-square geometries, K4 and row 6 (one kernel) also on key
+grids smaller than or off its tiles and at spread logits, the same bits
+from call to call and from either entry point, and row 7 also on seeded
+banks at the edges of its tiles and of its online softmax; the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
 ≤ 2e-2) and K1-K3 at SwinIR-CiaoSR's 180 channels without CSA. Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
@@ -235,14 +237,49 @@ def test_csa_stencil_forms(case, hw, name):
 @pytest.mark.parametrize("hw", CSA_HW)
 @torch.inference_mode()
 def test_csa_fused(case, hw):
+    from ciaosr_torch.ops import kernels
     from ciaosr_torch.ops.kernels import csa_attention as ca
     match, keys, embed = _csa_inputs(case, hw)
+    n0 = kernels.LAUNCHES["csa_fused"]
     got = ca.csa_fused(match, keys, embed, 10.0, 2)
+    assert kernels.LAUNCHES["csa_fused"] == n0 + 1
     ref = ca.csa_fused_plain(match.float(), keys.float(), embed.float(),
                              10.0, 2)
     assert got.shape == ref.shape == (2, *(2 * n for n in match.shape[1:3]),
                                       64)
     assert _rel(got, ref) <= REL_TOL
+
+
+# K4 and row 6 launch one stencil-form kernel (csrc/csa_stencil_sm90.cu),
+# whose tiles are 8 × 8 queries and 8 × 8 keys: a key grid smaller than
+# one key tile (8×8 → 4×4 keys, L = 16; 6×10 → 3×5), query and key grids
+# off the tiles (20×44 → 10×22 keys), and spread logits (scale 100) on
+# the 22×38 geometry. Each call counts one launch under its own key; two
+# calls give the same bits, and so do the two entry points.
+@pytest.mark.parametrize("hw,scale", [((8, 8), 10.0), ((6, 10), 10.0),
+                                      ((20, 44), 10.0), ((21, 37), 100.0)],
+                         ids=["L16", "L15", "off_tiles", "scale100"])
+@torch.inference_mode()
+def test_csa_stencil_kernel_edges(case, hw, scale):
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    match, keys, embed = _csa_inputs(case, hw)
+    maps32 = (match.float(), keys.float(), embed.float())
+    n4, n6 = (kernels.LAUNCHES[k] for k in ("csa_stencil_fused",
+                                            "csa_fused"))
+    got4 = st.csa_stencil_fused(match, keys, embed, scale, 2)
+    assert kernels.LAUNCHES["csa_stencil_fused"] == n4 + 1
+    assert kernels.LAUNCHES["csa_fused"] == n6
+    got6 = ca.csa_fused(match, keys, embed, scale, 2)
+    assert kernels.LAUNCHES["csa_fused"] == n6 + 1
+    assert kernels.LAUNCHES["csa_stencil_fused"] == n4 + 1
+    again = st.csa_stencil_fused(match, keys, embed, scale, 2)
+    assert torch.equal(got4, again)
+    assert torch.equal(got4, got6)
+    assert _rel(got4, st.csa_stencil_fused_plain(*maps32, scale, 2)) \
+        <= REL_TOL
+    assert _rel(got6, ca.csa_fused_plain(*maps32, scale, 2)) <= REL_TOL
 
 
 @pytest.mark.parametrize("hw", CSA_HW)
