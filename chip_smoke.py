@@ -30,22 +30,28 @@ Run from the repository root: ``python3 chip_smoke.py``. It
   6. the SwinIR-CiaoSR generator of the 002 configs (180 channels, 6 × 6
      Swin blocks, no CSA; bf16, seeded random weights, full width and
      depth): the Swin block kernel (row 11, a shifted and an unshifted
-     block on a 256² tile's tokens) and the decode kernels at C = 180 held
-     against their plain versions; ``forward_test`` at ×4 with tile 256,
-     overlap 32 on a 384² image (4 tiles), on a 70² image (one tile), and
-     the 70² image at ×2.5, each with its exact launch counts (the Swin
-     block 36 × tiles, K1-K3 once per tile, no CSA kernel); the kernel
-     route against the plain f32 route on 48² and 70² at ×4; the stage
-     breakdown of one 256 tile and the warm time of the 384² request; then
-     the ``time_kernels`` line: K1 and K3 at both widths, K3 at the odd
-     width, row 7, K4 and row 6 (the kernels redesigned for Hopper), K3's
-     rational mode at both widths, rows 5, 8, 11 and 12, and one tile of
-     each generator;
+     block on a 256² tile's tokens and on the 70² request's 72² tile, y
+     and the increment y - x, reproducible) and the decode kernels at
+     C = 180 held against their plain versions; ``forward_test`` at ×4
+     with tile 256, overlap 32 on a 384² image (4 tiles), on a 70² image
+     (one tile), and the 70² image at ×2.5, each with its exact launch
+     counts (the Swin block 36 × tiles, K1-K3 once per tile, no CSA
+     kernel); the kernel route against the plain f32 route on 48² and 70²
+     at ×4; f32 models (no dtype in their config, as every shipped
+     config) through their kernels against their plain f32 route: a
+     flagship ×4 192² tile and the SwinIR 70² request; the stage breakdown
+     of one 256 tile and the warm time of the 384² request; then the
+     ``time_kernels`` line: K1 and K3 at both widths, K3 at the odd width,
+     row 7, K4 and row 6, row 11 (shifted and unshifted, and at the
+     training batch's shape) (the kernels redesigned for Hopper), K3's
+     rational mode at both widths, rows 5, 8 and 12, and one tile of each
+     generator;
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
-     classical L1 objective): the Swin block backward (row 12, shifted and
-     unshifted, on the batch's tokens) held against autograd of its f32
-     plain version and checked reproducible; 5 steps of ``make_train_step``
+     classical L1 objective): the Swin block (row 11, ``swin_block@
+     6x64x64``) and its backward (row 12), shifted and unshifted, on the
+     batch's tokens, held against their f32 plain versions (row 12: against
+     autograd) and checked reproducible; 5 steps of ``make_train_step``
      with exact launch counts (rows 11 and 12 and its two reduction kernels
      36 times a step, nothing else), finite losses and every parameter
      with a gradient changed; the warm step time, samples/s, a stage split
@@ -582,14 +588,14 @@ def time_kernels(label: str, restorer, swin, lq: np.ndarray,
                  lq_s: np.ndarray, big: np.ndarray) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
     redesigned for Hopper (K1 and K3's integer mode at both widths, K3 at
-    row 9's odd width, row 7, K4 and row 6), of K3's rational mode at both
-    widths, of rows 5 and 8 (their sources lost K4's and row 6's entry
-    points: their times must not move), of rows 11 and 12 (the shifted
-    Swin block and its backward), and of the two tiles that run K1 and K3
-    (a flagship 192 tile at x4, a SwinIR 256 tile at x4), at the main
-    path's shapes: one line, printed the same way by ``--kernel-times`` in
-    another checkout, so that a parent tree's times and these are read in
-    one call."""
+    row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
+    and unshifted on a SwinIR tile's tokens, shifted on a training batch's),
+    of K3's rational mode at both widths, of rows 5 and 8, of row 12 (the
+    shifted block's backward), and of the two tiles that run K1 and K3 (a
+    flagship 192 tile at x4, a SwinIR 256 tile at x4), at the main path's
+    shapes: one line, printed the same way by ``--kernel-times`` in another
+    checkout, so that a parent tree's times and these are read in one
+    call."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
@@ -659,24 +665,32 @@ def time_kernels(label: str, restorer, swin, lq: np.ndarray,
             fn = ca.csa_fused if kern == "csa_fused" else st.csa_stencil
             times["{}@{}x{}".format(kern, *hw)] = time_ms(
                 lambda: fn(*maps, cs, 2), reps=3, warm=1)
-    # rows 11 and 12: the second (shifted) Swin block on the SwinIR tile's
-    # tokens, and its backward on a training batch's (as check_swin_bwd)
+    # rows 11 and 12: the first (unshifted) and second (shifted) Swin
+    # blocks on the SwinIR tile's tokens and on a training batch's (as
+    # swin_block_row), and the shifted block's backward on the batch's (as
+    # check_swin_bwd)
     blk0, blk1 = swin_blocks(swin.generator)[:2]
     dt = torch.bfloat16
 
     def block_inputs(x):
-        tok0 = swin.generator.encoder.embed(swin.normalize(x), dt)[0]
+        tok0 = swin.generator.encoder.embed(swin.normalize(x),
+                                            dt)[0].contiguous()
         ws, shift = blk1.geometry(*tok0.shape[1:3])
-        tok1 = torch.roll(blk0(tok0.contiguous(), dt, True),
-                          (-shift, -shift), (1, 2)).contiguous()
-        return tok1, blk1.packed(ws, dt), ws, shift
+        tok1 = torch.roll(blk0(tok0, dt, True), (-shift, -shift),
+                          (1, 2)).contiguous()
+        return tok1, blk1.packed(ws, dt), ws, shift, tok0, blk0.packed(ws,
+                                                                        dt)
 
     with torch.no_grad():
-        tok, pk1, ws, shift = block_inputs(swin_tile)
+        tok, pk1, ws, shift, tok0, pk0 = block_inputs(swin_tile)
         times["swin_block@{}x{}".format(*tok.shape[1:3])] = time_ms(
             lambda: sb.swin_block(tok, pk1, ws, shift), reps=20)
-        tok, pk1, ws, shift = block_inputs(train_batch(
+        times["swin_block@{}x{} unshifted".format(*tok.shape[1:3])] = \
+            time_ms(lambda: sb.swin_block(tok0, pk0, ws, 0), reps=20)
+        tok, pk1, ws, shift, tok0, pk0 = block_inputs(train_batch(
             np.random.default_rng(4), TRAIN_B, TRAIN_LR, TRAIN_QSIDE)["lq"])
+        times["swin_block@{}x{}x{}".format(*tok.shape[:3])] = time_ms(
+            lambda: sb.swin_block(tok, pk1, ws, shift), reps=20)
         dy = torch.as_tensor(np.random.default_rng(3).standard_normal(
             tok.shape).astype(np.float32), device="cuda")
         times["swin_block_bwd@{}x{}x{}".format(*tok.shape[:3])] = time_ms(
@@ -695,38 +709,26 @@ def swin_blocks(net):
             for blk in layer.residual_group.blocks]
 
 
-def check_swin_kernels(swin, lq_tile: torch.Tensor) -> list[dict]:
-    """Row 11 on the first group's real tokens of one SWIN_TILE² tile (its
-    first, unshifted block, and its second, shifted one on the first's
-    output; ``ms`` is the shifted block's, ``ms_noshift`` the other's), and
-    K1, K2, K3 (integer ×4 and rational ×2.5) at C = 180 on that tile's
-    features: each kernel (bf16) against its plain version (f32, same
-    values). Bounds count the function's work at C = 180 (no padding)."""
-    from ciaosr_torch.models.ciaosr import rational_cell
-    from ciaosr_torch.ops.kernels import decoder as dk
+def swin_block_row(swin, lq: torch.Tensor) -> dict:
+    """Row 11 on the first group's real tokens of the LR images ``lq`` (B,
+    h, w, 3; the encoder pads them to window multiples): its first,
+    unshifted block and its second, shifted one on the first's output
+    (``ms`` the shifted block's, ``ms_noshift`` the other's), each the
+    kernel (bf16) against its plain version (f32, same values), y and the
+    block's own increment y - x (the f32 residual dominates y), the same
+    bits call after call. The bound counts the function's work at C = 180
+    (no padding)."""
     from ciaosr_torch.ops.kernels import swin_block as sb
 
-    net = swin.generator
-    dt, hid = torch.bfloat16, 256
+    net, dt = swin.generator, torch.bfloat16
     blk0, blk1 = swin_blocks(net)[:2]
     with torch.inference_mode():
-        x = swin.normalize(lq_tile)
-        tok0 = net.encoder.embed(x, dt)[0].contiguous()
+        tok0 = net.encoder.embed(swin.normalize(lq), dt)[0].contiguous()
         b, h, w, c = tok0.shape
         ws, shift = blk1.geometry(h, w)
         tok1 = torch.roll(blk0(tok0, dt, True), (-shift, -shift),
                           (1, 2)).contiguous()
         pk0, pk1 = blk0.packed(ws, dt), blk1.packed(ws, dt)
-        feature = net.gen_feature(x)
-        maps = net._kernel_maps(feature, (0.5, 0.5))
-        feat_p, _, gk, gv, wt, ck, pk = maps
-        tabs = dk.decoder_tables(4, h, w, net.local_size, feature.device)
-        py, qy = 5, 2
-        maps_r = net._kernel_maps(feature, rational_cell(
-            h, w, h * py // qy, w * py // qy))
-        tabs_r = dk.rational_tables(h, w, py, qy, py, qy, net.local_size,
-                                    feature.device)
-    rows = []
     # the function's work: T tokens, N keys a window, the f32 map in/out
     t_, n_ = b * h * w, ws * ws
     hdn = blk0.mlp.fc1.out_features
@@ -734,7 +736,8 @@ def check_swin_kernels(swin, lq_tile: torch.Tensor) -> list[dict]:
     swin_flops = 2 * t_ * c * (3 * c + c + 2 * hdn) + 4 * t_ * n_ * c
     swin_bytes = (2 * t_ * c * 4 + (4 * c * c + 2 * c * hdn) * 2
                   + heads * n_ * n_ * 4 + (9 * c + hdn) * 4)
-    name, source = f"swin_block@{h}x{w}", "ciaosr_torch/csrc/swin_block.cu"
+    name = f"swin_block@{b}x{h}x{w}" if b > 1 else f"swin_block@{h}x{w}"
+    source = "ciaosr_torch/csrc/swin_block_sm90.cu"
     replaces = "ciaosr_tpu/ops/pallas/swin_block.py:380 (_swin_block_call)"
     row = kernel_row(
         name, source, replaces, lambda: sb.swin_block(tok1, pk1, ws, shift),
@@ -748,21 +751,49 @@ def check_swin_kernels(swin, lq_tile: torch.Tensor) -> list[dict]:
     row.update(ms_noshift=row0["ms"], plain_ms_noshift=row0["plain_ms"],
                max_abs_err=max(row["max_abs_err"], row0["max_abs_err"]),
                max_rel_err=max(row["max_rel_err"], row0["max_rel_err"]))
-    rows.append(row)
-
-    # the block's own increment y - x: the f32 residual x dominates y
     for tok, pk_, sh in ((tok1, pk1, shift), (tok0, pk0, 0)):
         with torch.inference_mode():
-            d_abs, d_rel = errors(sb.swin_block(tok, pk_, ws, sh) - tok,
-                                  sb.swin_block_plain(tok, f32(pk_), ws, sh)
-                                  - tok)
+            got = sb.swin_block(tok, pk_, ws, sh)
+            same = torch.equal(got, sb.swin_block(tok, pk_, ws, sh))
+            d_abs, d_rel = errors(got - tok, sb.swin_block_plain(
+                tok, f32(pk_), ws, sh) - tok)
         log(f"kernel {name} shift {sh}: increment y - x max|d|={d_abs:.3e} "
-            f"max|d|/max|ref|={d_rel:.3e}")
-        if not d_rel <= REL_TOL:
+            f"max|d|/max|ref|={d_rel:.3e}; reproducible {same}")
+        if not (d_rel <= REL_TOL and same):
             raise AssertionError(f"{name} shift {sh}: increment error "
-                                 f"{d_rel:.3e} > {REL_TOL}")
+                                 f"{d_rel:.3e} > {REL_TOL} or not "
+                                 f"reproducible ({same})")
         row["max_rel_err_increment"] = max(
             row.get("max_rel_err_increment", 0.0), d_rel)
+    row["reproducible"] = True
+    return row
+
+
+def check_swin_kernels(swin, lq_tile: torch.Tensor,
+                       lq_odd: torch.Tensor) -> list[dict]:
+    """Row 11 (``swin_block_row``) on one SWIN_TILE² tile and on the
+    SWIN_ODD request's tile, and K1, K2, K3 (integer ×4 and rational ×2.5)
+    at C = 180 on the SWIN_TILE² tile's features: each kernel (bf16)
+    against its plain version (f32, same values). Bounds count the
+    function's work at C = 180 (no padding)."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    net = swin.generator
+    hid = 256
+    with torch.inference_mode():
+        x = swin.normalize(lq_tile)
+        feature = net.gen_feature(x)
+        b, h, w, c = feature.shape
+        maps = net._kernel_maps(feature, (0.5, 0.5))
+        feat_p, _, gk, gv, wt, ck, pk = maps
+        tabs = dk.decoder_tables(4, h, w, net.local_size, feature.device)
+        py, qy = 5, 2
+        maps_r = net._kernel_maps(feature, rational_cell(
+            h, w, h * py // qy, w * py // qy))
+        tabs_r = dk.rational_tables(h, w, py, qy, py, qy, net.local_size,
+                                    feature.device)
+    rows = [swin_block_row(swin, lq_tile), swin_block_row(swin, lq_odd)]
 
     m = b * h * w
     cp = feat_p.shape[-1]
@@ -850,6 +881,51 @@ def swin_route_checks(swin, lq: np.ndarray) -> None:
         if bad:
             raise AssertionError(f"SwinIR kernel route disagrees at "
                                  f"{hw[0]}x{hw[1]}: {bad}")
+
+
+def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
+    """Models with no compute dtype in their config (f32, as every shipped
+    config) on the kernel route, which hands the kernels bf16: one flagship
+    ×4 TILE² tile (grid_predict) and the SwinIR SWIN_ODD request
+    (forward_test ×4, one tile), each with its kernels launched and no
+    other, against the same weights on the plain f32 route, max|Δ|/max|ref|
+    ≤ REL_TOL."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+
+    def pair(cfg, **kw):   # (kernel route, plain route), one seed
+        return [CiaoSRRestorer(dict(cfg, dtype=None, use_kernels=k),
+                               rgb_mean=RGB_MEAN, device="cuda", seed=0,
+                               **kw) for k in (True, False)]
+
+    others = list(CSA_KERNELS) + list(BWD_KERNELS) + ["grid_decode_rational"]
+    decode = ["f3p_build", "wt_hoist", "grid_decode"]
+    flag = pair(FLAGSHIP)
+    tile = torch.as_tensor(lq[:TILE, :TILE], device="cuda")[None]
+    got, launches, _ = drive(
+        f"f32 flagship x4 {TILE}x{TILE} tile (kernel route)",
+        lambda: flag[0].grid_predict(tile, 4), decode + ["csa_stencil_fused"],
+        [k for k in others if k != "csa_stencil_fused"] + ["swin_block"])
+    checks = {f"flagship x4 {TILE}x{TILE}": (got, flag[1].grid_predict(tile,
+                                                                       4))}
+    del flag
+    swin = pair(SWIN_002, test_cfg=SWIN_TEST_CFG)
+    so = lq_s[:SWIN_ODD[0], :SWIN_ODD[1]]
+    got, launches, _ = drive(
+        "f32 SwinIR x4 {}x{} (kernel route)".format(*SWIN_ODD),
+        lambda: swin[0].forward_test(so), decode + ["swin_block"], others)
+    n_blocks = len(swin_blocks(swin[0].generator))
+    if launches["swin_block"] != n_blocks:
+        raise AssertionError(f"f32 SwinIR: {launches['swin_block']} Swin "
+                             f"block launches, want {n_blocks}")
+    checks["SwinIR x4 {}x{}".format(*SWIN_ODD)] = (
+        torch.as_tensor(got), torch.as_tensor(swin[1].forward_test(so)))
+    for name, (got, ref) in checks.items():
+        a, r = errors(got, ref)
+        log(f"e2e f32 model, kernel route vs plain f32 route, {name}: "
+            f"max|d|={a:.3e} max|d|/max|ref|={r:.3e}")
+        if not (got.shape == ref.shape and r <= REL_TOL):
+            raise AssertionError(f"f32 model's kernel route disagrees at "
+                                 f"{name}: {r:.3e}")
 
 
 def swin_breakdown(swin, lq_tile: torch.Tensor) -> None:
@@ -1021,7 +1097,8 @@ def check_swin_bwd(swin, batch: dict) -> dict:
     return row
 
 
-def train_path(drive, kind: str, smi: str, bwd_row: dict) -> None:
+def train_path(drive, kind: str, smi: str, fwd_row: dict,
+               bwd_row: dict) -> None:
     """TRAIN_STEPS steps of make_train_step on the full 002 generator at
     the 002 batch, with exact launch counts per step; the warm step time,
     samples/s, a stage split and the peak memory; then one step's
@@ -1066,6 +1143,7 @@ def train_path(drive, kind: str, smi: str, bwd_row: dict) -> None:
     got = {k: launches[k] for k in fwd_kernels}
     if got != want:
         raise AssertionError(f"train path: launches {got}, want {want}")
+    fwd_row["launches"] = launches["swin_block"]
     bwd_row["launches"] = launches["swin_block_bwd"]
     bwd_row["launches_wgrad"] = launches["swin_block_wgrad"]
     bwd_row["launches_gsum"] = launches["swin_block_gsum"]
@@ -1416,7 +1494,9 @@ def main() -> int:
                           test_cfg=SWIN_TEST_CFG, device="cuda", seed=0)
     swin_tile = torch.as_tensor(lq_s[:SWIN_TILE, :SWIN_TILE],
                                 device="cuda")[None]
-    swin_rows = check_swin_kernels(swin, swin_tile)
+    so = lq_s[:SWIN_ODD[0], :SWIN_ODD[1]]
+    swin_rows = check_swin_kernels(swin, swin_tile,
+                                   torch.as_tensor(so, device="cuda")[None])
     n_blocks = len(swin_blocks(swin.generator))
     no_csa = list(CSA_KERNELS)
 
@@ -1442,16 +1522,15 @@ def main() -> int:
         check_image(name, out, hr(img.shape[:2], scale))
         return launches
 
-    so = lq_s[:SWIN_ODD[0], :SWIN_ODD[1]]
     sl_x4 = swin_request(f"SwinIR x4 {SWIN_IMG}x{SWIN_IMG}", lq_s, 4,
                          "grid_decode")
     sl_odd = swin_request("SwinIR x4 {}x{}".format(*SWIN_ODD), so, 4,
                           "grid_decode")
     sl_25 = swin_request("SwinIR x2.5 {}x{}".format(*SWIN_ODD), so, 2.5,
                          "grid_decode_rational")
-    swin_launches = {
-        f"swin_block@{SWIN_TILE}x{SWIN_TILE}": sum(
-            sl["swin_block"] for sl in (sl_x4, sl_odd, sl_25)),
+    swin_launches = {   # row 11: the 256 tiles, then the SWIN_ODD tiles
+        swin_rows[0]["name"]: sl_x4["swin_block"],
+        swin_rows[1]["name"]: sl_odd["swin_block"] + sl_25["swin_block"],
         "f3p_build@C180": sum(sl["f3p_build"]
                               for sl in (sl_x4, sl_odd, sl_25)),
         "wt_hoist@C180": sum(sl["wt_hoist"] for sl in (sl_x4, sl_odd, sl_25)),
@@ -1474,14 +1553,25 @@ def main() -> int:
         f"{ms_swin:.1f} ms = {ms_swin / n_x4:.1f} ms/tile, "
         f"{(4 * SWIN_IMG) ** 2 / 1e3 / ms_swin:.3f} MP/s")
     swin_route_checks(swin, lq_s)
+    f32_model_checks(drive, lq, lq_s)
     swin_breakdown(swin, swin_tile)
     time_kernels(tree, restorer, swin, lq, lq_s, big)
 
-    # ---- training the 002 generator: row 12, then the train path
-    bwd_row = check_swin_bwd(swin, train_batch(np.random.default_rng(4),
-                                               TRAIN_B, TRAIN_LR,
-                                               TRAIN_QSIDE))
-    train_path(drive, kind, smi, bwd_row)
+    # ---- training the 002 generator: rows 11 and 12 at the batch's
+    # tokens, then the train path
+    batch = train_batch(np.random.default_rng(4), TRAIN_B, TRAIN_LR,
+                        TRAIN_QSIDE)
+    fwd_row = swin_block_row(swin, batch["lq"])
+    bwd_row = check_swin_bwd(swin, batch)
+    del batch
+    train_path(drive, kind, smi, fwd_row, bwd_row)
+    log(f"kernel {fwd_row['name']}: max|d|={fwd_row['max_abs_err']:.3e} "
+        f"max|d|/max|ref|={fwd_row['max_rel_err']:.3e} "
+        f"ms={fwd_row['ms']:.4f} ms_noshift={fwd_row['ms_noshift']:.4f} "
+        f"plain_ms={fwd_row['plain_ms']:.4f} "
+        f"bound_ms={fwd_row['bound_ms']:.4f} ({fwd_row['bound_by']}) "
+        f"launches={fwd_row['launches']} tflops={fwd_row['tflops']:.1f}")
+    rows.append(fwd_row)
     log(f"kernel {bwd_row['name']}: max|d|={bwd_row['max_abs_err']:.3e} "
         f"max|d|/max|ref|={bwd_row['max_rel_err']:.3e} (dx - dy "
         f"{bwd_row['max_rel_err_dx']:.3e}) ms={bwd_row['ms']:.4f} "

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA
-// tensor copies, the wgmma shared-memory matrix descriptor and the wgmma
-// instructions the kernels use (bf16 in, f32 accumulate), as inline PTX.
+// tensor copies and L2 prefetches, the wgmma shared-memory matrix
+// descriptor and the wgmma instructions the kernels use (bf16 in, f32
+// accumulate; A from shared memory or from registers), as inline PTX.
 //
 // Layout every kernel here shares: an operand tile in shared memory is
 // stored in rows of 128 bytes (64 bf16) with the 128-byte swizzle, the
@@ -154,6 +155,14 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
+// ask L2 to fetch [p, p + bytes) (16-byte aligned, a multiple of 16)
+__device__ __forceinline__ void bulk_prefetch_l2(const void* p,
+                                                 uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p),
+               "r"(bytes)
+               : "memory");
+}
+
 // order this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma operands written by threads)
 __device__ __forceinline__ void fence_proxy_async() {
@@ -198,7 +207,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // Accumulator layout of m64nNk16 (f32), thread t of the warpgroup,
 // w = t / 32, l = t % 32: d[4j + 2h + e] is row 16w + l/4 + 8h, column
-// 8j + 2(l%4) + e.
+// 8j + 2(l%4) + e. The _rs forms take A from registers in the same
+// layout: for columns 16kk .. 16kk + 15 of a 64-row operand held as such
+// an accumulator, a[i] = bf16x2(d[8kk + 2i], d[8kk + 2i + 1]), i = 0..3.
 
 #define SM90_F8(i)                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
@@ -266,7 +277,9 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 64) += A (64 x 16, K-major) B (16 x 64, K-major)
+// d (64 x 64) += A (64 x 16, K-major) B (16 x 64); TNSPB as above (K-major
+// B unless given)
+template <int TNSPB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -276,10 +289,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
 }
 
 // d (64 x 104) += A (64 x 16, K-major) B (16 x 104, K-major)
@@ -299,6 +312,96 @@ __device__ __forceinline__ void wgmma_m64n104k16(float (&d)[52], uint64_t da,
       : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32), SM90_F8(40),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 96) += A (64 x 16, K-major) B (16 x 96); TNSPB as above
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_m64n96k16(
+    float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, %51;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
+        SM90_F8(40)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
+}
+
+// d (64 x 192) += A (64 x 16, four bf16x2 registers a thread, the
+// accumulator's layout) B (16 x 192); TNSPB: 0 K-major B, 1 MN-major B
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_m64n192k16_rs(
+    float (&d)[96], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
+        SM90_F8(40), SM90_F8(48), SM90_F8(56), SM90_F8(64), SM90_F8(72),
+        SM90_F8(80), SM90_F8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TNSPB));
+}
+
+// d (64 x 64) += A (64 x 16, four bf16x2 registers a thread, the
+// accumulator's layout) B (16 x 64); TNSPB: 0 K-major B, 1 MN-major B
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TNSPB));
+}
+
+// d (64 x 32) += A (64 x 16, four bf16x2 registers a thread, the
+// accumulator's layout) B (16 x 32); TNSPB: 0 K-major B, 1 MN-major B
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TNSPB));
 }
 
 #undef SM90_F32

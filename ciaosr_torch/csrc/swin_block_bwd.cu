@@ -3,8 +3,8 @@
 // Replaces ciaosr_tpu/ops/pallas/swin_block.py::_swin_block_bwd_call
 // (kernel _block_bwd_kernel), the custom VJP of swin_block_fused. Given the
 // rolled token map x (B, H, W, C) f32 and the output's cotangent dy (same
-// shape, f32), it recomputes the block forward (as csrc/swin_block.cu,
-// row 11) and returns dx and every packed parameter gradient in f32, with
+// shape, f32), it recomputes the block forward (row 11's function,
+// csrc/swin_block_sm90.cu) and returns dx and every packed parameter gradient in f32, with
 // the TPU kernel's casts: matmul operands bf16 (dq, dk, dv, dl, dz1, dx1,
 // dy and do rounded to bf16 before their products), sums, LayerNorm,
 // softmax, GELU and GELU' (exact erf) in f32. One difference: the packed

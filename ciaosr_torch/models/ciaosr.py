@@ -38,6 +38,7 @@ import torch.nn as nn
 from ciaosr_torch.models.csa import CrossScaleAttention
 from ciaosr_torch.models.mlp import ImplicitMLP
 from ciaosr_torch.models.swinir import SwinIR
+from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import decoder as dk_ops
 from ciaosr_torch.ops.kernels.decoder import (grid_axis_tables,
                                               shift_offsets, take2)
@@ -265,19 +266,21 @@ class CiaoSRNet(nn.Module):
 
     # --------------------------------------------------------- kernel grid
     def _kernel_maps(self, feature: torch.Tensor, cell):
-        """The kernel routes' per-image inputs in the compute dtype: the
-        feature zero-padded to the decode kernels' channel width, CSA
+        """The kernel routes' per-image inputs in the route's dtype
+        (``kernels.route_dtype``: bf16 on the card, also for an f32 model):
+        the feature zero-padded to the decode kernels' channel width, CSA
         through its routed kernel (None without CSA), the packed weights
         for ``cell`` (zero rows at the padded channels), g_k and g_v
         through K1, wt and ck through K2."""
-        dt = self.dtype
+        dt = kernels.route_dtype(feature.device, self.dtype)
         c = feature.shape[-1]
-        feature = feature.to(dt)
+        feature = feature.to(self.dtype)   # CSA computes in the model dtype
         csa = self.nl_feature(feature.contiguous(), use_kernel=True)
         if csa is not None:
             csa = csa.to(dt).contiguous()
         cp = dk_ops.padded_channels(c)
-        feature = torch.nn.functional.pad(feature, (0, cp - c)).contiguous()
+        feature = torch.nn.functional.pad(feature.to(dt),
+                                          (0, cp - c)).contiguous()
         pk = dk_ops.pack_decoder(self.imnet_k, self.imnet_v, self.imnet_q,
                                  c, cell, dt, c_pad=cp)
         gk, gv = dk_ops.f3p_build(feature, csa, pk["wk0"], pk["wvu"],

@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ciaosr_torch.models.rdn import conv
+from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels.csa_attention import csa_attention, csa_fused
 from ciaosr_torch.ops.kernels.csa_stencil import (csa_stencil,
                                                   csa_stencil_fused,
@@ -182,8 +183,12 @@ class CrossScaleAttention(nn.Module):
         if not use_kernel:
             return csa_stencil_fused_plain(match, keys, embed, scale, s)
         b, hp, wp, c = embed.shape
+        # the route picks by the model's element size, as the JAX package
+        # does; the kernels take their inputs in the route's dtype
         mode = csa_route(hp, wp, s, c, match.shape[-1],
                          2 if dtype == torch.bfloat16 else 4, b)
+        kdt = kernels.route_dtype(embed.device, dtype)
+        match, keys, embed = (t.to(kdt) for t in (match, keys, embed))
         if mode == "stencil_fused":
             return csa_stencil_fused(match, keys, embed, scale, s)
         if mode == "stencil":

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ciaosr_torch.models.rdn import conv
+from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels.swin_block import (SwinBlockFunction,
                                                  attn_mask, gelu,
                                                  pack_swin_block,
@@ -131,11 +132,13 @@ class SwinBlock(nn.Module):
         if use_kernels and h % ws == 0 and w % ws == 0:
             xi = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
             xi = xi.float().contiguous()
+            # the packing in the route's dtype (bf16 on the card); x is f32
+            kdt = kernels.route_dtype(x.device, dtype)
             if torch.is_grad_enabled():   # training: rows 11 and 12
-                y = SwinBlockFunction.apply(xi, self, ws, shift, dtype,
+                y = SwinBlockFunction.apply(xi, self, ws, shift, kdt,
                                             *self.parameters())
             else:
-                y = swin_block(xi, self.packed(ws, dtype), ws, shift)
+                y = swin_block(xi, self.packed(ws, kdt), ws, shift)
             return torch.roll(y, (shift, shift), (1, 2)) if shift else y
         # the JAX package's XLA block (its route when the map does not tile
         # into windows, and whenever kernels are off)

@@ -3,7 +3,8 @@ wrappers, plain versions, weight packing and its transpose, the autograd
 Function, and the window helpers both block routes share.
 
 Counterpart of ciaosr_tpu/ops/pallas/swin_block.py::swin_block_fused
-(forward, ``_swin_block_call`` / ``_block_kernel``; csrc/swin_block.cu),
+(forward, ``_swin_block_call`` / ``_block_kernel``;
+csrc/swin_block_sm90.cu),
 of its custom VJP (backward, ``_swin_block_bwd_call`` /
 ``_block_bwd_kernel``; csrc/swin_block_bwd.cu) and of
 models/swinir.py::_attn_mask and WindowAttention._bias. On a token map
@@ -117,12 +118,23 @@ def _slots(c: int, hd: int, device) -> torch.Tensor:
                            device=device)
 
 
+
+def _head_major(wqkv: torch.Tensor) -> torch.Tensor:
+    """wqkv (CP, 3 CP) → (3 CP, CP): column 192p + 32h + d becomes row
+    96h + 32p + d, head h's q, k and v slots in 96 rows."""
+    return wqkv.view(CP, 3, CP // HD, HD).permute(2, 1, 3, 0).reshape(
+        3 * CP, CP)
+
+
 @torch.no_grad()
 def pack_swin_block(block, ws: int, dtype: torch.dtype) -> dict:
     """A Swin block's weights in the kernel's layout (see the module
     docstring): matrices (in, out) in ``dtype``, LayerNorm and biases f32,
     the q bias pre-scaled by head_dim^-0.5, the relative-position bias
-    gathered for window ``ws`` as (heads, ws², ws²) f32. ``block`` has the
+    gathered for window ``ws`` as (heads, ws², ws²) f32. ``wqkv_hm`` holds
+    wqkv's columns once more, transposed and head-major (row 96h + 32p + d
+    is column 192p + 32h + d: head h's q, k and v slots in 96 rows of the
+    192 inputs), the layout in which row 11 streams them. ``block`` has the
     reference's submodules norm1, attn.{qkv, proj,
     relative_position_bias_table}, norm2, mlp.{fc1, fc2}."""
     attn = block.attn
@@ -156,9 +168,10 @@ def pack_swin_block(block, ws: int, dtype: torch.dtype) -> dict:
     w1[:c, :hid] = block.mlp.fc1.weight.float().t()
     w2 = torch.zeros(HIDP, CP, device=dev)
     w2[:hid, :c] = block.mlp.fc2.weight.float().t()
+    wqkv = wqkv.to(dtype)
     return {
         "g1": vec(block.norm1.weight, CP), "b1": vec(block.norm1.bias, CP),
-        "wqkv": wqkv.to(dtype), "bqkv": bqkv,
+        "wqkv": wqkv, "wqkv_hm": _head_major(wqkv), "bqkv": bqkv,
         "wp": wp.to(dtype), "bp": vec(attn.proj.bias, CP),
         "g2": vec(block.norm2.weight, CP), "b2": vec(block.norm2.bias, CP),
         "w1": w1.to(dtype), "b1m": vec(block.mlp.fc1.bias, HIDP),
@@ -249,17 +262,37 @@ def swin_block(x: torch.Tensor, pk: dict, ws: int,
     f32."""
     if x.device.type == "cpu":
         return swin_block_plain(x, pk, ws, shift)
+    # one persistent CTA a multiprocessor, walking over window pairs
+    return launch_swin_block(x, pk, ws, shift, _sms(x.device))
+
+
+# row 11's kernel streams wqkv in its head-major copy
+_FWD_TENSORS = tuple("wqkv_hm" if k == "wqkv" else k for k in _TENSORS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_swin_block(x: torch.Tensor, pk: dict, ws: int, shift: int,
+                      max_ctas: int) -> torch.Tensor:
+    """One launch of row 11 (``csrc/swin_block_sm90.cu``) on CUDA tensors:
+    ``max_ctas`` > 0 caps the grid (each CTA walks over window pairs), 0
+    launches one CTA a pair of windows."""
     b, h, w, c = x.shape
     heads = _check_call(x, pk, ws, shift, "swin_block")
+    _build.check_tensor(pk["wqkv_hm"], (CP // HD * 3 * HD, CP), "wqkv_hm")
     out = torch.empty_like(x)
-    args = [x, *(pk[k] for k in _TENSORS), out]
+    args = [x, *(pk[k] for k in _FWD_TENSORS), out]
     ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
-    fn = _build.load("swin_block").swin_block
+    fn = _build.load("swin_block_sm90").swin_block
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, heads, ws,
-             shift, float(c // heads) ** -0.5, _build.stream_ptr(x.device))
+             shift, float(c // heads) ** -0.5, int(max_ctas),
+             _build.stream_ptr(x.device))
     kernels.LAUNCHES["swin_block"] += 1
     _build.check(err, "swin_block")
     return out
@@ -385,12 +418,16 @@ def unpack_swin_grads(block, grads: dict, ws: int) -> dict:
     their ``named_parameters`` names, each in its parameter's shape, f32.
     Head slots are gathered back, padding is dropped, the q-bias gradient
     takes the pre-scale's factor, and the (heads, ws², ws²) bias gradient
-    is summed into the relative-position table in a fixed order."""
+    is summed into the relative-position table in a fixed order. A
+    gradient of ``wqkv_hm``, where given, is folded into wqkv's."""
     attn = block.attn
     c = block.norm1.weight.shape[0]
     heads, full = attn.num_heads, attn.window_size
     hd, hid = c // heads, block.mlp.fc1.out_features
-    g = grads
+    g = dict(grads)
+    if "wqkv_hm" in g:   # the forward's copy of wqkv (never from row 12)
+        g["wqkv"] = g["wqkv"] + g.pop("wqkv_hm").view(
+            CP // HD, 3, HD, CP).permute(3, 1, 0, 2).reshape(CP, 3 * CP)
     slot = _slots(c, hd, g["g1"].device)
     out = {
         "norm1.weight": g["g1"][:c], "norm1.bias": g["b1"][:c],

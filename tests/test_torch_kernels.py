@@ -441,6 +441,60 @@ def test_swin_block(swin_case, hw, block):
     assert _rel(got - x, ref - x) <= REL_TOL
 
 
+def _block(c, heads, window, shift, seed):
+    """A Swin block of c channels with seeded weights on the card (std
+    0.05 matrices, std 0.5 biases and LayerNorms around 1, std 1 bias
+    table: logits and LayerNorm outputs well away from zero)."""
+    from ciaosr_torch.models import swinir as ts
+    torch.manual_seed(seed)
+    blk = ts.SwinBlock(c, heads, window, shift).cuda()
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.startswith("norm") and name.endswith("weight"):
+                p.copy_(1.0 + 0.2 * torch.randn_like(p))
+            elif "relative_position" in name:
+                p.normal_()
+            else:
+                p.normal_(std=0.05 if p.dim() == 2 else 0.5)
+    return blk
+
+
+# the 002 training batch's map (6 x 64 x 64) shifted and not; narrow
+# blocks: C = 48 with 2 heads, an odd C = 45 with 3 heads of 15 in 4 x 4
+# windows (16 tokens), 7 x 7 windows (49 tokens, an odd count); an odd
+# number of windows (15: a CTA's second warpgroup has none)
+@pytest.mark.parametrize("shape,c,heads,window,shifted", [
+    ((6, 64, 64), 180, 6, 8, True), ((6, 64, 64), 180, 6, 8, False),
+    ((2, 16, 24), 48, 2, 8, True), ((1, 12, 20), 45, 3, 4, True),
+    ((1, 14, 21), 48, 2, 7, True), ((1, 24, 40), 180, 6, 8, False)],
+    ids=["6x64x64_shifted", "6x64x64", "C48_2heads", "C45_3heads_ws4",
+         "C48_ws7", "15_windows"])
+def test_swin_block_shapes(shape, c, heads, window, shifted):
+    """Row 11 at the training shape and off SwinIR's widths against its
+    f32 plain version (y and the increment y - x), one launch a call, the
+    same bits on a second call and from a grid capped at 3 CTAs (each
+    walks over several window pairs)."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    blk = _block(c, heads, window, window // 2 if shifted else 0, c + heads)
+    ws, shift = blk.geometry(*shape[1:])
+    assert shift == (window // 2 if shifted else 0)
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).standard_normal(
+        (*shape, c)).astype(np.float32), device="cuda")
+    pk = blk.packed(ws, torch.bfloat16)
+    with torch.inference_mode():
+        n0 = kernels.LAUNCHES["swin_block"]
+        got = sb.swin_block(x, pk, ws, shift)
+        assert kernels.LAUNCHES["swin_block"] == n0 + 1
+        ref = sb.swin_block_plain(x, _f32(pk), ws, shift)
+        assert got.shape == x.shape and got.dtype == torch.float32
+        assert _rel(got, ref) <= REL_TOL
+        assert _rel(got - x, ref - x) <= REL_TOL
+        assert torch.equal(sb.swin_block(x, pk, ws, shift), got)
+        assert torch.equal(sb.launch_swin_block(x, pk, ws, shift, 3), got)
+        assert torch.equal(sb.launch_swin_block(x, pk, ws, shift, 0), got)
+
+
 def test_swin_block_rejects(swin_case):
     from ciaosr_torch.ops.kernels import swin_block as sb
     blk = swin_case[0].encoder.layers[0].residual_group.blocks[0]
@@ -538,6 +592,43 @@ def test_swin_route_matches_plain_route(swin_case):
         net.dtype, net.use_kernels = torch.bfloat16, True
     assert got.shape == ref.shape == (2, 84, 148, 3)
     assert _rel(got, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("kind", ["flagship", "swinir"])
+def test_f32_model_kernel_route(kind):
+    """An f32 model (no dtype in its config, as every shipped config) with
+    use_kernels: its kernel route hands the kernels bf16 (the wrappers
+    take nothing else) and agrees with its plain f32 route, ×4 on 21 × 37,
+    every kernel of the route launched."""
+    from ciaosr_torch.models.builder import build_generator
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.sampling import interpolate_bilinear
+    cfg = dict(CFG if kind == "flagship" else SWIN_CFG, dtype=None)
+    net = build_generator(cfg, device="cuda", seed=3)
+    assert net.dtype == torch.float32 and net.use_kernels
+    x = torch.as_tensor(np.random.default_rng(7).random(
+        (2, 21, 37, 3), dtype=np.float32), device="cuda") - 0.45
+    kernels.reset_launches()
+    with torch.no_grad():   # the eval route (under autograd: row 12 too)
+        got = net.decode_grid(x, 4)
+    ran = {k for k, v in kernels.LAUNCHES.items() if v}
+    want = {"f3p_build", "wt_hoist", "grid_decode"}
+    if kind == "swinir":
+        want.add("swin_block")
+        assert kernels.LAUNCHES["swin_block"] == 2
+    else:
+        want.add("csa_attention")   # 21 × 37 (22 × 38 in CSA): streaming
+    assert ran == want
+    net.use_kernels = False
+    try:
+        with torch.no_grad():
+            ref = net.decode_grid(x, 4)
+    finally:
+        net.use_kernels = True
+    base = interpolate_bilinear(x, 84, 148)   # the f32 residual of both
+    assert got.shape == ref.shape == (2, 84, 148, 3)
+    assert _rel(got, ref) <= REL_TOL
+    assert _rel(got - base, ref - base) <= REL_TOL
 
 
 BWD_KEYS = ("swin_block_bwd", "swin_block_wgrad", "swin_block_gsum")
