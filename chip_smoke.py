@@ -37,15 +37,24 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      (one tile), and the 70² image at ×2.5, each with its exact launch
      counts (the Swin block 36 × tiles, K1-K3 once per tile, no CSA
      kernel); the kernel route against the plain f32 route on 48² and 70²
-     at ×4; f32 models (no dtype in their config, as every shipped
-     config) through their kernels against their plain f32 route: a
-     flagship ×4 192² tile and the SwinIR 70² request; the stage breakdown
-     of one 256 tile and the warm time of the 384² request; then the
-     ``time_kernels`` line: K1 and K3 at both widths, K3 at the odd width,
-     row 7, K4 and row 6, row 11 (shifted and unshifted, and at the
-     training batch's shape) (the kernels redesigned for Hopper), K3's
-     rational mode at both widths, rows 5, 8 and 12, and one tile of each
-     generator;
+     at ×4; then config 001 swinir (SwinIR-CiaoSR with CSA: Cr = 90,
+     C = 180, zero-padded to the kernels' 96 and 192; bf16, seeded random
+     weights, full width and depth): K4 and row 7 at (Cr, C) = (96, 192),
+     K1 and K3 at (C, DC) = (192, 192) (K3 also at the 70² request's odd
+     width) held against their plain versions at the real widths;
+     ``forward_test`` of its own test_cfg (×4, tile 192, overlap 32) on
+     the five Set5 ×4 LR shapes and on a 256² image (4 tiles), each with
+     its exact launch counts; its kernel route against its plain f32 route
+     (a 192² tile's encoder, CSA and output, the 72² request); f32 models
+     (no dtype in their config, as every shipped config) through their
+     kernels against their plain f32 route: a flagship ×4 192² tile, the
+     SwinIR 70² request and the 001 swinir 72² request; the stage
+     breakdown of one 256 tile and the warm time of the 384² request; then
+     the ``time_kernels`` line: K1 and K3 at all three widths, K3 at the
+     odd widths, row 7 and K4 at both, row 6, row 11 (shifted and
+     unshifted, and at the training batch's shape) (the kernels redesigned
+     for Hopper), K3's rational mode at both of its widths, rows 5, 8 and
+     12, and one tile of each generator;
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
      classical L1 objective): the Swin block (row 11, ``swin_block@
@@ -143,6 +152,45 @@ SWIN_002 = dict(
     non_local_attn=False, dtype="bf16", use_kernels=True)
 SWIN_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=256,
                      tile_overlap=32)
+# the generator of configs/001_localimplicitsr_swinir_* (its 'generator'
+# dict, copied): SwinIR-CiaoSR with CSA (Cr = 90, C = 180: the kernels run
+# it zero-padded to 96 and 192); bf16 compute, the kernel route. Its
+# published eval (the config's test_cfg): x4, tile 192, overlap 32.
+SWIN_001 = dict(
+    type="LocalImplicitSRSWINIR", window_size=8,
+    encoder=dict(type="SwinIR", upscale=4, in_chans=3, img_size=48,
+                 window_size=8, compress_ratio=3, squeeze_factor=30,
+                 conv_scale=0.01, overlap_ratio=0.5, img_range=1.0,
+                 depths=[6, 6, 6, 6, 6, 6], embed_dim=180,
+                 num_heads=[6, 6, 6, 6, 6, 6], mlp_ratio=2,
+                 upsampler="pixelshuffle", resi_connection="1conv"),
+    imnet_q=dict(type="MLPRefiner", in_dim=4, out_dim=3,
+                 hidden_list=[256, 256, 256, 256]),
+    imnet_k=dict(type="MLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256, 256, 256]),
+    imnet_v=dict(type="MLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256, 256, 256]),
+    feat_unfold=True, eval_bsize=30000, dtype="bf16", use_kernels=True)
+SWIN_001_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=192,
+                         tile_overlap=32)
+# its requests: a SWIN_001_IMG² image (4 tiles of 192), and the five Set5
+# x4 LR shapes (baby, bird, butterfly, head, woman) in two requests: those
+# whose tiles have a width divisible by 8 (K3's halo mode) and the others
+# (K3's odd-width mode, row 9), so that each mode's launches are counted.
+# The tiling is the config's: tile = min(192, H, W), so 57 x 86 is three
+# 57² tiles (columns 0, 25, 29) and the odd-width request four tiles. CSA
+# routes: 192², 128² and 64² take K4, 72², 70² and 57² (58² in the CSA)
+# row 7. Exact launches of each request:
+SWIN_001_IMG, SWIN_001_TILE = 256, 192
+SET5_X4_EVEN = ((128, 128), (72, 72), (64, 64))
+SET5_X4_ODD = ((70, 70), (57, 86))
+SWIN_001_LAUNCHES = {
+    "set5": {"csa_stencil_fused": 2, "csa_attention": 1, "f3p_build": 3,
+             "wt_hoist": 3, "grid_decode": 3, "swin_block": 36 * 3},
+    "set5_odd": {"csa_attention": 4, "f3p_build": 4, "wt_hoist": 4,
+                 "grid_decode": 4, "swin_block": 36 * 4},
+    "x4": {"csa_stencil_fused": 4, "f3p_build": 4, "wt_hoist": 4,
+           "grid_decode": 4, "swin_block": 36 * 4}}
 # the SwinIR requests: a SWIN_IMG² image in SWIN_TILE² tiles, one
 # SWIN_ODD image (one tile; the encoder pads it to a window multiple), and
 # the route checks' SWIN_SMALL and SWIN_ODD images
@@ -229,20 +277,22 @@ def f32(x):
 
 
 def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
-               library, reps: int = 5) -> dict:
+               library, reps: int = 5, crop=None) -> dict:
     """One row of the kernels line: the kernel (bf16) against its plain
     version (f32, same values), max|Δ|/max|ref| ≤ REL_TOL, with CUDA-event
-    times of both (the plain version: median of 3 after one warm-up),
+    times of both (the plain version: median of 3, its reference call
+    above the warm-up),
     the bound from ``flops`` and ``nbytes``, and ``library``'s time where
-    one PyTorch call computes the same function."""
+    one PyTorch call computes the same function. ``crop`` takes a kernel
+    on zero-padded maps to the plain version's real widths."""
     with torch.inference_mode():
         got = kern()
         torch.cuda.synchronize()
         ref = plain()
-        abs_err, err = errors(got, ref)
+        abs_err, err = errors(got if crop is None else crop(got), ref)
         del got, ref
         ms = time_ms(kern, reps=reps, warm=min(2, reps - 2))
-        plain_ms = time_ms(plain, reps=3, warm=1)
+        plain_ms = time_ms(plain, reps=3, warm=0)
         lib_ms = time_ms(library, reps=reps) if library else None
     bms, by = bound_ms(flops, nbytes)
     if not err <= REL_TOL:
@@ -584,18 +634,23 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
         log(f"  {t / 1e3:9.3f} ms  x{n:<4d} {key[:90]}")
 
 
-def time_kernels(label: str, restorer, swin, lq: np.ndarray,
-                 lq_s: np.ndarray, big: np.ndarray) -> None:
+def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
+                 lq_s: np.ndarray, big: np.ndarray,
+                 sw1_ms: dict | None = None) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
     redesigned for Hopper (K1 and K3's integer mode at both widths, K3 at
     row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
     and unshifted on a SwinIR tile's tokens, shifted on a training batch's),
     of K3's rational mode at both widths, of rows 5 and 8, of row 12 (the
     shifted block's backward), and of the two tiles that run K1 and K3 (a
-    flagship 192 tile at x4, a SwinIR 256 tile at x4), at the main path's
-    shapes: one line, printed the same way by ``--kernel-times`` in another
-    checkout, so that a parent tree's times and these are read in one
-    call."""
+    flagship 192 tile at x4, a SwinIR 256 tile at x4), and of config 001
+    swinir's instances (K4 and K1 on its 192² tile, row 7 at 72², K3 on
+    both), at the main path's shapes: one line, printed the same way by
+    ``--kernel-times`` in another checkout, so that a parent tree's times
+    and these are read in one call. ``sw1_ms`` (the normal run) gives the
+    001 swinir instances' times that check_swin001_kernels measured in
+    this run; without it (``--kernel-times``) they are timed here, and
+    K4's wide pair is split by launch (torch.profiler)."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
@@ -695,12 +750,58 @@ def time_kernels(label: str, restorer, swin, lq: np.ndarray,
             tok.shape).astype(np.float32), device="cuda")
         times["swin_block_bwd@{}x{}x{}".format(*tok.shape[:3])] = time_ms(
             lambda: sb.swin_block_bwd(tok, dy, pk1, ws, shift))
+    # the tiles first: a checkout without config 001 swinir's rows then
+    # times them after the same work as this one
     times["flagship x4 tile (grid_predict)"] = time_ms(
         lambda: restorer.grid_predict(tile, 4), reps=3, warm=1)
     times["SwinIR x4 256 tile (grid_predict)"] = time_ms(
         lambda: swin.grid_predict(swin_tile, 4), reps=3, warm=1)
+    if sw1_ms is not None:
+        times.update(sw1_ms)
+    else:
+        time_swin001_kernels(times, sw1, lq_s)
+    times["001 swinir x4 192 tile (grid_predict)"] = time_ms(
+        lambda: sw1.grid_predict(torch.as_tensor(
+            lq_s[:SWIN_001_TILE, :SWIN_001_TILE], device="cuda")[None], 4),
+        reps=3, warm=1)
     log(f"kernel times ({label}): " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
+def time_swin001_kernels(times: dict, sw1, lq_s: np.ndarray) -> None:
+    """Config 001 swinir's instances into ``times``, on the maps
+    check_swin001_kernels holds, and K4's wide pair by launch."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.kernels import decoder as dk
+    from ciaosr_torch.ops.neighborhood import extract_patches_same
+
+    inputs = swin001_inputs(sw1, lq_s)
+    cs1 = sw1.generator.cs_attn.softmax_scale
+    with torch.inference_mode():
+        t192 = inputs[(SWIN_001_TILE, SWIN_001_TILE)]
+        k4_maps = st.pad_maps(*t192["csa"])
+        times["csa_stencil_fused@C180"] = time_ms(
+            lambda: st.csa_stencil_fused(*k4_maps, cs1, 2), reps=3, warm=1)
+        mp, kp, ep = st.pad_maps(*inputs[SET5_X4_EVEN[1]]["csa"])
+        q1 = extract_patches_same(mp, 3, 1).contiguous()
+        v1 = extract_patches_same(ep, 6, 2).contiguous()
+        times["csa_attention@C180"] = time_ms(
+            lambda: ca.csa_attention(q1, kp, v1, cs1), reps=20)
+        feat_p, csa_p, _, _, _, _, pk1 = t192["maps"]
+        times["f3p_build@C180+csa"] = time_ms(lambda: dk.f3p_build(
+            feat_p, csa_p, pk1["wk0"], pk1["wvu"], pk1["wvc"]), reps=20)
+        odd = SET5_X4_ODD[0]
+        for name, hw in (("grid_decode@C180+csa", (SWIN_001_TILE,) * 2),
+                         ("grid_decode@C180+csa@{}x{}".format(*odd), odd)):
+            maps = inputs[hw]["maps"]
+            tabs = dk.decoder_tables(4, *hw, sw1.generator.local_size,
+                                     maps[0].device)
+            times[name] = time_ms(lambda: dk.grid_decode(
+                *maps, tabs, sw1.generator.softmax_scale), reps=3, warm=1)
+    log_launch_split("csa_stencil_fused@C180",
+                     lambda: st.csa_stencil_fused(*k4_maps, cs1, 2),
+                     ("scores_wide_kernel", "pv_wide_kernel"))
 
 
 def swin_blocks(net):
@@ -886,10 +987,10 @@ def swin_route_checks(swin, lq: np.ndarray) -> None:
 def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
     """Models with no compute dtype in their config (f32, as every shipped
     config) on the kernel route, which hands the kernels bf16: one flagship
-    ×4 TILE² tile (grid_predict) and the SwinIR SWIN_ODD request
-    (forward_test ×4, one tile), each with its kernels launched and no
-    other, against the same weights on the plain f32 route, max|Δ|/max|ref|
-    ≤ REL_TOL."""
+    ×4 TILE² tile (grid_predict), the SwinIR SWIN_ODD request and config
+    001 swinir's 72² request (forward_test ×4, one tile each), each with
+    its kernels launched and no other, against the same weights on the
+    plain f32 route, max|Δ|/max|ref| ≤ REL_TOL."""
     from ciaosr_torch.models.restorers import CiaoSRRestorer
 
     def pair(cfg, **kw):   # (kernel route, plain route), one seed
@@ -919,6 +1020,19 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
                              f"block launches, want {n_blocks}")
     checks["SwinIR x4 {}x{}".format(*SWIN_ODD)] = (
         torch.as_tensor(got), torch.as_tensor(swin[1].forward_test(so)))
+    del swin
+    s001 = pair(SWIN_001, test_cfg=SWIN_001_TEST_CFG)
+    s72 = lq_s[:SET5_X4_EVEN[1][0], :SET5_X4_EVEN[1][1]]
+    got, launches, _ = drive(
+        "f32 001 swinir x4 72x72 (kernel route)",
+        lambda: s001[0].forward_test(s72),
+        decode + ["swin_block", "csa_attention"],
+        [k for k in others if k != "csa_attention"])
+    if launches["swin_block"] != n_blocks:
+        raise AssertionError(f"f32 001 swinir: {launches['swin_block']} "
+                             f"Swin block launches, want {n_blocks}")
+    checks["001 swinir x4 72x72"] = (
+        torch.as_tensor(got), torch.as_tensor(s001[1].forward_test(s72)))
     for name, (got, ref) in checks.items():
         a, r = errors(got, ref)
         log(f"e2e f32 model, kernel route vs plain f32 route, {name}: "
@@ -926,6 +1040,198 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
         if not (got.shape == ref.shape and r <= REL_TOL):
             raise AssertionError(f"f32 model's kernel route disagrees at "
                                  f"{name}: {r:.3e}")
+
+
+def log_launch_split(name: str, fn, kernel_names) -> None:
+    """The device time of each of ``fn``'s kernels over 3 calls
+    (torch.profiler), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    split = {k: [e for e in evs if k in e.key] for k in kernel_names}
+    log(f"kernel {name} by launch (profiler, 3 calls): " + ", ".join(
+        f"{k} {sum(e.device_time_total for e in hits) / 3e3:.3f} ms"
+        for k, hits in split.items()))
+
+
+def swin001_inputs(sw, lq_s: np.ndarray) -> dict:
+    """The 001 swinir kernels' inputs from the seeded image, per LR shape
+    (the 192² tile, the 72² and the 70² requests' tiles): the encoder's
+    features, the CSA maps at the real widths (bf16) and the decode
+    kernels' maps (``_kernel_maps``: zero-padded to (C, DC) = (192, 192))."""
+    net, out = sw.generator, {}
+    with torch.inference_mode():
+        for hw in ((SWIN_001_TILE, SWIN_001_TILE), SET5_X4_EVEN[1],
+                   SET5_X4_ODD[0]):
+            x = sw.normalize(torch.as_tensor(lq_s[:hw[0], :hw[1]],
+                                             device="cuda")[None])
+            feat = net.gen_feature(x).contiguous()
+            out[hw] = dict(feat=feat,
+                           csa=net.cs_attn.stencil_inputs(feat, 2,
+                                                          torch.bfloat16),
+                           maps=net._kernel_maps(feat, (0.5, 0.5)))
+    return out
+
+
+def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
+    """Config 001 swinir's kernel instances on its path's tensors: K4 on
+    the 192² tile's CSA maps and row 7 on the 72² request's banks (at
+    (Cr, C) = (96, 192)), K1 and K3 at (C, DC) = (192, 192) on the 192²
+    tile, K3 once more at the 70² request's odd width. Each kernel (bf16,
+    on the zero-padded maps) against its plain version (f32, same values)
+    at the real widths; bounds count the function's work there."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.kernels import decoder as dk
+    from ciaosr_torch.ops.neighborhood import extract_patches_same
+
+    net, hid, dt = sw.generator, 256, torch.bfloat16
+    cs, ss = net.cs_attn.softmax_scale, net.softmax_scale
+    at = "ciaosr_tpu/ops/pallas/"
+    rows = []
+    tile = inputs[(SWIN_001_TILE, SWIN_001_TILE)]
+    match, keys, embed = tile["csa"]
+    b, hp, wp, c = embed.shape
+    cr = match.shape[-1]
+    p_, l_ = hp * wp, keys.shape[1]
+    padded = st.pad_maps(match, keys, embed)
+    maps32 = f32((match, keys, embed))
+    rows.append(kernel_row(
+        "csa_stencil_fused@C180", "ciaosr_torch/csrc/csa_stencil_sm90.cu",
+        at + "csa_attention.py:930 (csa_stencil_fused)",
+        lambda: st.csa_stencil_fused(*padded, cs, 2),
+        lambda: st.csa_stencil_fused_plain(*maps32, cs, 2),
+        2 * b * p_ * l_ * (9 * cr + 4 * c),
+        b * (p_ * cr * 2 + l_ * 9 * cr * 2 + p_ * c * 2 + 4 * p_ * c * 4),
+        None, reps=3, crop=lambda y: y[..., :c]))
+
+    match, keys, embed = inputs[SET5_X4_EVEN[1]]["csa"]
+    p_, l_ = match.shape[1] * match.shape[2], keys.shape[1]
+    mp, kp, ep = st.pad_maps(match, keys, embed)
+    cp = ep.shape[-1]
+    with torch.inference_mode():
+        q = extract_patches_same(mp, 3, 1).contiguous()
+        v = extract_patches_same(ep, 6, 2).contiguous()
+        q32 = extract_patches_same(match.float(), 3, 1)
+        v32 = extract_patches_same(embed.float(), 6, 2)
+    k32 = keys.float()
+    rows.append(kernel_row(
+        "csa_attention@C180", "ciaosr_torch/csrc/csa_flash.cu",
+        at + "csa_attention.py:65 (csa_attention)",
+        lambda: ca.csa_attention(q, kp, v, cs),
+        lambda: ca.csa_attention_plain(q32, k32, v32, cs),
+        2 * b * p_ * l_ * (9 * cr + 36 * c),
+        b * ((p_ + l_) * 9 * cr * 2 + l_ * 36 * c * 2 + p_ * 36 * c * 4),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kp, v, scale=cs),
+        crop=lambda y: y.reshape(b, p_, 36, cp)[..., :c].reshape(b, p_, -1)))
+
+    # the decode kernels' plain versions at the real widths: the kernels'
+    # bf16 weights packed at 180 channels, the maps cropped to 180
+    pk_r = f32(dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, c,
+                               (0.5, 0.5), dt))
+    feat_p, csa_p, gk, gv, wt, ck, pk = tile["maps"]
+    m = feat_p.shape[0] * feat_p.shape[1] * feat_p.shape[2]
+    fp = feat_p.shape[-1]
+    feat_r, csa_r = feat_p[..., :c].float(), csa_p[..., :c].float()
+    # K1's library yardstick: one cuDNN conv2d of [feature | csa] (CSA
+    # weights on the centre tap) to gk and gv's 512 channels
+    w_lib = torch.zeros(2 * hid, 2 * fp, 3, 3, device="cuda", dtype=dt)
+    w_lib[:hid, :fp] = pk["wk0"].reshape(3, 3, fp, hid).permute(3, 2, 0, 1)
+    w_lib[hid:, :fp] = pk["wvu"].reshape(3, 3, fp, hid).permute(3, 2, 0, 1)
+    w_lib[hid:, fp:, 1, 1] = pk["wvc"].t()
+    x_lib = torch.cat([feat_p, csa_p], -1).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    w_lib = w_lib.contiguous(memory_format=torch.channels_last)
+    rows.append(kernel_row(
+        "f3p_build@C180+csa", "ciaosr_torch/csrc/f3p_build.cu",
+        at + "decoder_kernel.py:623 (_build_f3p)",
+        lambda: dk.f3p_build(feat_p, csa_p, pk["wk0"], pk["wvu"], pk["wvc"]),
+        lambda: dk.f3p_build_plain(feat_r, csa_r, pk_r["wk0"], pk_r["wvu"],
+                                   pk_r["wvc"]),
+        2 * m * (9 * c * 2 * hid + c * hid),
+        m * 2 * c * 2 + (2 * 9 * c + c) * hid * 2 + m * 2 * hid * 2,
+        lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=1)))
+
+    def decode_row(name, hw):
+        feat_p, csa_p, gk, gv, wt, ck, pk = inputs[hw]["maps"]
+        fb, fh, fw, _ = feat_p.shape
+        m = fb * fh * fw
+        tabs = dk.decoder_tables(4, fh, fw, net.local_size, feat_p.device)
+        n_phase, n_shift = tabs["dys"].shape
+        dv = 10 * c
+        mlp = n_shift * (6 * hid * hid + hid * dv + hid) + dv * hid \
+            + 3 * hid * hid + hid * 3
+        weights = (9 * hid * hid + 2 * hid * dv) * 2
+        tab_bytes = sum(t.numel() * t.element_size() for t in tabs.values())
+        rows.append(kernel_row(
+            name, "ciaosr_torch/csrc/grid_decode_sm90.cu",
+            at + "decoder_kernel.py:1329 (_grid_decode_halo)"
+            + ("" if fw % 8 == 0 else "; :255 (grid_decode_fused, "
+               "assembly='stacked')"),
+            lambda: dk.grid_decode(feat_p, csa_p, gk, gv, wt, ck, pk, tabs,
+                                   ss),
+            lambda: dk.grid_decode_plain(
+                feat_p[..., :c].float(), csa_p[..., :c].float(), gk.float(),
+                gv.float(), wt.float(), ck, pk_r, tabs, ss),
+            2 * n_phase * m * mlp,
+            m * (2 * c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
+            + tab_bytes + n_phase * m * 3 * 4, None, reps=3))
+
+    decode_row("grid_decode@C180+csa", (SWIN_001_TILE, SWIN_001_TILE))
+    odd = SET5_X4_ODD[0]
+    decode_row("grid_decode@C180+csa@{}x{}".format(*odd), odd)
+    return rows
+
+
+def swin001_route_errors(sw, lq_s: np.ndarray, seed: int = 0) -> dict:
+    """Config 001 swinir's kernel route (bf16, ``sw``) against its plain
+    f32 route (the same weights: ``seed`` is ``sw``'s): on one
+    SWIN_001_TILE² tile the encoder's features, the CSA output on the same
+    (plain route's) features and the ×4 output (``grid_predict``), and the
+    ×4 output of the 72² request (``forward_test``), each as (max|Δ|,
+    max|Δ|/max|ref|)."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+
+    ref = CiaoSRRestorer(dict(SWIN_001, dtype=None, use_kernels=False),
+                         rgb_mean=RGB_MEAN, test_cfg=SWIN_001_TEST_CFG,
+                         device="cuda", seed=seed)
+    t = SWIN_001_TILE
+    x = torch.as_tensor(lq_s[:t, :t], device="cuda")[None]
+    xn = sw.normalize(x)
+    s72 = lq_s[:SET5_X4_EVEN[1][0], :SET5_X4_EVEN[1][1]]
+    with torch.inference_mode():
+        feat_ref = ref.generator.gen_feature(xn)
+        errs = {
+            f"{t}x{t} encoder": errors(sw.generator.gen_feature(xn),
+                                       feat_ref),
+            f"{t}x{t} CSA (K4)": errors(
+                sw.generator.nl_feature(feat_ref, use_kernel=True),
+                ref.generator.nl_feature(feat_ref, use_kernel=False)),
+            f"{t}x{t} x4 output": errors(sw.grid_predict(x, 4),
+                                         ref.grid_predict(x, 4))}
+    errs["72x72 x4 forward_test (row 7)"] = errors(
+        torch.as_tensor(sw.forward_test(s72)),
+        torch.as_tensor(ref.forward_test(s72)))
+    return errs
+
+
+def swin001_route_checks(sw, lq_s: np.ndarray) -> None:
+    """swin001_route_errors at seed 0, each within REL_TOL
+    (``tools/swin001_route_spread.py`` reads them over several seeds)."""
+    errs = swin001_route_errors(sw, lq_s)
+    log("e2e 001 swinir kernel route (bf16) vs plain route (f32): "
+        + "; ".join(f"{k} max|d|={a:.3e} max|d|/max|ref|={r:.3e}"
+                    for k, (a, r) in errs.items()))
+    bad = {k: r for k, (_, r) in errs.items() if not r <= REL_TOL}
+    if bad:
+        raise AssertionError(f"001 swinir kernel route disagrees: {bad}")
 
 
 def swin_breakdown(swin, lq_tile: torch.Tensor) -> None:
@@ -1280,6 +1586,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"build: {_build.build_all():.2f} s ({_build.build_dir()})")
 
+    def mark(phase):   # where the script's own time goes
+        log(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f} s")
+
     restorer = CiaoSRRestorer(FLAGSHIP, rgb_mean=RGB_MEAN,
                               test_cfg=TEST_CFG, device="cuda", seed=0)
     rng = np.random.default_rng(0)
@@ -1301,7 +1610,10 @@ def main() -> int:
     if flags == ["--kernel-times"]:
         swin = CiaoSRRestorer(SWIN_002, rgb_mean=RGB_MEAN,
                               test_cfg=SWIN_TEST_CFG, device="cuda", seed=0)
-        time_kernels(tree, restorer, swin, lq, lq_s, big)
+        sw1 = CiaoSRRestorer(SWIN_001, rgb_mean=RGB_MEAN,
+                             test_cfg=SWIN_001_TEST_CFG, device="cuda",
+                             seed=0)
+        time_kernels(tree, restorer, swin, sw1, lq, lq_s, big)
         return 0
 
     def full(hw):
@@ -1312,6 +1624,7 @@ def main() -> int:
     rows += check_csa_kernels(restorer, [("csa_attention", lr(SET5[0]))] + [
         (kern, full(hw)) for _, hw, kern in CSA_FULL])
     compare_csa_forms(restorer, full(CSA_FULL[-1][1]))
+    mark("the flagship kernel rows")
 
     # ---- the main paths: requests through the entry points, each path
     # with the launch counters set to 0 just before it and read just after
@@ -1488,6 +1801,7 @@ def main() -> int:
 
     breakdown(restorer, tile)
     del ref_r
+    mark("the flagship paths, route checks and breakdown")
 
     # ---- the SwinIR-CiaoSR generator of the 002 configs
     swin = CiaoSRRestorer(SWIN_002, rgb_mean=RGB_MEAN,
@@ -1553,9 +1867,86 @@ def main() -> int:
         f"{ms_swin:.1f} ms = {ms_swin / n_x4:.1f} ms/tile, "
         f"{(4 * SWIN_IMG) ** 2 / 1e3 / ms_swin:.3f} MP/s")
     swin_route_checks(swin, lq_s)
+    mark("the SwinIR 002 eval")
+
+    # ---- config 001 swinir: SwinIR-CiaoSR with CSA at 180 channels,
+    # through its own test_cfg (forward_test x4, tile 192, overlap 32)
+    sw1 = CiaoSRRestorer(SWIN_001, rgb_mean=RGB_MEAN,
+                         test_cfg=SWIN_001_TEST_CFG, device="cuda", seed=0)
+    sw1_rows = check_swin001_kernels(sw1, swin001_inputs(sw1, lq_s))
+    mark("the 001 swinir kernel rows")
+
+    def swin001_request(name, imgs, want, odd=False):
+        """forward_test of each image: exactly ``want``'s launches (the
+        tile count checked against tile_layout), nothing else. Every tile
+        of the request has a width divisible by 8 (K3's halo mode), or
+        with ``odd`` none has (K3's odd-width mode, row 9), so that K3's
+        launches in the request are the one mode's."""
+        layouts = [tile_layout(*im.shape[:2], 4, SWIN_001_TILE,
+                               SWIN_001_TEST_CFG["tile_overlap"])
+                   for im in imgs]
+        tiles = sum(len(hs) * len(ws) for _, hs, ws in layouts)
+        if tiles != want["f3p_build"]:
+            raise AssertionError(f"path {name}: {tiles} tiles, want "
+                                 f"{want['f3p_build']}")
+        if any(bool(t % 8) != odd for t, _, _ in layouts):
+            raise AssertionError(f"path {name}: tile widths "
+                                 f"{[t for t, _, _ in layouts]} mix K3's "
+                                 "modes")
+        outs, launches, _ = drive(
+            f"{name} ({tiles} tiles)",
+            lambda: [sw1.forward_test(im) for im in imgs], list(want),
+            [k for k in kernels.LAUNCHES if k not in want])
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"path {name}: launches {got}, want {want}")
+        for im, o in zip(imgs, outs):
+            check_image("{} {}x{}".format(name, *im.shape[:2]), o,
+                        hr(im.shape[:2]))
+        return launches
+
+    l_set5 = swin001_request(
+        "001 swinir Set5 shapes x4", [lq_s[:h, :w] for h, w in SET5_X4_EVEN],
+        SWIN_001_LAUNCHES["set5"])
+    l_odd = swin001_request(
+        "001 swinir Set5 shapes x4, odd widths",
+        [lq_s[:h, :w] for h, w in SET5_X4_ODD], SWIN_001_LAUNCHES["set5_odd"],
+        odd=True)
+    s001 = lq_s[:SWIN_001_IMG, :SWIN_001_IMG]
+    l_x4 = swin001_request("001 swinir x4", [s001], SWIN_001_LAUNCHES["x4"])
+    sw1_launches = {
+        "csa_stencil_fused@C180": (l_set5["csa_stencil_fused"]
+                                   + l_x4["csa_stencil_fused"]),
+        "csa_attention@C180": (l_set5["csa_attention"]
+                               + l_odd["csa_attention"]),
+        "f3p_build@C180+csa": sum(sl["f3p_build"]
+                                  for sl in (l_set5, l_odd, l_x4)),
+        "grid_decode@C180+csa": l_set5["grid_decode"] + l_x4["grid_decode"],
+        "grid_decode@C180+csa@{}x{}".format(*SET5_X4_ODD[0]):
+            l_odd["grid_decode"]}
+    for r in sw1_rows:
+        r["launches"] = sw1_launches[r["name"]]
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "
+            f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']} "
+            f"launches={r['launches']} tflops={r['tflops']:.1f}")
+    rows += sw1_rows
+    ms_001 = warm_ms(lambda: sw1.forward_test(s001))
+    log(f"e2e ({kind}; {smi}): 001 swinir forward_test {SWIN_001_IMG}->"
+        f"{4 * SWIN_001_IMG} x4, {l_x4['f3p_build']} tiles of "
+        f"{SWIN_001_TILE}: warm {ms_001:.1f} ms = "
+        f"{ms_001 / l_x4['f3p_build']:.1f} ms/tile, "
+        f"{(4 * SWIN_001_IMG) ** 2 / 1e3 / ms_001:.3f} MP/s")
+    swin001_route_checks(sw1, lq_s)
+    mark("the 001 swinir paths and route checks")
     f32_model_checks(drive, lq, lq_s)
     swin_breakdown(swin, swin_tile)
-    time_kernels(tree, restorer, swin, lq, lq_s, big)
+    mark("the f32 models and the SwinIR breakdown")
+    time_kernels(tree, restorer, swin, sw1, lq, lq_s, big,
+                 {r["name"]: r["ms"] for r in sw1_rows})
+    del sw1
+    mark("time_kernels")
 
     # ---- training the 002 generator: rows 11 and 12 at the batch's
     # tokens, then the train path

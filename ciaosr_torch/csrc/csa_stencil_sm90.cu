@@ -77,6 +77,34 @@
 //   2 mbarriers + 1024 alignment           1,040   = 221,936 of 232,448.
 // stats_kernel: q 81,920 + ring 3 x 40,960 + barriers = 205,872.
 // Registers (ptxas): 229 for pv_kernel, 113 for stats_kernel, no spills.
+//
+// The wide instance (config 001 swinir's CSA: Cr = 90 and C = 180,
+// zero-padded on the host to 96 and 192, so q and k are 864 wide and the
+// phase planes 768): match (B, Hp, Wp, 96), keys (B, L, 864), embed
+// (B, Hp, Wp, 192) -> out (B, 2Hp, 2Wp, 192) f32. Bound: 2PL(9Cr + s^2 C)
+// at the real widths, 1.04 TFLOP at the 192 tile: 1.05 ms. The flagship
+// pair's q and key halos (14 chunks x 104 rows x 128 B, 182 KB each) do
+// not fit, so this instance is two kernels that keep the scores, not the
+// halos, in device memory:
+//   (a) scores_wide_kernel: a CTA owns 64 queries (q assembled once, 112
+//       KB) and walks 256-key tiles: a producer warp streams the tile's 14
+//       64-dim chunks (32 KB each) through a 3-stage ring, two consumer
+//       warpgroups take 128 keys each (wgmma m64n128k16). Each tile's raw
+//       f32 scores go to S (B, P, ldS) in device memory (ldS = L rounded
+//       up to a multiple of 4: 16-byte rows), and each thread
+//       keeps an online max and sum of its columns, merged at the end
+//       over the quad and the two warpgroups into m (log2 units) and l.
+//   (b) pv_wide_kernel: a CTA owns an 8 x 8 query tile and walks the 8 x 8
+//       key tiles. Per key tile its threads read the 100 x 100 halo block
+//       of S and write p = exp2(scale S - m - log2 l) into f32 shared
+//       memory (zero off either grid), run the 9-point stencil into M (64
+//       x 64 bf16, as the flagship's), and three warpgroups multiply M by
+//       256 columns each of the 768 phase columns (wgmma m64n256k16) from a
+//       phase tile that thread 0 copies by TMA (twelve 5-D boxes, 96 KB),
+//       the next tile's issued once both products are done.
+// Tensor work 2PL(864 + 768), the scores once; device memory adds S, 4PL
+// bytes written and about 2.4 x that read (the halos). No atomics; each
+// output element is written once: the same bits from run to run.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -490,6 +518,349 @@ pv_kernel(const __grid_constant__ CUtensorMap tm_kh,
   }
 }
 
+// ------------------------------------------------------ the wide instance
+constexpr int WCR = 96;                 // match channels, padded
+constexpr int WQK = 9 * WCR;            // 864
+constexpr int WC = 192;                 // embedding channels, padded
+constexpr int WQCH = (WQK + 63) / 64;   // 14 chunks of 64 dims
+constexpr int WQVEC = WQCH * 8;         // 16-byte vectors of a q row
+constexpr int WTAPV = WCR / 8;          // 16-byte vectors of a tap: 12
+
+// ------------------------------------------------------------ pass (a)
+constexpr int WS_Q = 64;                       // queries a CTA
+constexpr int WS_K = 256;                      // keys a tile
+constexpr int WS_STAGES = 3;
+constexpr int WS_QCHUNK = WS_Q * 128;
+constexpr int WS_STAGE = WS_K * 128;           // one 64-dim chunk: 32 KB
+constexpr int WS_Q_BYTES = WQCH * WS_QCHUNK;   // 112 KB
+constexpr int WS_OFF_X = WS_Q_BYTES + WS_STAGES * WS_STAGE;
+constexpr int WS_OFF_BAR = WS_OFF_X + WS_Q * 2 * 4;
+constexpr int WS_CONSUMERS = 256;
+constexpr int WS_THREADS = WS_CONSUMERS + 32;  // + the producer warp
+constexpr int SMEM_WS = 1024 + WS_OFF_BAR + 2 * WS_STAGES * 8;
+
+// ------------------------------------------------------------ pass (b)
+constexpr int WP_SLABS = S * S * WC / 64;      // 12 phase slabs of a tile
+constexpr int WP_BYTES = WP_SLABS * SLAB;      // 96 KB
+constexpr int WP_OFF_M = WP_BYTES;
+constexpr int WP_OFF_S = WP_OFF_M + M_BYTES;
+constexpr int WP_OFF_V = WP_OFF_S + NH * LDSA * 4;
+constexpr int WP_OFF_BAR = WP_OFF_V + NHR * 4;
+constexpr int SMEM_WP = 1024 + WP_OFF_BAR + 8;
+constexpr int WP_WG = 3;                       // 256 output columns each
+constexpr int WP_THREADS = WP_WG * 128;
+static_assert(WS_Q_BYTES % 1024 == 0 && WS_STAGE % 1024 == 0 &&
+                  WP_OFF_M % 1024 == 0,
+              "operand tiles start on swizzle atoms");
+static_assert(SMEM_WS <= 232448 && SMEM_WP <= 232448, "shared memory");
+static_assert(WP_WG * 256 == S * S * WC, "the warpgroups cover s^2 C");
+
+// as put_q, for the wide instance: vector v (0..111) holds channels
+// 8 (v % 12).. of tap v / 12; zero for 108..111 (the pad to 896)
+__device__ __forceinline__ void put_q_wide(unsigned char* tile, int cb,
+                                           int h, int v, const bf16* match,
+                                           int b, int Hp, int Wp, int iy,
+                                           int ix, bool ok) {
+  uint4 val = zero8();
+  const int t = v / WTAPV;
+  const int yy = iy + t / 3 - 1, xx = ix + t % 3 - 1;
+  if (ok && v < 9 * WTAPV && yy >= 0 && yy < Hp && xx >= 0 && xx < Wp)
+    val = ld8(match + ((size_t)(b * Hp + yy) * Wp + xx) * WCR +
+              8 * (v % WTAPV));
+  *reinterpret_cast<uint4*>(tile + (v >> 3) * cb + h * 128 +
+                            (((v & 7) ^ (h & 7)) << 4)) = val;
+}
+
+// S's row stride: L rounded up to 16 bytes
+__host__ __device__ __forceinline__ int s_stride(int L) {
+  return (L + 3) & ~3;
+}
+
+// S[b, i, l] = q_i . k_l (raw, f32) for the CTA's 64 queries and every
+// key; per query m (log2 units, scale included) and l = sum_l
+// exp2(scale_log2 S - m)
+__global__ void __launch_bounds__(WS_THREADS, 1)
+scores_wide_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const bf16* __restrict__ match, float* __restrict__ s_out,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
+                   int Hp, int Wp, int L, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem + WS_Q_BYTES;
+  float* xch = reinterpret_cast<float*>(smem + WS_OFF_X);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WS_OFF_BAR);
+  uint64_t* empty = full + WS_STAGES;
+  const int P = Hp * Wp, b = blockIdx.y, i0 = blockIdx.x * WS_Q;
+  const int nt = (L + WS_K - 1) / WS_K;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WS_CONSUMERS / 32);  // one arrival a warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == WS_CONSUMERS / 32) {  // the producer warp: one thread issues
+    if (lane == 0) {
+      for (int it = 0; it < nt * WQCH; ++it) {
+        const int s = it % WS_STAGES;
+        if (it >= WS_STAGES) mbar_wait(&empty[s], (it / WS_STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], WS_STAGE);
+        tma_load_3d(ring + s * WS_STAGE, &tm_k, &full[s], 64 * (it % WQCH),
+                    (it / WQCH) * WS_K, b);
+      }
+    }
+    return;
+  }
+
+  for (int idx = threadIdx.x; idx < WS_Q * WQVEC; idx += WS_CONSUMERS) {
+    const int r = idx / WQVEC, i = i0 + r;
+    put_q_wide(smem, WS_QCHUNK, r, idx % WQVEC, match, b, Hp, Wp, i / Wp,
+               i % Wp, i < P);
+  }
+  fence_proxy_async();
+  bar_sync(1, WS_CONSUMERS);
+
+  const int wg = warp >> 2, q4 = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);  // rows r0 and r0 + 8
+  float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f};
+  int it = 0;
+  for (int j = 0; j < nt; ++j) {
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int c = 0; c < WQCH; ++c) {
+      const int s = it % WS_STAGES;
+      mbar_wait(&full[s], (it / WS_STAGES) & 1);
+      const unsigned char* kt = ring + s * WS_STAGE + wg * 128 * 128;
+      wgmma_fence();
+      fence_regs(sc);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_m64n128k16<0>(
+            sc, desc_sw128(smem + c * WS_QCHUNK + 32 * k, 16, 1024),
+            desc_sw128(kt + 32 * k, 16, 1024), 1);
+      wgmma_commit();
+      fence_regs(sc);
+      wgmma_wait<1>();
+      if (c > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % WS_STAGES]);
+      ++it;
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % WS_STAGES]);
+
+    // this warpgroup's keys of the tile: l = 256 j + 128 wg + 8 jj + 2 q4 +
+    // e. A pair starting below L is stored whole (its second key may be
+    // L, a pad column of S's row); only keys below L enter the stats.
+    const int lb = j * WS_K + 128 * wg + 2 * q4;
+    const int lds = s_stride(L);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + r0 + 8 * h;
+      float* srow = s_out + ((size_t)b * P + (i < P ? i : 0)) * lds;
+      float mx = m_t[h];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int l = lb + 8 * jj;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (l + e < L) mx = fmaxf(mx, sc[4 * jj + 2 * h + e] * scale_log2);
+        if (i < P && l < L)
+          *reinterpret_cast<float2*>(srow + l) =
+              make_float2(sc[4 * jj + 2 * h], sc[4 * jj + 2 * h + 1]);
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (lb + 8 * jj + e < L)
+            sum += ex2(sc[4 * jj + 2 * h + e] * scale_log2 - mx);
+      // a thread that has seen no key yet keeps m = -inf and l = 0
+      l_t[h] = (m_t[h] == -INFINITY ? 0.f : l_t[h] * ex2(m_t[h] - mx)) + sum;
+      m_t[h] = mx;
+    }
+  }
+
+  // merge the quad's four column sets, then the two warpgroups' keys
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = fmaxf(m_t[h], __shfl_xor_sync(0xffffffffu, m_t[h], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float l = m_t[h] == -INFINITY ? 0.f : l_t[h] * ex2(m_t[h] - m);
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    m_t[h] = m;
+    l_t[h] = l;
+    if (wg == 1 && q4 == 0) {
+      xch[2 * (r0 + 8 * h)] = m;
+      xch[2 * (r0 + 8 * h) + 1] = l;
+    }
+  }
+  bar_sync(1, WS_CONSUMERS);
+  if (wg == 0 && q4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, i = i0 + r;
+      const float m1 = xch[2 * r], l1 = xch[2 * r + 1];
+      const float m = fmaxf(m_t[h], m1);
+      const float l = (m_t[h] == -INFINITY ? 0.f : l_t[h] * ex2(m_t[h] - m)) +
+                      (m1 == -INFINITY ? 0.f : l1 * ex2(m1 - m));
+      if (i < P) {
+        m_out[(size_t)b * P + i] = m;
+        l_out[(size_t)b * P + i] = l;
+      }
+    }
+  }
+}
+
+// the phase planes of key tile (ky0, kx0): slab n holds, for the 64 keys
+// (ly, lx) of the tile, embed[s ly + n / 6, s lx + (64 (n % 6)) / C, ...]:
+// columns 64 (n % 6).. of phase row a = n / 6, (b', c) flattened
+__device__ __forceinline__ void load_phases_wide(unsigned char* pt,
+                                                 const CUtensorMap* tm,
+                                                 uint64_t* bar, int ky0,
+                                                 int kx0, int b) {
+  mbar_expect_tx(bar, WP_BYTES);
+  for (int n = 0; n < WP_SLABS; ++n)
+    tma_load_5d(pt + n * SLAB, tm, bar, 64 * (n % 6), kx0, n / 6, ky0, b);
+}
+
+__global__ void __launch_bounds__(WP_THREADS, 1)
+pv_wide_kernel(const __grid_constant__ CUtensorMap tm_ph,
+               const float* __restrict__ s_in, const float* __restrict__ m_in,
+               const float* __restrict__ l_in, float* __restrict__ out,
+               int Hp, int Wp, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* pt = smem;
+  unsigned char* mt = smem + WP_OFF_M;
+  float* sa = reinterpret_cast<float*>(smem + WP_OFF_S);
+  float* mrow = reinterpret_cast<float*>(smem + WP_OFF_V);
+  uint64_t* pbar = reinterpret_cast<uint64_t*>(smem + WP_OFF_BAR);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, P = Hp * Wp;
+  const int Hq = Hp / S, Wq = Wp / S, lds = s_stride(Hq * Wq);
+  const int ntx = (Wp + T - 1) / T;
+  const int ty0 = (blockIdx.x / ntx) * T, tx0 = (blockIdx.x % ntx) * T;
+  const int nkx = (Wq + T - 1) / T, nt = nkx * ((Hq + T - 1) / T);
+
+  if (tid == 0) {
+    mbar_init(pbar, 1);
+    fence_barrier_init();
+    load_phases_wide(pt, &tm_ph, pbar, 0, 0, b);
+  }
+  // m + log2 l of the query halo's rows (+inf off the grid)
+  for (int h = tid; h < NHR; h += WP_THREADS) {
+    const int iy = ty0 + h / TH - 1, ix = tx0 + h % TH - 1;
+    const bool ok = h < NH && iy >= 0 && iy < Hp && ix >= 0 && ix < Wp;
+    const size_t gi = (size_t)b * P + (ok ? iy * Wp + ix : 0);
+    mrow[h] = ok ? m_in[gi] + __log2f(l_in[gi]) : INFINITY;
+  }
+  __syncthreads();
+
+  const int wg = warp >> 2, q4 = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);  // rows r0 and r0 + 8
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nt; ++j) {
+    const int ky0 = (j / nkx) * T, kx0 = (j % nkx) * T;
+    // p of the 100 x 100 halo block: element (query-halo row hq, key-halo
+    // row cy, column cx), consecutive threads along cx; kept, as in
+    // pv_kernel, at sa[hq * LDSA + cy * KCOLS + cx]
+#pragma unroll 4
+    for (int idx = tid; idx < NH * NH; idx += WP_THREADS) {
+      const int hq = idx / NH, hk = idx % NH;
+      const int cy = hk / TH, cx = hk % TH;
+      const int iy = ty0 + hq / TH - 1, ix = tx0 + hq % TH - 1;
+      const int ly = ky0 + cy - 1, lx = kx0 + cx - 1;
+      float p = 0.f;
+      if (iy >= 0 && iy < Hp && ix >= 0 && ix < Wp && ly >= 0 && ly < Hq &&
+          lx >= 0 && lx < Wq)
+        p = ex2(fmaf(
+            s_in[((size_t)b * P + iy * Wp + ix) * lds + ly * Wq + lx],
+            scale_log2, -mrow[hq]));
+      sa[hq * LDSA + cy * KCOLS + cx] = p;
+    }
+    bar_sync(1, WP_THREADS);  // p is whole; every warp is past M of j - 1
+
+    // M[i, l] = sum_d A[i + d, l + d], as pv_kernel: a task is query
+    // (iy, ix) and key row ly, eight keys lx
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int combo = warp + (WP_THREADS / 32) * k;
+      if (combo < 16) {
+        const int iy = combo & 7, ix = lane & 7;
+        const int ly = (lane >> 3) + 4 * (combo >> 3), i = iy * T + ix;
+        float mv[T];
+#pragma unroll
+        for (int lx = 0; lx < T; ++lx) mv[lx] = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* src = sa + ((iy + dy) * TH + ix + dx) * LDSA +
+                               (ly + dy) * KCOLS + dx;
+#pragma unroll
+            for (int lx = 0; lx < T; ++lx) mv[lx] += src[lx];
+          }
+        __align__(16) __nv_bfloat162 pk[T / 2];
+        const bool row_ok = ky0 + ly < Hq;
+#pragma unroll
+        for (int lx = 0; lx < T; lx += 2)
+          pk[lx / 2] = __floats2bfloat162_rn(
+              row_ok && kx0 + lx < Wq ? mv[lx] : 0.f,
+              row_ok && kx0 + lx + 1 < Wq ? mv[lx + 1] : 0.f);
+        *reinterpret_cast<uint4*>(mt + i * 128 + ((ly ^ (i & 7)) << 4)) =
+            *reinterpret_cast<const uint4*>(pk);
+      }
+    }
+    fence_proxy_async();
+    bar_sync(1, WP_THREADS);  // M is whole; every warp is past p
+
+    // acc (64 x 256) += M (64 x 64) @ phase columns 256 wg .. 256 wg + 255
+    mbar_wait(pbar, j & 1);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int k = 0; k < T * T / 16; ++k)
+      wgmma_m64n256k16<1>(acc, desc_sw128(mt + 32 * k, 16, 1024),
+                          desc_sw128(pt + 4 * wg * SLAB + 2048 * k, SLAB,
+                                     1024),
+                          1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    bar_sync(1, WP_THREADS);  // every warpgroup is past M and the phases
+    if (tid == 0 && j + 1 < nt)
+      load_phases_wide(pt, &tm_ph, pbar, ((j + 1) / nkx) * T,
+                       ((j + 1) % nkx) * T, b);
+  }
+
+  // pixel shuffle: column u = 256 wg + 8 jj + 2 q4 (+1) is (b', c) =
+  // u - 384 a of phase row a = u / 384, at out[s iy + a, s ix + b', c]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const int iy = ty0 + row / T, ix = tx0 + row % T;
+    if (iy >= Hp || ix >= Wp) continue;
+#pragma unroll
+    for (int jj = 0; jj < 32; ++jj) {
+      const int u = 256 * wg + 8 * jj + 2 * q4, a = u / (S * WC);
+      float* dst = out + ((size_t)(b * S * Hp + S * iy + a) * (S * Wp) +
+                          S * ix) * WC + (u - S * WC * a);
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
 // tensor maps (innermost dimension first, strides in bytes)
 int map_keys_flat(CUtensorMap* m, const void* keys, int B, int L) {
   const cuuint64_t dims[3] = {QK, (cuuint64_t)L, (cuuint64_t)B};
@@ -515,6 +886,27 @@ int map_phases(CUtensorMap* m, const void* embed, int B, int Hp, int Wp) {
   const cuuint64_t dims[5] = {S * C, (cuuint64_t)(Wp / S), S,
                               (cuuint64_t)(Hp / S), (cuuint64_t)B};
   const cuuint64_t strides[4] = {S * C * 2, row, S * row,
+                                 (cuuint64_t)Hp * row};
+  const cuuint32_t box[5] = {64, T, 1, T, 1};
+  return tmap_encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, embed, 5, dims,
+                     strides, box);
+}
+
+int map_keys_wide(CUtensorMap* m, const void* keys, int B, int L) {
+  const cuuint64_t dims[3] = {WQK, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {WQK * 2, (cuuint64_t)L * WQK * 2};
+  const cuuint32_t box[3] = {64, WS_K, 1};
+  return tmap_encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, keys, 3, dims,
+                     strides, box);
+}
+
+// embed (B, Hp, Wp, 192) as (B, Hq, a, Wq, (b', c)): (S C, Wq, S, Hq, B)
+int map_phases_wide(CUtensorMap* m, const void* embed, int B, int Hp,
+                    int Wp) {
+  const cuuint64_t row = (cuuint64_t)Wp * WC * 2;
+  const cuuint64_t dims[5] = {S * WC, (cuuint64_t)(Wp / S), S,
+                              (cuuint64_t)(Hp / S), (cuuint64_t)B};
+  const cuuint64_t strides[4] = {S * WC * 2, row, S * row,
                                  (cuuint64_t)Hp * row};
   const cuuint32_t box[5] = {64, T, 1, T, 1};
   return tmap_encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, embed, 5, dims,
@@ -553,5 +945,40 @@ extern "C" int csa_stencil_sm90(const void* match, const void* keys,
   pv_kernel<<<dim3(tiles, B), PV_THREADS, SMEM_PV, st>>>(
       tkh, tph, (const bf16*)match, (const float*)m_buf,
       (const float*)l_buf, (float*)out, Hp, Wp, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// K4 at the wide instance: match (B, Hp, Wp, 96), keys (B, Hp/2 * Wp/2,
+// 864), embed (B, Hp, Wp, 192) bf16 -> out (B, 2Hp, 2Wp, 192) f32 (every
+// element written); s_buf (B, Hp*Wp, ldS), m_buf, l_buf (B, Hp*Wp) f32
+// scratch, ldS = L = Hp/2 * Wp/2 rounded up to a multiple of 4
+extern "C" int csa_stencil_sm90_wide(const void* match, const void* keys,
+                                     const void* embed, void* s_buf,
+                                     void* m_buf, void* l_buf, void* out,
+                                     int B, int Hp, int Wp, float scale,
+                                     void* stream) {
+  static cudaError_t attr_a = allow_smem(scores_wide_kernel, SMEM_WS);
+  static cudaError_t attr_b = allow_smem(pv_wide_kernel, SMEM_WP);
+  if (attr_a != cudaSuccess) return (int)attr_a;
+  if (attr_b != cudaSuccess) return (int)attr_b;
+  if (B <= 0 || Hp <= 0 || Wp <= 0 || Hp % S || Wp % S)
+    return (int)cudaErrorInvalidValue;
+  const int Hq = Hp / S, Wq = Wp / S, P = Hp * Wp, L = Hq * Wq;
+  CUtensorMap tk, tph;
+  int err = map_keys_wide(&tk, keys, B, L);
+  if (!err) err = map_phases_wide(&tph, embed, B, Hp, Wp);
+  if (err) return err;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t st = (cudaStream_t)stream;
+  scores_wide_kernel<<<dim3((P + WS_Q - 1) / WS_Q, B), WS_THREADS, SMEM_WS,
+                       st>>>(tk, (const bf16*)match, (float*)s_buf,
+                             (float*)m_buf, (float*)l_buf, Hp, Wp, L,
+                             scale_log2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((Hp + T - 1) / T) * ((Wp + T - 1) / T);
+  pv_wide_kernel<<<dim3(tiles, B), WP_THREADS, SMEM_WP, st>>>(
+      tph, (const float*)s_buf, (const float*)m_buf, (const float*)l_buf,
+      (float*)out, Hp, Wp, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,8 @@
 // C = DC = 64, H = 256, i.e. 23 us at the bf16 dense peak; bytes (feature
 // + csa in, g_k + g_v out, ~47 MB) take 14 us, so it is compute-bound.
 // SwinIR-CiaoSR (C = 180 padded to 192 with zero weight rows, no CSA) on
-// a 256 x 256 map: 109 GFLOP of the function's, 0.11 ms.
+// a 256 x 256 map: 109 GFLOP of the function's, 0.11 ms; with CSA (DC =
+// 180) on a 192 x 192 tile: 64.6 GFLOP, 0.065 ms.
 //
 // Design: an implicit-im2col GEMM on wgmma, fed by TMA (csrc/sm90.cuh).
 // A block owns a 16 x 8 pixel patch (M = 128 rows) and one output, g_k or
@@ -32,7 +33,10 @@
 // serves 128 pixels, and loads overlap products. The epilogue stages the
 // bf16 tile in shared memory and stores it by TMA: 4-byte stores from the
 // accumulator registers took half of the kernel's time.
-// Compiled for (C, DC) = (64, 64), the flagship, and (192, 0).
+// Compiled for (C, DC) = (64, 64), the flagship, (192, 0), SwinIR-CiaoSR
+// without CSA, and (192, 192), SwinIR-CiaoSR with CSA (config 001 swinir:
+// its 180 feature and CSA channels zero-padded to 192 on the host, so the
+// CSA map's 64-channel chunks are three and TMA rows 384 bytes).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -73,7 +77,8 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
   const int x0 = blockIdx.x * BW, y0 = blockIdx.y * BH;
   const int b = blockIdx.z >> 1;
   const bool is_v = blockIdx.z & 1;
-  const int nk = NKU + (is_v && DC > 0 ? 1 : 0);
+  // g_v adds DC / KC chunks of the CSA map (one at the flagship's 64)
+  const int nk = NKU + (is_v ? DC / KC : 0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -100,10 +105,11 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
                       y0 + t / 3 - 1, b);
           for (int j = 0; j < HID / 64; ++j)
             tma_load_2d(bt + j * SLAB, wmap, &full[s], j * 64, kc * KC);
-        } else {  // the CSA chunk of g_v, at the centre tap
-          tma_load_4d(a, &tm_csa, &full[s], 0, x0, y0, b);
+        } else {  // a CSA chunk of g_v, at the centre tap
+          const int c0 = DC > KC ? (kc - NKU) * KC : 0;
+          tma_load_4d(a, &tm_csa, &full[s], c0, x0, y0, b);
           for (int j = 0; j < HID / 64; ++j)
-            tma_load_2d(bt + j * SLAB, &tm_wvc, &full[s], j * 64, 0);
+            tma_load_2d(bt + j * SLAB, &tm_wvc, &full[s], j * 64, c0);
         }
       }
     }
@@ -223,5 +229,8 @@ extern "C" int f3p_build(const void* feat, const void* csa, const void* wk,
     return launch<64, 64>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
   if (C == 192 && DC == 0)
     return launch<192, 0>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
+  if (C == 192 && DC == 192)
+    return launch<192, 192>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                            stream);
   return (int)cudaErrorInvalidValue;
 }

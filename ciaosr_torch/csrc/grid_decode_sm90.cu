@@ -56,8 +56,13 @@
 // the whole sum by the bf16 class. imnet_q's hidden layers run on the 32
 // real rows (M = 64 tiles, each warpgroup 128 columns); its 256 -> 3 layer
 // is reduced from registers.
-// Compiled for (C, DC) = (64, 64), the flagship (DV = 640), and (192, 0),
-// SwinIR-CiaoSR's 180 channels zero-padded, without CSA (DV = 1728).
+// Compiled for (C, DC) = (64, 64), the flagship (DV = 640), (192, 0),
+// SwinIR-CiaoSR's 180 channels zero-padded, without CSA (DV = 1728), and
+// (192, 192), SwinIR-CiaoSR with CSA (config 001 swinir; its 180 CSA
+// channels zero-padded too: DV = 1920, fifteen value chunks). At C = 192
+// the DK = 1728 boundary falls in the middle of the 14th value chunk, on a
+// 64-column slab boundary (27 slabs), as DK = 576 does in the flagship's
+// 5th: each slab is gathered from the feature or from the CSA map alone.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -619,7 +624,7 @@ int launch(void* const* ptrs, int B, int H, int W, int n_phase, int n_shift,
   static cudaError_t attr = allow_smem(decode_sm90<C, DC>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   // the host's limit: 9 shifts (local_size 3) at the flagship width only
-  if (n_shift < 1 || n_shift > (DC > 0 ? MAX_SHIFT : SG) || n_phase < 1)
+  if (n_shift < 1 || n_shift > (C == 64 ? MAX_SHIFT : SG) || n_phase < 1)
     return (int)cudaErrorInvalidValue;
   Params P = {};
   P.feat = (const bf16*)ptrs[0];
@@ -679,5 +684,8 @@ extern "C" int grid_decode(void* const* ptrs, int B, int H, int W, int C,
   if (C == 192 && DC == 0)
     return launch<192, 0>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
                           stream);
+  if (C == 192 && DC == 192)
+    return launch<192, 192>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
+                            stream);
   return (int)cudaErrorInvalidValue;
 }

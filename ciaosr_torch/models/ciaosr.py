@@ -268,21 +268,25 @@ class CiaoSRNet(nn.Module):
     def _kernel_maps(self, feature: torch.Tensor, cell):
         """The kernel routes' per-image inputs in the route's dtype
         (``kernels.route_dtype``: bf16 on the card, also for an f32 model):
-        the feature zero-padded to the decode kernels' channel width, CSA
-        through its routed kernel (None without CSA), the packed weights
-        for ``cell`` (zero rows at the padded channels), g_k and g_v
-        through K1, wt and ck through K2."""
+        the feature and the CSA map (CSA through its routed kernel; None
+        without CSA) zero-padded to the decode kernels' widths, the packed
+        weights for ``cell`` (zero rows at the padded channels), g_k and
+        g_v through K1, wt and ck through K2."""
         dt = kernels.route_dtype(feature.device, self.dtype)
         c = feature.shape[-1]
         feature = feature.to(self.dtype)   # CSA computes in the model dtype
         csa = self.nl_feature(feature.contiguous(), use_kernel=True)
+        dc = 0 if csa is None else csa.shape[-1]
+        cp, dcp = dk_ops.padded_widths(c, dc)
         if csa is not None:
-            csa = csa.to(dt).contiguous()
-        cp = dk_ops.padded_channels(c)
+            csa = csa.to(dt)
+            if dcp != dc:
+                csa = torch.nn.functional.pad(csa, (0, dcp - dc))
+            csa = csa.contiguous()
         feature = torch.nn.functional.pad(feature.to(dt),
                                           (0, cp - c)).contiguous()
         pk = dk_ops.pack_decoder(self.imnet_k, self.imnet_v, self.imnet_q,
-                                 c, cell, dt, c_pad=cp)
+                                 c, cell, dt, c_pad=cp, dc_pad=dcp)
         gk, gv = dk_ops.f3p_build(feature, csa, pk["wk0"], pk["wvu"],
                                   pk["wvc"])
         wt, ck = dk_ops.wt_hoist(feature, pk["wkout"], pk["bkout"])

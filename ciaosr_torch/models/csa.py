@@ -8,9 +8,12 @@ run NCHW.
 
 The middle. average=True: the plain route is the stencil form
 (``_stencil_reconstruct``); the kernel route takes, at each geometry, the
-kernel the JAX package picks there (``csa_route``). average=False: the
-hard-argmax bank route in plain PyTorch, which the JAX package also runs
-without a kernel.
+kernel the JAX package picks there (``csa_route``), on the maps
+zero-padded to the kernels' compiled widths (``csa_stencil.pad_maps``:
+config 001 swinir's Cr = 90, C = 180 to 96, 192; the flagship's 32, 64 as
+they are) and cropped back after it. average=False:
+the hard-argmax bank route in plain PyTorch, which the JAX package also
+runs without a kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ciaosr_torch.ops.kernels.csa_attention import csa_attention, csa_fused
 from ciaosr_torch.ops.kernels.csa_stencil import (csa_stencil,
                                                   csa_stencil_fused,
                                                   csa_stencil_fused_plain,
-                                                  row_blocks)
+                                                  pad_maps, row_blocks)
 from ciaosr_torch.ops.neighborhood import extract_patches_same, overlap_add
 
 # the JAX package's VMEM admission budget off a TPU (its vmem_budget()),
@@ -183,21 +186,28 @@ class CrossScaleAttention(nn.Module):
         if not use_kernel:
             return csa_stencil_fused_plain(match, keys, embed, scale, s)
         b, hp, wp, c = embed.shape
-        # the route picks by the model's element size, as the JAX package
-        # does; the kernels take their inputs in the route's dtype
-        mode = csa_route(hp, wp, s, c, match.shape[-1],
+        cr = match.shape[-1]
+        # the route picks by the real widths and the model's element size,
+        # as the JAX package does; the kernels take their inputs in the
+        # route's dtype at a compiled (Cr, C), and the padded output
+        # channels are cropped
+        mode = csa_route(hp, wp, s, c, cr,
                          2 if dtype == torch.bfloat16 else 4, b)
         kdt = kernels.route_dtype(embed.device, dtype)
-        match, keys, embed = (t.to(kdt) for t in (match, keys, embed))
+        match, keys, embed = pad_maps(*(t.to(kdt)
+                                        for t in (match, keys, embed)))
+        cp = embed.shape[-1]
         if mode == "stencil_fused":
-            return csa_stencil_fused(match, keys, embed, scale, s)
-        if mode == "stencil":
-            return csa_stencil(match, keys, embed, scale, s)
-        if mode in ("resident", "windowed"):
-            return csa_fused(match, keys, embed, scale, s)
-        q = extract_patches_same(match, 3, 1)
-        v = extract_patches_same(embed, 3 * s, s)
-        return overlap_add(csa_attention(q, keys, v, scale), hp, wp, s, c)
+            y = csa_stencil_fused(match, keys, embed, scale, s)
+        elif mode == "stencil":
+            y = csa_stencil(match, keys, embed, scale, s)
+        elif mode in ("resident", "windowed"):
+            y = csa_fused(match, keys, embed, scale, s)
+        else:
+            q = extract_patches_same(match, 3, 1)
+            v = extract_patches_same(embed, 3 * s, s)
+            y = overlap_add(csa_attention(q, keys, v, scale), hp, wp, s, cp)
+        return y if cp == c else y[..., :c]
 
     def _argmax_middle(self, match, keys, embed, s, dtype) -> torch.Tensor:
         """average=False (ciaosr_tpu/models/csa.py:378-408): the one-hot

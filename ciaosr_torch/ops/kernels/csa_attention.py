@@ -19,7 +19,10 @@ v_l the (3s)×(3s) stride-s patches of the embedding:
   kernel (csrc/csa_stencil_sm90.cu, ops/kernels/csa_stencil.py); its
   plain version stays the bank form.
 
-Outputs are f32. The kernels take bf16 at Cr = 32, C = 64, s = 2 only.
+Outputs are f32. The kernels take bf16 at s = 2 and the flagship's
+(Cr, C) = (32, 64); row 7 also at (96, 192), config 001 swinir's (90,
+180) zero-padded: Dk = 864, Dv = 6912. Rows 6 and 8 raise there (ROADMAP
+queue 2, item 1).
 """
 
 from __future__ import annotations
@@ -30,12 +33,15 @@ import torch
 
 from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import _build
-from ciaosr_torch.ops.kernels.csa_stencil import (C, CR, S,
+from ciaosr_torch.ops.kernels.csa_stencil import (C, INSTANCES, S,
                                                   launch_stencil_sm90,
+                                                  no_wide_kernel,
                                                   row_blocks)
 from ciaosr_torch.ops.neighborhood import extract_patches_same, overlap_add
 
-DK, DV = 9 * CR, 9 * S * S * C
+# the bank widths (Dk, Dv) of each compiled (Cr, C) pair; the flagship's
+# first
+BANKS = tuple((9 * cr, 9 * S * S * c) for cr, c in INSTANCES)
 
 
 def csa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,16 +94,19 @@ def _stats(b: int, p: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
     return m_buf, torch.empty_like(m_buf)
 
 
-def _check_banks(name: str, q, k, v) -> tuple[int, int, int]:
-    """Raise unless the kernel takes these banks; returns (B, P, L)."""
+def _check_banks(name: str, q, k, v,
+                 banks=BANKS) -> tuple[int, int, int]:
+    """Raise unless the kernel takes these banks (widths in ``banks``);
+    returns (B, P, L)."""
     b, p, dk = q.shape
     l_, dv = k.shape[1], v.shape[-1]
-    if (dk, dv) != (DK, DV):
-        raise ValueError(f"{name} kernel is built for Dk={DK}, Dv={DV} "
-                         f"(Cr={CR}, C={C}, s={S}); got Dk={dk}, Dv={dv}")
-    _build.check_tensor(q, (b, p, DK), "q")
-    _build.check_tensor(k, (b, l_, DK), "k")
-    _build.check_tensor(v, (b, l_, DV), "v")
+    if (dk, dv) not in banks:
+        built = " or ".join(f"Dk={p}, Dv={q}" for p, q in banks)
+        raise ValueError(f"{name} kernel is built for {built} (s={S}); got "
+                         f"Dk={dk}, Dv={dv}")
+    _build.check_tensor(q, (b, p, dk), "q")
+    _build.check_tensor(k, (b, l_, dk), "k")
+    _build.check_tensor(v, (b, l_, dv), "v")
     return b, p, l_
 
 
@@ -107,9 +116,10 @@ def csa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return csa_attention_plain(q, k, v, scale)
     b, p, l_ = _check_banks("csa_attention", q, k, v)
-    out = torch.empty(b, p, DV, device=q.device, dtype=torch.float32)
-    _launch("csa_attention", (q, k, v, out), (b, p, l_), scale, q.device,
-            "csa_flash")
+    dk, dv = q.shape[-1], v.shape[-1]
+    out = torch.empty(b, p, dv, device=q.device, dtype=torch.float32)
+    _launch("csa_attention", (q, k, v, out), (b, p, l_, dk, dv), scale,
+            q.device, "csa_flash")
     return out
 
 
@@ -119,7 +129,8 @@ def csa_attention_overlap_add(q: torch.Tensor, k: torch.Tensor,
     """Row 8 on CUDA tensors, the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return csa_attention_overlap_add_plain(q, k, v_pm, scale, hp, wp, s)
-    b, p, l_ = _check_banks("csa_attention_overlap_add", q, k, v_pm)
+    b, p, l_ = _check_banks("csa_attention_overlap_add", q, k, v_pm,
+                            BANKS[:1])
     if s != S or p != hp * wp:
         raise ValueError(f"csa_attention_overlap_add needs s={S} and "
                          f"P = Hp·Wp; got s={s}, P={p}, Hp×Wp={hp}×{wp}")
@@ -137,4 +148,5 @@ def csa_fused(match: torch.Tensor, keys: torch.Tensor, embed: torch.Tensor,
     inputs), the plain version (the bank form) on CPU tensors."""
     if match.device.type == "cpu":
         return csa_fused_plain(match, keys, embed, scale, s)
+    no_wide_kernel("csa_fused", match.shape[-1], embed.shape[-1])
     return launch_stencil_sm90("csa_fused", match, keys, embed, scale, s)

@@ -11,6 +11,15 @@ device memory and reads it back. Contract: match
 (B, Hp, Wp, Cr), keys (B, L, 9Cr) L2-normalized 3×3 key patches of the
 s-downsampled match map (L = Hp/s · Wp/s), embed (B, Hp, Wp, C). Returns
 (B, s·Hp, s·Wp, C) f32, before the down conv and the /6.
+
+Widths. The kernels are compiled for the (Cr, C) pairs of ``INSTANCES``
+at s = 2: the flagship's (32, 64) and (96, 192), which config 001
+swinir's (90, 180) reaches zero-padded (``padded_widths``; the model pads,
+``models/csa.py``). K4 runs both: the flagship pair on csa_stencil_sm90's
+one-pass kernels, the wide pair on its two-kernel form with the scores in
+device memory. Row 5, and row 6 in csa_attention.py, take the flagship
+pair only (ROADMAP queue 2, item 1: only full-image ``predict`` reaches
+them at C = 180).
 """
 
 from __future__ import annotations
@@ -24,8 +33,11 @@ from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import _build
 from ciaosr_torch.ops.neighborhood import extract_patches_same
 
-# the shapes the kernels are compiled for
-CR, C, S = 32, 64, 2
+# the (Cr, C) pairs the kernels are compiled for, at s = S; the flagship's
+# first
+INSTANCES = ((32, 64), (96, 192))
+CR, C = INSTANCES[0]
+S = 2
 # f32 elements of one (query rows, L) attention block of a plain version
 PLAIN_BLOCK = 1 << 27
 
@@ -79,20 +91,56 @@ def csa_stencil_fused_plain(match: torch.Tensor, keys: torch.Tensor,
 csa_stencil_plain = csa_stencil_fused_plain
 
 
+def padded_widths(cr: int, c: int) -> tuple[int, int]:
+    """The smallest compiled (Cr, C) pair that holds cr and c; (cr, c)
+    itself past the widest."""
+    return min((p for p in INSTANCES if p[0] >= cr and p[1] >= c),
+               default=(cr, c))
+
+
+def pad_maps(match: torch.Tensor, keys: torch.Tensor,
+             embed: torch.Tensor) -> tuple:
+    """match (B, Hp, Wp, Cr), keys (B, L, 9Cr) and embed (B, Hp, Wp, C)
+    zero-padded to the compiled pair ``padded_widths`` gives (the keys per
+    tap), contiguous; the tensors themselves where no padding is needed.
+    Zero match channels change no score and no key norm; zero embed
+    channels give output channels that the caller crops."""
+    b, cr, c = match.shape[0], match.shape[-1], embed.shape[-1]
+    crp, cp = padded_widths(cr, c)
+    if crp != cr:
+        match = F.pad(match, (0, crp - cr)).contiguous()
+        keys = F.pad(keys.reshape(b, -1, 9, cr), (0, crp - cr)).reshape(
+            b, -1, 9 * crp)
+    if cp != c:
+        embed = F.pad(embed, (0, cp - c)).contiguous()
+    return match, keys, embed
+
+
+def no_wide_kernel(name: str, cr: int, c: int) -> None:
+    """Raise for the wide pair on a wrapper whose kernel is compiled for
+    the flagship's only."""
+    if (cr, c) == INSTANCES[1]:
+        raise ValueError(f"{name} kernel is compiled for (Cr, C) = "
+                         f"{INSTANCES[0]} only; (Cr, C) = {INSTANCES[1]} is "
+                         "ROADMAP queue 2, item 1 (only full-image predict "
+                         "reaches it at C = 180)")
+
+
 def check_inputs(name: str, match, keys, embed,
                  s: int) -> tuple[int, int, int]:
     """Raise unless the CSA middle's kernels take these inputs; returns
     (B, Hp, Wp)."""
     b, hp, wp, c = embed.shape
     cr = match.shape[-1]
-    if (s, c, cr) != (S, C, CR):
-        raise ValueError(f"{name} kernel is built for s={S}, C={C}, "
-                         f"Cr={CR}; got s={s}, C={c}, Cr={cr}")
+    if s != S or (cr, c) not in INSTANCES:
+        built = " or ".join(f"Cr={p}, C={q}" for p, q in INSTANCES)
+        raise ValueError(f"{name} kernel is built for s={S} and {built}; "
+                         f"got s={s}, C={c}, Cr={cr}")
     if hp % s or wp % s:
         raise ValueError(f"{name} needs Hp, Wp divisible by {s}")
-    _build.check_tensor(match, (b, hp, wp, CR), "match")
-    _build.check_tensor(keys, (b, (hp // s) * (wp // s), 9 * CR), "keys")
-    _build.check_tensor(embed, (b, hp, wp, C), "embed")
+    _build.check_tensor(match, (b, hp, wp, cr), "match")
+    _build.check_tensor(keys, (b, (hp // s) * (wp // s), 9 * cr), "keys")
+    _build.check_tensor(embed, (b, hp, wp, c), "embed")
     return b, hp, wp
 
 
@@ -101,18 +149,25 @@ def launch_stencil_sm90(name: str, match: torch.Tensor, keys: torch.Tensor,
                        s: int) -> torch.Tensor:
     """The stencil-form kernel of csrc/csa_stencil_sm90.cu on CUDA tensors,
     counted under ``name``: K4 and row 6 compute the same function from
-    the same inputs and both launch it."""
+    the same inputs and both launch it. At the wide pair the raw scores go
+    through device memory: B·P·ldS f32, ldS = L rounded up to 4."""
     b, hp, wp = check_inputs(name, match, keys, embed, s)
+    c = embed.shape[-1]
     dev = match.device
     m_buf = torch.empty(b, hp * wp, device=dev, dtype=torch.float32)
     l_buf = torch.empty_like(m_buf)
-    out = torch.empty(b, s * hp, s * wp, C, device=dev, dtype=torch.float32)
-    fn = _build.load("csa_stencil_sm90").csa_stencil_sm90
+    out = torch.empty(b, s * hp, s * wp, c, device=dev, dtype=torch.float32)
+    if c == C:
+        entry, scratch = "csa_stencil_sm90", (m_buf, l_buf)
+    else:
+        s_buf = torch.empty(b, hp * wp, -(-keys.shape[1] // 4) * 4,
+                            device=dev, dtype=torch.float32)
+        entry, scratch = "csa_stencil_sm90_wide", (s_buf, m_buf, l_buf)
+    fn = getattr(_build.load("csa_stencil_sm90"), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
-    err = fn(*(_build.ptr(t) for t in (match, keys, embed, m_buf, l_buf,
-                                       out)),
+    fn.argtypes = [ctypes.c_void_p] * (4 + len(scratch)) + [
+        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(*(_build.ptr(t) for t in (match, keys, embed, *scratch, out)),
              b, hp, wp, float(scale), _build.stream_ptr(dev))
     kernels.LAUNCHES[name] += 1
     _build.check(err, name)
@@ -135,6 +190,7 @@ def csa_stencil(match: torch.Tensor, keys: torch.Tensor,
     scratch), the plain version on CPU tensors."""
     if match.device.type == "cpu":
         return csa_stencil_plain(match, keys, embed, scale, s)
+    no_wide_kernel("csa_stencil", match.shape[-1], embed.shape[-1])
     b, hp, wp = check_inputs("csa_stencil", match, keys, embed, s)
     dev = match.device
     lda = -(-keys.shape[1] // 64) * 64

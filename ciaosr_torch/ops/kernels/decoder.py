@@ -18,13 +18,15 @@ first-layer bias, imnet_v's output layer and imnet_q's first layer split
 at 9C. The decoder reads u (the 3×3 unfold) nowhere from memory: K2 and K3
 rebuild it from the raw feature.
 
-Widths. The kernels are compiled for two (C, DC) pairs, ``INSTANCES``: the
-RDN flagship (64 feature, 64 CSA channels) and SwinIR-CiaoSR without CSA
-(DC = 0, csa None) at C = 192, its 180 channels zero-padded
-(``padded_channels``; ``pack_decoder(c_pad=...)`` puts zero rows and
-columns at the padded channels of every unfold block, so the padding
-changes no result). The wrappers read C and DC from their tensors and
-raise for any other pair.
+Widths. The kernels are compiled for three (C, DC) pairs, ``INSTANCES``:
+the RDN flagship (64 feature, 64 CSA channels), SwinIR-CiaoSR without CSA
+(DC = 0, csa None) at C = 192 and SwinIR-CiaoSR with CSA (config 001
+swinir) at (192, 192), its 180 feature and CSA channels zero-padded
+(``padded_widths``; ``pack_decoder(c_pad=..., dc_pad=...)`` puts zero rows
+and columns at the padded channels of every unfold block and of the CSA
+block, so the padding changes no result). The wrappers read C and DC from
+their tensors and raise for any other pair; the rational mode takes the
+first two only (ROADMAP queue 2, item 1).
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ from ciaosr_torch.ops.neighborhood import (shift_edge, tap_major_perm,
                                            unfold_nhwc)
 
 # the (C, DC) pairs the kernels are compiled for, and the MLP widths
-INSTANCES = ((64, 64), (192, 0))
+INSTANCES = ((64, 64), (192, 0), (192, 192))
+# the pairs K3's rational mode is compiled for
+RATIONAL_INSTANCES = INSTANCES[:2]
 HID, N_HIDDEN = 256, 4
 # at C = 192 the rational mode's kernel blends the value chunk by chunk
 # straight into imnet_q's first layer, which needs every shift's row in one
@@ -51,10 +55,13 @@ HID, N_HIDDEN = 256, 4
 WIDE_MAX_SHIFT = 4
 
 
-def padded_channels(c: int) -> int:
-    """The kernel width a c-channel feature is zero-padded to: the
-    smallest compiled C ≥ c (c itself past the widest)."""
-    return min((w for w, _ in INSTANCES if w >= c), default=c)
+def padded_widths(c: int, dc: int) -> tuple[int, int]:
+    """The kernel widths a c-channel feature and a dc-channel CSA map
+    (0: none) are zero-padded to: the smallest compiled pair that holds
+    both, with CSA as the map has it ((c, dc) itself past the widest)."""
+    return min((p for p in INSTANCES
+                if p[0] >= c and p[1] >= dc and (p[1] > 0) == (dc > 0)),
+               default=(c, dc))
 
 
 def widths(feature, csa) -> tuple[int, int]:
@@ -62,10 +69,15 @@ def widths(feature, csa) -> tuple[int, int]:
     return feature.shape[-1], 0 if csa is None else csa.shape[-1]
 
 
-def _check_instance(c: int, dc: int, name: str) -> None:
-    if (c, dc) not in INSTANCES:
+def _check_instance(c: int, dc: int, name: str,
+                    instances=INSTANCES) -> None:
+    if (c, dc) in INSTANCES and (c, dc) not in instances:
+        raise ValueError(f"{name}: no kernel at (C, DC) = ({c}, {dc}) yet "
+                         f"(compiled for {instances}); ROADMAP queue 2, "
+                         "item 1")
+    if (c, dc) not in instances:
         raise ValueError(f"{name}: the kernels are compiled for (C, DC) in "
-                         f"{INSTANCES}, got ({c}, {dc})")
+                         f"{instances}, got ({c}, {dc})")
 
 # the 3×3 edge-clamped shifts d = (dy, dx) in the order of the wt planes
 SHIFTS9 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -116,12 +128,14 @@ def phase_tables(s: int, h: int, w: int, shifts):
 
 def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
                  c: int, cell: Sequence[float], dtype: torch.dtype,
-                 c_pad: int | None = None) -> dict:
+                 c_pad: int | None = None,
+                 dc_pad: int | None = None) -> dict:
     """Decoder weights in kernel layout from the reference-layout MLPs.
 
     The MLPs' unfold blocks are channel-major (c·9 + tap); the packed ones
     are tap-major (tap·C + c) over ``c_pad`` ≥ c channels per tap, zero
-    at the padded ones. Matrices are (in, out) in ``dtype``;
+    at the padded ones, then the CSA block over ``dc_pad`` ≥ DC channels,
+    zero at its padded ones. Matrices are (in, out) in ``dtype``;
     biases, rel rows and the out layers feeding f32 dot products are f32
     (rounded through ``dtype`` where the kernel multiplies them as such).
     ``cell`` = (cell_y·H, cell_x·W), folded into the first-layer biases:
@@ -133,15 +147,17 @@ def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
     if not len(lk) == len(lv) == len(lq):
         raise ValueError("imnet_k/v/q need the same depth")
     dv = lv[0].in_features - 4
+    dc = dv - dk
+    dcp = dc if dc_pad is None else dc_pad
     vperm = torch.cat([perm, torch.arange(dk, dv)])
-    dkp, dvp = 9 * cp, 9 * cp + dv - dk
+    dkp, dvp = 9 * cp, 9 * cp + dcp
 
-    def spread(t, n, dim=0):   # the real unfold entries to their packed ones
-        if cp == c:
+    def spread(t, n, dim=0):   # the real entries to their packed ones
+        if cp == c and dcp == dc:
             return t
         at = torch.as_tensor([i * cp + ch for i in range(9)
-                              for ch in range(c)] + list(range(dkp, dvp)),
-                             device=t.device)
+                              for ch in range(c)]
+                             + list(range(dkp, dkp + dc)), device=t.device)
         out = t.new_zeros(*t.shape[:dim], n, *t.shape[dim + 1:])
         return out.index_copy_(dim, at[:t.shape[dim]], t)
 
@@ -544,6 +560,8 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     b, h, w, _ = feature.shape
     py, n_shift, oh = tabs["yk"].shape
     px, _, ow = tabs["xk"].shape
+    _check_instance(*widths(feature, csa), "grid_decode_rational",
+                    RATIONAL_INSTANCES)
     c, dc = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk, n_shift)
     i32, f = torch.int32, torch.float32
     _build.check_tensor(tabs["yq"], (py, oh), "yq", i32)

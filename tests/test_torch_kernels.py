@@ -1,6 +1,9 @@
 """The port's CUDA kernels (bf16) against their plain PyTorch versions
 (f32, the same input values): max|Δ|/max|ref| ≤ 1e-2, the bf16 class the
-JAX kernels hold. K1 is held at patch-ragged shapes at both widths; the
+JAX kernels hold. Config 001 swinir's instances (K4 and row 7 at (Cr, C)
+= (96, 192), K1 and K3 at (C, DC) = (192, 192): its 90 and 180 channels
+zero-padded) are held against the plain versions at the real widths,
+beside a flagship case of each. K1 is held at patch-ragged shapes at both widths; the
 decode kernel at integer scales and, in its rational mode, at ×2.5, ×7/3,
 ×1.5, 5/3 × 7/2 and an odd width; the CSA kernels (K4, rows 5-8) at
 ragged, non-square geometries, K4 and row 6 (one kernel) also on key
@@ -82,9 +85,12 @@ def _bf16(rng, *shape, scale=1.0):
                                         (2, 13, 29, 64, 64),
                                         (1, 60, 47, 64, 64),
                                         (2, 13, 29, 192, 0),
-                                        (1, 60, 47, 192, 0)],
+                                        (1, 60, 47, 192, 0),
+                                        (2, 13, 29, 192, 192),
+                                        (1, 60, 47, 192, 192)],
                          ids=["net_21x37", "13x29", "60x47", "13x29_C192",
-                              "60x47_C192"])
+                              "60x47_C192", "13x29_C192_DC192",
+                              "60x47_C192_DC192"])
 @torch.inference_mode()
 def test_f3p_build(case, b, h, w, c, dc):
     from ciaosr_torch.ops import kernels
@@ -697,3 +703,188 @@ def test_swin_training_step_runs_row_12(swin_case):
     got = {k: kernels.LAUNCHES[k] - n0[k] for k in ("swin_block", *BWD_KEYS)}
     assert got == dict.fromkeys(got, n_blocks)
     net.zero_grad(set_to_none=True)
+
+
+# ---- config 001 swinir: SwinIR-CiaoSR with CSA at 180 channels
+SWIN_CSA_CFG = dict(SWIN_CFG, non_local_attn=True)
+
+
+@pytest.fixture(scope="module")
+def swin_csa_case():
+    from ciaosr_torch.models.builder import build_generator
+    return build_generator(SWIN_CSA_CFG, device="cuda", seed=4)
+
+
+def _net_maps(net, hw, seed):
+    """The encoder's features (bf16) of a seeded 1-image batch and their
+    CSA maps (match, keys, embed) at the real widths."""
+    lq = np.random.default_rng(seed).random((1, *hw, 3), dtype=np.float32)
+    x = torch.as_tensor(lq, device="cuda") - 0.45
+    feat = net.gen_feature(x).contiguous()
+    return x, feat, net.cs_attn.stencil_inputs(feat, 2, torch.bfloat16)
+
+
+def _width_maps(case, swin_csa_case, width, hw, seed):
+    net = case[0] if width == "flagship" else swin_csa_case
+    return (net, *_net_maps(net, hw, seed))
+
+
+# K4 at both compiled pairs: 16 × 16 (L = 64), 22 × 38 (P, L off every
+# tile, L odd) and 24 × 48 (Wq = 12, off the 8-key tiles)
+@pytest.mark.parametrize("width,hw", [
+    ("flagship", (16, 16)), ("wide", (16, 16)), ("wide", (21, 37)),
+    ("wide", (24, 48))],
+    ids=["flagship_16x16", "C180_16x16", "C180_21x37", "C180_24x48"])
+@torch.inference_mode()
+def test_csa_stencil_fused_widths(case, swin_csa_case, width, hw):
+    """K4 on the padded maps against its plain version at the real widths;
+    the padded output channels are zero; the same bits call after call."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    _, _, _, maps = _width_maps(case, swin_csa_case, width, hw, 5)
+    c = maps[2].shape[-1]
+    padded = st.pad_maps(*maps)
+    n0 = kernels.LAUNCHES["csa_stencil_fused"]
+    got = st.csa_stencil_fused(*padded, 10.0, 2)
+    assert kernels.LAUNCHES["csa_stencil_fused"] == n0 + 1
+    assert torch.equal(got, st.csa_stencil_fused(*padded, 10.0, 2))
+    ref = st.csa_stencil_fused_plain(*(t.float() for t in maps), 10.0, 2)
+    assert got.shape[-1] == padded[2].shape[-1]
+    assert not got[..., c:].any()
+    assert _rel(got[..., :c], ref) <= REL_TOL
+
+
+# row 7 at both pairs on the banks of the maps (72 × 72 is the Set5
+# bird's tile; 21 × 37 pads to 22 × 38), and at the wide pair on seeded
+# banks off its tiles and with rising scores
+@pytest.mark.parametrize("width,hw", [
+    ("flagship", (21, 37)), ("wide", (21, 37)), ("wide", (72, 72))],
+    ids=["flagship_21x37", "C180_21x37", "C180_72x72"])
+@torch.inference_mode()
+def test_csa_attention_widths(case, swin_csa_case, width, hw):
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.neighborhood import extract_patches_same
+    _, _, _, maps = _width_maps(case, swin_csa_case, width, hw, 6)
+    match, keys, embed = st.pad_maps(*maps)
+    c, cp = maps[2].shape[-1], embed.shape[-1]
+    q = extract_patches_same(match, 3, 1).contiguous()
+    v = extract_patches_same(embed, 6, 2).contiguous()
+    n0 = kernels.LAUNCHES["csa_attention"]
+    got = ca.csa_attention(q, keys, v, 10.0)
+    assert kernels.LAUNCHES["csa_attention"] == n0 + 1
+    assert got.shape == (1, q.shape[1], 36 * cp)
+    ref = ca.csa_attention_plain(
+        extract_patches_same(maps[0].float(), 3, 1), maps[1].float(),
+        extract_patches_same(maps[2].float(), 6, 2), 10.0)
+    got = got.reshape(1, -1, 36, cp)
+    assert not got[..., c:].any()
+    assert _rel(got[..., :c].reshape(ref.shape), ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("b,p,l_,rising", [
+    (1, 40, 30, False), (2, 100, 200, False), (2, 130, 1000, True)],
+    ids=["P40_L30", "B2_P100_L200", "rising_L1000"])
+@torch.inference_mode()
+def test_csa_attention_wide_edges(b, p, l_, rising):
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    rng = np.random.default_rng(p + l_ + 1)
+    q = (_bf16(rng, b, p, 864, scale=0.06).float() + 0.03).to(torch.bfloat16)
+    k = _bf16(rng, b, l_, 864, scale=0.06)
+    if rising:
+        ramp = torch.linspace(0, 0.03, l_, device="cuda")[None, :, None]
+        k = (k.float() + ramp).to(torch.bfloat16)
+    v = _bf16(rng, b, l_, 6912)
+    got = ca.csa_attention(q, k, v, 10.0)
+    ref = ca.csa_attention_plain(q.float(), k.float(), v.float(), 10.0)
+    assert got.shape == ref.shape == (b, p, 6912)
+    assert _rel(got, ref) <= REL_TOL
+    assert torch.equal(got, ca.csa_attention(q, k, v, 10.0))
+
+
+# K1 and K3 at both pairs on the model's own maps (21 × 37: K3 at the odd
+# width, row 9; 16 × 32: W % 8 = 0), each against the plain chain at the
+# real widths (unpadded packing); ×4, 4 shifts
+@pytest.mark.parametrize("width,hw", [
+    ("flagship", (16, 32)), ("wide", (21, 37)), ("wide", (16, 32))],
+    ids=["flagship_16x32", "C180_21x37", "C180_16x32"])
+@torch.inference_mode()
+def test_decode_kernels_widths(case, swin_csa_case, width, hw):
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net, _, feat, _ = _width_maps(case, swin_csa_case, width, hw, 7)
+    c = feat.shape[-1]
+    feat_p, csa_p, gk, gv, wt, ck, pk = net._kernel_maps(feat, (0.5, 0.5))
+    want = (64, 64) if width == "flagship" else (192, 192)
+    assert dk.widths(feat_p, csa_p) == want
+    feat_r, csa_r = feat_p[..., :c].float(), csa_p[..., :c].float()
+    # the kernels' bf16 weights, packed at the real widths
+    pk_r = _f32(dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, c,
+                                (0.5, 0.5), torch.bfloat16))
+    n0 = kernels.LAUNCHES["f3p_build"]
+    got_g = dk.f3p_build(feat_p, csa_p, pk["wk0"], pk["wvu"], pk["wvc"])
+    assert kernels.LAUNCHES["f3p_build"] == n0 + 1
+    assert _rel(got_g, dk.f3p_build_plain(
+        feat_r, csa_r, pk_r["wk0"], pk_r["wvu"], pk_r["wvc"])) <= REL_TOL
+    tabs = dk.decoder_tables(4, *hw, net.local_size, feat.device)
+    n0 = kernels.LAUNCHES["grid_decode"]
+    got = dk.grid_decode(feat_p, csa_p, gk, gv, wt, ck, pk, tabs,
+                         net.softmax_scale)
+    assert kernels.LAUNCHES["grid_decode"] == n0 + 1
+    assert torch.equal(got, dk.grid_decode(feat_p, csa_p, gk, gv, wt, ck,
+                                           pk, tabs, net.softmax_scale))
+    ref = dk.grid_decode_plain(feat_r, csa_r, gk.float(), gv.float(),
+                               wt.float(), ck, pk_r, tabs,
+                               net.softmax_scale)
+    assert got.shape == ref.shape == (1, 16, *hw, 3)
+    assert _rel(got, ref) <= REL_TOL
+
+
+@torch.inference_mode()
+def test_wide_rational_and_csa_forms_raise(swin_csa_case):
+    """At the wide pairs K3's rational mode and rows 5 and 6 raise with
+    their ROADMAP item, before any launch."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = swin_csa_case
+    _, feat, maps = _net_maps(net, (16, 32), 8)
+    padded = st.pad_maps(*maps)
+    n0 = dict(kernels.LAUNCHES)
+    for fn in (st.csa_stencil, ca.csa_fused):
+        with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
+            fn(*padded, 10.0, 2)
+    mp = net._kernel_maps(feat, rational_cell(16, 32, 40, 80))
+    tabs = dk.rational_tables(16, 32, 5, 2, 5, 2, 2, feat.device)
+    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
+        dk.grid_decode_rational(*mp, tabs, 1.0)
+    assert {k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]
+            } == {"csa_stencil_fused": 1, "f3p_build": 1, "wt_hoist": 1}
+
+
+@pytest.mark.parametrize("hw,middle", [((16, 32), "csa_stencil_fused"),
+                                       ((21, 37), "csa_attention")],
+                         ids=["stencil_fused", "streaming"])
+@torch.inference_mode()
+def test_swin_csa_route_matches_plain_route(swin_csa_case, hw, middle):
+    """Config 001 swinir's kernel route (Swin block kernels, the CSA
+    kernel at (96, 192), K1-K3 at (192, 192), bf16) against the plain f32
+    route of the same weights, ×4; every kernel of the route launched."""
+    from ciaosr_torch.ops import kernels
+    net = swin_csa_case
+    x = torch.as_tensor(np.random.default_rng(9).random(
+        (1, *hw, 3), dtype=np.float32), device="cuda") - 0.45
+    kernels.reset_launches()
+    got = net.decode_grid(x, 4)
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == {
+        "swin_block", middle, "f3p_build", "wt_hoist", "grid_decode"}
+    net.dtype, net.use_kernels = torch.float32, False
+    try:
+        ref = net.decode_grid(x, 4)
+    finally:
+        net.dtype, net.use_kernels = torch.bfloat16, True
+    assert got.shape == ref.shape == (1, 4 * hw[0], 4 * hw[1], 3)
+    assert _rel(got, ref) <= REL_TOL
