@@ -41,14 +41,24 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      C = 180, zero-padded to the kernels' 96 and 192; bf16, seeded random
      weights, full width and depth): K4 and row 7 at (Cr, C) = (96, 192),
      K1 and K3 at (C, DC) = (192, 192) (K3 also at the 70² request's odd
-     width) held against their plain versions at the real widths;
-     ``forward_test`` of its own test_cfg (×4, tile 192, overlap 32) on
-     the five Set5 ×4 LR shapes and on a 256² image (4 tiles), each with
-     its exact launch counts; its kernel route against its plain f32 route
-     (a 192² tile's encoder, CSA and output, the 72² request); f32 models
-     (no dtype in their config, as every shipped config) through their
-     kernels against their plain f32 route: a flagship ×4 192² tile, the
-     SwinIR 70² request and the 001 swinir 72² request; the stage
+     width; its rational mode, row 10, at ×2.5 on the 192² tile and on
+     72²), and rows 6 and 5 on the 192×512 and 48×1024 full images (the
+     wide pair over row blocks of at most 2 GiB of scores; row 6 also at 1
+     GiB and in one block, the same bits) held against their plain
+     versions at the real widths; ``forward_test`` of its own test_cfg
+     (×4, tile 192, overlap 32) on the five Set5 ×4 LR shapes and on a
+     256² image (4 tiles), each with its exact launch counts; then its
+     other protocols, each request with the launches its tiling, CSA
+     route and block plan give, its peak memory and its output against
+     the plain f32 route: ×2.5 through the same test_cfg (256², 72²), ×6
+     with the config's test_cfg for val_scale > 4 (no tile: full-image
+     ``predict``, 85² and 170×128), full-image ×4 ``predict`` of 192×512
+     (row 6) and 48×1024 (row 5); its kernel route against its plain f32
+     route (a 192² tile's encoder, CSA and output, the 72² request); f32
+     models (no dtype in their config, as every shipped config) through
+     their kernels against their plain f32 route: a flagship ×4 192² tile,
+     the SwinIR 70² request and the 001 swinir 72² request at ×4 and
+     ×2.5; the stage
      breakdown of one 256 tile and the warm time of the 384² request; then
      the ``time_kernels`` line: K1 and K3 at all three widths, K3 at the
      odd widths, row 7 and K4 at both, row 6, row 11 (shifted and
@@ -81,6 +91,7 @@ ciaosr_torch next to it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -191,6 +202,24 @@ SWIN_001_LAUNCHES = {
                  "grid_decode": 4, "swin_block": 36 * 4},
     "x4": {"csa_stencil_fused": 4, "f3p_build": 4, "wt_hoist": 4,
            "grid_decode": 4, "swin_block": 36 * 4}}
+# its other protocols, each request's launches computed from its tiling,
+# csa_route and csa_stencil.wide_blocks (swin001_expected): the arbitrary
+# scale x2.5 through the same test_cfg (the SWIN_001_IMG² image's tiles of
+# 192: K4, K1, K2, row 10; the 72² Set5 tile: row 7, row 10); the
+# config's protocol for val_scale > 4, whose test_cfg has no tile (a
+# full-image predict): x6 on the Set5 x6 LR shape 85² (row 7, K3 at 36
+# phases and an odd width) and the Urban100 x6 shape 170 x 128 (K4); and
+# full-image x4 predicts of crops of the seeded 192 x 1024 picture on the
+# wide pair over row blocks of at most 2 GiB of scores: 192 x 512 (row 6,
+# 5 blocks) and 48 x 1024 (row 5, 2 blocks)
+SWIN_001_X25 = ((SWIN_001_IMG, SWIN_001_IMG), SET5_X4_EVEN[1])
+SWIN_001_X6_TEST_CFG = dict(metrics=[], crop_border=6, scale=6)
+SWIN_001_X6 = ((85, 85), (170, 128))
+SWIN_001_FULL = (((192, 512), "csa_fused"), ((48, 1024), "csa_stencil"))
+# the CSA middle's kernel per csa_route mode
+CSA_MODE_KERNEL = {"stencil_fused": "csa_stencil_fused",
+                   "stencil": "csa_stencil", "resident": "csa_fused",
+                   "windowed": "csa_fused", "streaming": "csa_attention"}
 # the SwinIR requests: a SWIN_IMG² image in SWIN_TILE² tiles, one
 # SWIN_ODD image (one tile; the encoder pads it to a window multiple), and
 # the route checks' SWIN_SMALL and SWIN_ODD images
@@ -645,12 +674,14 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     shifted block's backward), and of the two tiles that run K1 and K3 (a
     flagship 192 tile at x4, a SwinIR 256 tile at x4), and of config 001
     swinir's instances (K4 and K1 on its 192² tile, row 7 at 72², K3 on
-    both), at the main path's shapes: one line, printed the same way by
+    both and at 70², row 10 at x2.5 on the 192² tile and 72², rows 6 and 5
+    on the 192 x 512 and 48 x 1024 full images), at the main path's
+    shapes: one line, printed the same way by
     ``--kernel-times`` in another checkout, so that a parent tree's times
     and these are read in one call. ``sw1_ms`` (the normal run) gives the
     001 swinir instances' times that check_swin001_kernels measured in
     this run; without it (``--kernel-times``) they are timed here, and
-    K4's wide pair is split by launch (torch.profiler)."""
+    the wide pair is split by launch (torch.profiler)."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
@@ -759,7 +790,7 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     if sw1_ms is not None:
         times.update(sw1_ms)
     else:
-        time_swin001_kernels(times, sw1, lq_s)
+        time_swin001_kernels(times, sw1, lq_s, big)
     times["001 swinir x4 192 tile (grid_predict)"] = time_ms(
         lambda: sw1.grid_predict(torch.as_tensor(
             lq_s[:SWIN_001_TILE, :SWIN_001_TILE], device="cuda")[None], 4),
@@ -768,18 +799,21 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
         f"{k} {v:.4f} ms" for k, v in times.items()))
 
 
-def time_swin001_kernels(times: dict, sw1, lq_s: np.ndarray) -> None:
+def time_swin001_kernels(times: dict, sw1, lq_s: np.ndarray,
+                         big: np.ndarray) -> None:
     """Config 001 swinir's instances into ``times``, on the maps
-    check_swin001_kernels holds, and K4's wide pair by launch."""
+    check_swin001_kernels holds, and the wide pair by launch (K4 on the
+    192² tile, row 6 on the 192 × 512 full image's blocks)."""
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
     from ciaosr_torch.ops.kernels import decoder as dk
     from ciaosr_torch.ops.neighborhood import extract_patches_same
 
-    inputs = swin001_inputs(sw1, lq_s)
+    inputs = swin001_inputs(sw1, lq_s, big)
     cs1 = sw1.generator.cs_attn.softmax_scale
+    t192_hw = (SWIN_001_TILE, SWIN_001_TILE)
     with torch.inference_mode():
-        t192 = inputs[(SWIN_001_TILE, SWIN_001_TILE)]
+        t192 = inputs[t192_hw]
         k4_maps = st.pad_maps(*t192["csa"])
         times["csa_stencil_fused@C180"] = time_ms(
             lambda: st.csa_stencil_fused(*k4_maps, cs1, 2), reps=3, warm=1)
@@ -799,8 +833,27 @@ def time_swin001_kernels(times: dict, sw1, lq_s: np.ndarray) -> None:
                                      maps[0].device)
             times[name] = time_ms(lambda: dk.grid_decode(
                 *maps, tabs, sw1.generator.softmax_scale), reps=3, warm=1)
+        for name, hw in (("grid_decode_rational@C180+csa", t192_hw),
+                         ("grid_decode_rational@C180+csa@{}x{}".format(
+                             *SWIN_001_X25[1]), SWIN_001_X25[1])):
+            maps = inputs[hw]["maps25"]
+            tabs = dk.rational_tables(*hw, 5, 2, 5, 2,
+                                      sw1.generator.local_size,
+                                      maps[0].device)
+            times[name] = time_ms(lambda: dk.grid_decode_rational(
+                *maps, tabs, sw1.generator.softmax_scale), reps=3, warm=1)
+        full_maps = {hw: st.pad_maps(*inputs[hw]["csa"])
+                     for hw, _ in SWIN_001_FULL}
+        for (hw, kern), fn in zip(SWIN_001_FULL, (ca.csa_fused,
+                                                  st.csa_stencil)):
+            times["{}@C180@{}x{}".format(kern, *hw)] = time_ms(
+                lambda: fn(*full_maps[hw], cs1, 2), reps=3, warm=1)
     log_launch_split("csa_stencil_fused@C180",
                      lambda: st.csa_stencil_fused(*k4_maps, cs1, 2),
+                     ("scores_wide_kernel", "pv_wide_kernel"))
+    hw = SWIN_001_FULL[0][0]
+    log_launch_split("csa_fused@C180@{}x{}".format(*hw),
+                     lambda: ca.csa_fused(*full_maps[hw], cs1, 2),
                      ("scores_wide_kernel", "pv_wide_kernel"))
 
 
@@ -988,7 +1041,8 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
     """Models with no compute dtype in their config (f32, as every shipped
     config) on the kernel route, which hands the kernels bf16: one flagship
     ×4 TILE² tile (grid_predict), the SwinIR SWIN_ODD request and config
-    001 swinir's 72² request (forward_test ×4, one tile each), each with
+    001 swinir's 72² request at ×4 and ×2.5 (forward_test, one tile each),
+    each with
     its kernels launched and no other, against the same weights on the
     plain f32 route, max|Δ|/max|ref| ≤ REL_TOL."""
     from ciaosr_torch.models.restorers import CiaoSRRestorer
@@ -1033,6 +1087,20 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
                              f"Swin block launches, want {n_blocks}")
     checks["001 swinir x4 72x72"] = (
         torch.as_tensor(got), torch.as_tensor(s001[1].forward_test(s72)))
+    got, launches, _ = drive(
+        "f32 001 swinir x2.5 72x72 (kernel route)",
+        lambda: s001[0].forward_test(s72, scale=2.5),
+        ["f3p_build", "wt_hoist", "grid_decode_rational", "swin_block",
+         "csa_attention"],
+        [k for k in others if k not in ("csa_attention",
+                                        "grid_decode_rational")]
+        + ["grid_decode"])
+    if launches["swin_block"] != n_blocks:
+        raise AssertionError(f"f32 001 swinir x2.5: {launches['swin_block']}"
+                             f" Swin block launches, want {n_blocks}")
+    checks["001 swinir x2.5 72x72"] = (
+        torch.as_tensor(got),
+        torch.as_tensor(s001[1].forward_test(s72, scale=2.5)))
     for name, (got, ref) in checks.items():
         a, r = errors(got, ref)
         log(f"e2e f32 model, kernel route vs plain f32 route, {name}: "
@@ -1060,22 +1128,32 @@ def log_launch_split(name: str, fn, kernel_names) -> None:
         for k, hits in split.items()))
 
 
-def swin001_inputs(sw, lq_s: np.ndarray) -> dict:
-    """The 001 swinir kernels' inputs from the seeded image, per LR shape
-    (the 192² tile, the 72² and the 70² requests' tiles): the encoder's
-    features, the CSA maps at the real widths (bf16) and the decode
-    kernels' maps (``_kernel_maps``: zero-padded to (C, DC) = (192, 192))."""
+def swin001_inputs(sw, lq_s: np.ndarray, big: np.ndarray) -> dict:
+    """The 001 swinir kernels' inputs per LR shape: from the seeded image
+    the 192² tile and the 72² and 70² requests' tiles (the encoder's
+    features, the CSA maps at the real widths (bf16), the decode kernels'
+    maps at ×4 (``_kernel_maps``: zero-padded to (C, DC) = (192, 192)) and,
+    for the 192² tile and 72², at ×2.5 (``maps25``)); from the seeded
+    picture the SWIN_001_FULL full images (features and CSA maps)."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+
     net, out = sw.generator, {}
+    x25 = [hw for hw in SWIN_001_X25 if hw != (SWIN_001_IMG,) * 2]
     with torch.inference_mode():
-        for hw in ((SWIN_001_TILE, SWIN_001_TILE), SET5_X4_EVEN[1],
-                   SET5_X4_ODD[0]):
-            x = sw.normalize(torch.as_tensor(lq_s[:hw[0], :hw[1]],
+        for hw, img in [(hw, lq_s) for hw in (
+                (SWIN_001_TILE, SWIN_001_TILE), SET5_X4_EVEN[1],
+                SET5_X4_ODD[0])] + [(hw, big) for hw, _ in SWIN_001_FULL]:
+            x = sw.normalize(torch.as_tensor(img[:hw[0], :hw[1]],
                                              device="cuda")[None])
             feat = net.gen_feature(x).contiguous()
             out[hw] = dict(feat=feat,
                            csa=net.cs_attn.stencil_inputs(feat, 2,
-                                                          torch.bfloat16),
-                           maps=net._kernel_maps(feat, (0.5, 0.5)))
+                                                          torch.bfloat16))
+            if img is lq_s:
+                out[hw]["maps"] = net._kernel_maps(feat, (0.5, 0.5))
+            if hw == (SWIN_001_TILE,) * 2 or hw in x25:
+                out[hw]["maps25"] = net._kernel_maps(feat, rational_cell(
+                    *hw, hw[0] * 5 // 2, hw[1] * 5 // 2))
     return out
 
 
@@ -1083,9 +1161,14 @@ def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
     """Config 001 swinir's kernel instances on its path's tensors: K4 on
     the 192² tile's CSA maps and row 7 on the 72² request's banks (at
     (Cr, C) = (96, 192)), K1 and K3 at (C, DC) = (192, 192) on the 192²
-    tile, K3 once more at the 70² request's odd width. Each kernel (bf16,
-    on the zero-padded maps) against its plain version (f32, same values)
-    at the real widths; bounds count the function's work there."""
+    tile, K3 once more at the 70² request's odd width, row 10 at ×2.5 on
+    the 192² tile and on 72², row 6 on the 192 × 512 and row 5 on the
+    48 × 1024 full image's CSA maps (the wide pair over row blocks; row 6
+    also over two other block plans, which must give the same bits). Each
+    kernel (bf16, on the zero-padded maps) against its plain version (f32,
+    same values) at the real widths; bounds count the function's work
+    there."""
+    from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
     from ciaosr_torch.ops.kernels import decoder as dk
@@ -1187,7 +1270,99 @@ def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
     decode_row("grid_decode@C180+csa", (SWIN_001_TILE, SWIN_001_TILE))
     odd = SET5_X4_ODD[0]
     decode_row("grid_decode@C180+csa@{}x{}".format(*odd), odd)
+
+    # row 10 at (192, 192): x2.5 on the 192² tile and on 72² (25 phases of
+    # (H/2) x (W/2)), against its plain version at the real widths
+    def rational_row(name, hw):
+        feat_p, csa_p, gk, gv, wt, ck, pk = inputs[hw]["maps25"]
+        fb, fh, fw, _ = feat_p.shape
+        m = fb * fh * fw
+        tabs = dk.rational_tables(fh, fw, 5, 2, 5, 2, net.local_size,
+                                  feat_p.device)
+        n_phase, n_shift = 25, tabs["yk"].shape[1]
+        m_out = fb * (fh // 2) * (fw // 2)
+        pk_25 = f32(dk.pack_decoder(
+            net.imnet_k, net.imnet_v, net.imnet_q, c,
+            rational_cell(fh, fw, fh * 5 // 2, fw * 5 // 2), dt))
+        dv = 10 * c
+        mlp = n_shift * (6 * hid * hid + hid * dv + hid) + dv * hid \
+            + 3 * hid * hid + hid * 3
+        weights = (9 * hid * hid + 2 * hid * dv) * 2
+        tab_bytes = sum(t.numel() * t.element_size() for t in tabs.values())
+        rows.append(kernel_row(
+            name, "ciaosr_torch/csrc/grid_decode.cu",
+            at + "decoder_kernel.py:1224 (grid_decode_fused_rational)",
+            lambda: dk.grid_decode_rational(feat_p, csa_p, gk, gv, wt, ck,
+                                            pk, tabs, ss),
+            lambda: dk.grid_decode_rational_plain(
+                feat_p[..., :c].float(), csa_p[..., :c].float(), gk.float(),
+                gv.float(), wt.float(), ck, pk_25, tabs, ss),
+            2 * n_phase * m_out * mlp,
+            m * (2 * c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
+            + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3))
+
+    rational_row("grid_decode_rational@C180+csa", (SWIN_001_TILE,) * 2)
+    rational_row("grid_decode_rational@C180+csa@{}x{}".format(
+        *SWIN_001_X25[1]), SWIN_001_X25[1])
+
+    # rows 5 and 6 at (96, 192): the wide pair over row blocks (at most 2
+    # GiB of scores each) on the full images' CSA maps; its bound is K4's
+    for (hw, kern), wrap in zip(SWIN_001_FULL, (ca.csa_fused,
+                                                st.csa_stencil)):
+        match, keys, embed = inputs[hw]["csa"]
+        p_, l_ = match.shape[1] * match.shape[2], keys.shape[1]
+        padded = st.pad_maps(match, keys, embed)
+        maps32 = f32((match, keys, embed))
+        replaces = {"csa_fused": "csa_attention.py:447 (csa_fused)",
+                    "csa_stencil": "csa_attention.py:687 (csa_stencil)"}
+        rows.append(kernel_row(
+            "{}@C180@{}x{}".format(kern, *hw),
+            "ciaosr_torch/csrc/csa_stencil_sm90.cu", at + replaces[kern],
+            lambda: wrap(*padded, cs, 2),
+            lambda: (ca.csa_fused_plain if kern == "csa_fused"
+                     else st.csa_stencil_plain)(*maps32, cs, 2),
+            2 * b * p_ * l_ * (9 * cr + 4 * c),
+            b * (p_ * cr * 2 + l_ * 9 * cr * 2 + p_ * c * 2
+                 + 4 * p_ * c * 4),
+            None, reps=3, crop=lambda y: y[..., :c]))
+        if kern == "csa_fused":
+            wide_blocked_bits(kern, padded, cs, rows[-1])
     return rows
+
+
+def wide_blocked_bits(name: str, padded, cs: float, row: dict) -> None:
+    """The wide pair at one geometry over three block plans: the default
+    (at most 2 GiB of scores a block), blocks of at most 1 GiB and one
+    block over the whole map. All three must give the same bits; the row
+    gets the forced plans' launches and times (``ms_1GiB``,
+    ``ms_one_block``: the blocked form's cost) and the peak memory of one
+    call of each plan."""
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+
+    hp, wp = padded[0].shape[1:3]
+    plans = {"2GiB": st.SCORES_BUDGET, "1GiB": 1 << 30, "one_block": 1 << 40}
+    outs, peaks = {}, {}
+    with torch.inference_mode():
+        for key, budget in plans.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            outs[key] = st.launch_stencil_sm90(name, *padded, cs, 2,
+                                               budget=budget)
+            torch.cuda.synchronize()
+            peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        same = {k: torch.equal(o, outs["2GiB"]) for k, o in outs.items()}
+        del outs
+        for key in ("1GiB", "one_block"):
+            row[f"ms_{key}"] = time_ms(lambda: st.launch_stencil_sm90(
+                name, *padded, cs, 2, budget=plans[key]), reps=3, warm=1)
+    blocks = {k: len(st.wide_blocks(1, hp, wp, v)) for k, v in plans.items()}
+    row["blocks"] = blocks
+    log(f"kernel {row['name']} by block plan: blocks {blocks}, peak memory "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items())
+        + f"; ms 2GiB {row['ms']:.3f}, 1GiB {row['ms_1GiB']:.3f}, one block "
+        f"{row['ms_one_block']:.3f}; same bits as 2GiB {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{row['name']}: block plans disagree: {same}")
 
 
 def swin001_route_errors(sw, lq_s: np.ndarray, seed: int = 0) -> dict:
@@ -1232,6 +1407,38 @@ def swin001_route_checks(sw, lq_s: np.ndarray) -> None:
     bad = {k: r for k, (_, r) in errs.items() if not r <= REL_TOL}
     if bad:
         raise AssertionError(f"001 swinir kernel route disagrees: {bad}")
+
+
+def swin001_expected(images, scale, tiled: bool, n_blocks: int) -> dict:
+    """Config 001 swinir's exact launches for requests on LR images of the
+    shapes ``images`` at ``scale``: per LR tile (the test_cfg's tiling,
+    or with ``tiled`` False the whole image) ``n_blocks`` Swin block
+    launches; the CSA middle csa_route picks at the tile's geometry
+    (reflect-padded to even), row 7 once or the wide pair once a block of
+    ``wide_blocks``; K1 and K2 once; K3's integer or rational mode once."""
+    from ciaosr_torch.models.csa import csa_route
+    from ciaosr_torch.models.restorers import as_scale_fraction, tile_layout
+    from ciaosr_torch.ops.kernels.csa_stencil import wide_blocks
+
+    f = as_scale_fraction(scale)
+    c = SWIN_001["encoder"]["embed_dim"]
+    decode = "grid_decode" if f.denominator == 1 else "grid_decode_rational"
+    want: dict = {}
+    for h, w in images:
+        tiles = [(h, w)]
+        if tiled:
+            t, hs, ws = tile_layout(h, w, f, SWIN_001_TILE,
+                                    SWIN_001_TEST_CFG["tile_overlap"])
+            tiles = [(t, t)] * (len(hs) * len(ws))
+        for th, tw in tiles:
+            hp, wp = th + th % 2, tw + tw % 2
+            csa = CSA_MODE_KERNEL[csa_route(hp, wp, 2, c, c // 2, 2)]
+            n_csa = 1 if csa == "csa_attention" else len(
+                wide_blocks(1, hp, wp))
+            for k, n in ((csa, n_csa), ("f3p_build", 1), ("wt_hoist", 1),
+                         (decode, 1), ("swin_block", n_blocks)):
+                want[k] = want.get(k, 0) + n
+    return want
 
 
 def swin_breakdown(swin, lq_tile: torch.Tensor) -> None:
@@ -1873,7 +2080,7 @@ def main() -> int:
     # through its own test_cfg (forward_test x4, tile 192, overlap 32)
     sw1 = CiaoSRRestorer(SWIN_001, rgb_mean=RGB_MEAN,
                          test_cfg=SWIN_001_TEST_CFG, device="cuda", seed=0)
-    sw1_rows = check_swin001_kernels(sw1, swin001_inputs(sw1, lq_s))
+    sw1_rows = check_swin001_kernels(sw1, swin001_inputs(sw1, lq_s, big))
     mark("the 001 swinir kernel rows")
 
     def swin001_request(name, imgs, want, odd=False):
@@ -1914,16 +2121,95 @@ def main() -> int:
         odd=True)
     s001 = lq_s[:SWIN_001_IMG, :SWIN_001_IMG]
     l_x4 = swin001_request("001 swinir x4", [s001], SWIN_001_LAUNCHES["x4"])
+    # the hand-counted table above, as the route and block plan count it
+    n1 = len(swin_blocks(sw1.generator))
+    for key, imgs in (("set5", SET5_X4_EVEN), ("set5_odd", SET5_X4_ODD),
+                      ("x4", [(SWIN_001_IMG,) * 2])):
+        if swin001_expected(imgs, 4, True, n1) != SWIN_001_LAUNCHES[key]:
+            raise AssertionError(f"swin001_expected disagrees with the "
+                                 f"launch table at {key}")
+
+    # its other protocols: x2.5 tiled, x6 full image (the test_cfg for
+    # val_scale > 4 has no tile), x4 full images on the blocked wide pair;
+    # each request with its launches from swin001_expected and its output
+    # against the plain f32 route
+    ref1 = CiaoSRRestorer(dict(SWIN_001, dtype=None, use_kernels=False),
+                          rgb_mean=RGB_MEAN, test_cfg=SWIN_001_TEST_CFG,
+                          device="cuda", seed=0)
+    sw6, ref6 = copy.copy(sw1), copy.copy(ref1)
+    sw6.test_cfg = ref6.test_cfg = SWIN_001_X6_TEST_CFG
+
+    def swin001_protocol(name, img, scale, tiled, run):
+        """``run(restorer, img)`` on the kernel route, with exactly the
+        launches swin001_expected counts and nothing else, then on the
+        plain f32 route: max|d|/max|ref| <= REL_TOL; logs the request's
+        peak device memory. Returns the launches."""
+        want = swin001_expected([img.shape[:2]], scale, tiled, n1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, _ = drive(
+            f"{name} (want {want})", lambda: run(sw1 if tiled else sw6, img),
+            list(want), [k for k in kernels.LAUNCHES if k not in want])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"path {name}: launches {got}, want {want}")
+        check_image(name, out, hr(img.shape[:2], scale))
+        a, r = errors(torch.as_tensor(out), torch.as_tensor(
+            run(ref1 if tiled else ref6, img)))
+        log(f"e2e 001 swinir {name}: peak device memory {peak:.2f} GiB; "
+            f"kernel route (bf16) vs plain route (f32) max|d|={a:.3e} "
+            f"max|d|/max|ref|={r:.3e}")
+        if not r <= REL_TOL:
+            raise AssertionError(f"001 swinir {name}: kernel route "
+                                 f"disagrees: {r:.3e}")
+        return launches
+
+    l_p = {}
+    for hw in SWIN_001_X25:
+        l_p["x2.5", hw] = swin001_protocol(
+            "x2.5 {}x{} (forward_test, tile {})".format(*hw, SWIN_001_TILE),
+            lq_s[:hw[0], :hw[1]], 2.5, True,
+            lambda r, im: r.forward_test(im, scale=2.5))
+    for hw in SWIN_001_X6:
+        l_p["x6", hw] = swin001_protocol(
+            "x6 {}x{} (forward_test, no tile)".format(*hw),
+            lq_s[:hw[0], :hw[1]], 6, False, lambda r, im: r.forward_test(im))
+    for hw, kern in SWIN_001_FULL:
+        l_p["full", hw] = swin001_protocol(
+            "x4 {}x{} (full-image predict, CSA {})".format(*hw, kern),
+            full(hw), 4, False,
+            lambda r, im: r.predict(im, hr(im.shape[:2])[:2]))
+    del ref1, ref6, sw6
+
+    def total(kern, odd=None):
+        """``kern``'s launches over the protocol requests; with ``odd``
+        only those whose width is (True) or is not (False) a multiple of
+        8, K3's odd-width mode (row 9) and its halo mode."""
+        return sum(v[kern] for (_, hw), v in l_p.items()
+                   if odd is None or bool(hw[1] % 8) == odd)
+
     sw1_launches = {
         "csa_stencil_fused@C180": (l_set5["csa_stencil_fused"]
-                                   + l_x4["csa_stencil_fused"]),
+                                   + l_x4["csa_stencil_fused"]
+                                   + total("csa_stencil_fused")),
         "csa_attention@C180": (l_set5["csa_attention"]
-                               + l_odd["csa_attention"]),
+                               + l_odd["csa_attention"]
+                               + total("csa_attention")),
         "f3p_build@C180+csa": sum(sl["f3p_build"]
-                                  for sl in (l_set5, l_odd, l_x4)),
-        "grid_decode@C180+csa": l_set5["grid_decode"] + l_x4["grid_decode"],
+                                  for sl in (l_set5, l_odd, l_x4))
+        + total("f3p_build"),
+        "grid_decode@C180+csa": l_set5["grid_decode"] + l_x4["grid_decode"]
+        + total("grid_decode", False),
         "grid_decode@C180+csa@{}x{}".format(*SET5_X4_ODD[0]):
-            l_odd["grid_decode"]}
+            l_odd["grid_decode"] + total("grid_decode", True),
+        "grid_decode_rational@C180+csa":
+            l_p["x2.5", (SWIN_001_IMG,) * 2]["grid_decode_rational"],
+        "grid_decode_rational@C180+csa@{}x{}".format(*SWIN_001_X25[1]):
+            l_p["x2.5", SWIN_001_X25[1]]["grid_decode_rational"]}
+    for hw, kern in SWIN_001_FULL:
+        sw1_launches["{}@C180@{}x{}".format(kern, *hw)] = \
+            l_p["full", hw][kern]
     for r in sw1_rows:
         r["launches"] = sw1_launches[r["name"]]
         log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "

@@ -1,11 +1,13 @@
 // The middle of cross-scale attention (average=True) in the stencil form,
 // on wgmma and TMA: the one kernel pair behind K4 csa_stencil_fused and
-// row 6 csa_fused.
+// row 6 csa_fused, and at config 001 swinir's widths (the wide instance,
+// below) behind row 5 csa_stencil too.
 //
 // Replaces, in ciaosr_tpu/ops/pallas/csa_attention.py:
 //   csa_stencil_fused (_csa_stencil_fused_kernel)
 //   csa_fused (_csa_full_kernel, _csa_windowed_kernel)
-// Both compute one function of the same inputs. With q_i the 3x3
+//   csa_stencil (_csa_scores_kernel, _csa_stencil_pv_kernel), wide only
+// All compute one function of the same inputs. With q_i the 3x3
 // zero-padded match neighbourhood of query pixel i (9Cr = 288, tap-major),
 // k_l the normalized 3x3 key patch l of the s-downsampled match map and
 // P_l[(a,b), c] = embed[s*ly+a, s*lx+b, c] the s^2 phase planes at key l:
@@ -81,17 +83,20 @@
 // The wide instance (config 001 swinir's CSA: Cr = 90 and C = 180,
 // zero-padded on the host to 96 and 192, so q and k are 864 wide and the
 // phase planes 768): match (B, Hp, Wp, 96), keys (B, L, 864), embed
-// (B, Hp, Wp, 192) -> out (B, 2Hp, 2Wp, 192) f32. Bound: 2PL(9Cr + s^2 C)
-// at the real widths, 1.04 TFLOP at the 192 tile: 1.05 ms. The flagship
-// pair's q and key halos (14 chunks x 104 rows x 128 B, 182 KB each) do
-// not fit, so this instance is two kernels that keep the scores, not the
-// halos, in device memory:
+// (B, Hp, Wp, 192) -> out (B, 2Hp, 2Wp, 192) f32. K4, row 5 and row 6 all
+// launch it at this width. Bound: 2PL(9Cr + s^2 C) at the real widths,
+// 1.04 TFLOP at the 192 tile: 1.05 ms. The flagship pair's q and key
+// halos (14 chunks x 104 rows x 128 B, 182 KB each) do not fit, so this
+// instance is two kernels that keep the scores, not the halos, in device
+// memory. That is row 5's own TPU design (normalized attention through
+// memory, then the stencil product), with raw scores and the row's
+// m and l in place of the normalized attention:
 //   (a) scores_wide_kernel: a CTA owns 64 queries (q assembled once, 112
 //       KB) and walks 256-key tiles: a producer warp streams the tile's 14
 //       64-dim chunks (32 KB each) through a 3-stage ring, two consumer
 //       warpgroups take 128 keys each (wgmma m64n128k16). Each tile's raw
-//       f32 scores go to S (B, P, ldS) in device memory (ldS = L rounded
-//       up to a multiple of 4: 16-byte rows), and each thread
+//       f32 scores go to S (B, q1 - q0, ldS) in device memory (ldS = L
+//       rounded up to a multiple of 4: 16-byte rows), and each thread
 //       keeps an online max and sum of its columns, merged at the end
 //       over the quad and the two warpgroups into m (log2 units) and l.
 //   (b) pv_wide_kernel: a CTA owns an 8 x 8 query tile and walks the 8 x 8
@@ -102,9 +107,22 @@
 //       256 columns each of the 768 phase columns (wgmma m64n256k16) from a
 //       phase tile that thread 0 copies by TMA (twelve 5-D boxes, 96 KB),
 //       the next tile's issued once both products are done.
-// Tensor work 2PL(864 + 768), the scores once; device memory adds S, 4PL
-// bytes written and about 2.4 x that read (the halos). No atomics; each
-// output element is written once: the same bits from run to run.
+// Row blocks. S holds 4PL bytes: 1.27 GiB at the 192 tile, 9.0 GiB for a
+// 192 x 512 full image. So one launch of the pair computes the output
+// rows y0 .. y1 - 1 only: (a) takes the query pixels q0 .. q1 - 1, which
+// cover the attention rows y0 - 1 .. y1 (the stencil's halo, cut at the
+// grid), and writes their scores from row 0 of a band-sized S; (b) takes
+// the query tiles of rows y0 .. y1 - 1 and reads S at (pixel - q0), with
+// the attention rows outside the band treated as off the grid. The host
+// (ops/kernels/csa_stencil.py::wide_blocks) picks the blocks so that each
+// S is at most 2 GiB, at multiples of 8 rows with q0 a multiple of 64: the
+// CTAs of a block are those of one launch over the whole map, and the
+// row max, sum and PV order are per query, so the blocked output has the
+// same bits as one launch. The halo rows' scores are computed twice.
+// Tensor work 2PL(864 + 768), the scores once (plus the halo rows);
+// device memory adds S, 4PL bytes written and about 2.4 x that read (the
+// halos). No atomics; each output element is written once: the same bits
+// from run to run.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -583,14 +601,14 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 scores_wide_kernel(const __grid_constant__ CUtensorMap tm_k,
                    const bf16* __restrict__ match, float* __restrict__ s_out,
                    float* __restrict__ m_out, float* __restrict__ l_out,
-                   int Hp, int Wp, int L, float scale_log2) {
+                   int Hp, int Wp, int L, int q0, int q1, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* ring = smem + WS_Q_BYTES;
   float* xch = reinterpret_cast<float*>(smem + WS_OFF_X);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + WS_OFF_BAR);
   uint64_t* empty = full + WS_STAGES;
-  const int P = Hp * Wp, b = blockIdx.y, i0 = blockIdx.x * WS_Q;
+  const int P = Hp * Wp, b = blockIdx.y, i0 = q0 + blockIdx.x * WS_Q;
   const int nt = (L + WS_K - 1) / WS_K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -619,7 +637,7 @@ scores_wide_kernel(const __grid_constant__ CUtensorMap tm_k,
   for (int idx = threadIdx.x; idx < WS_Q * WQVEC; idx += WS_CONSUMERS) {
     const int r = idx / WQVEC, i = i0 + r;
     put_q_wide(smem, WS_QCHUNK, r, idx % WQVEC, match, b, Hp, Wp, i / Wp,
-               i % Wp, i < P);
+               i % Wp, i < q1);
   }
   fence_proxy_async();
   bar_sync(1, WS_CONSUMERS);
@@ -661,7 +679,8 @@ scores_wide_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = i0 + r0 + 8 * h;
-      float* srow = s_out + ((size_t)b * P + (i < P ? i : 0)) * lds;
+      float* srow = s_out + ((size_t)b * (q1 - q0) + (i < q1 ? i - q0 : 0)) *
+                                lds;
       float mx = m_t[h];
 #pragma unroll
       for (int jj = 0; jj < 16; ++jj) {
@@ -669,7 +688,7 @@ scores_wide_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (l + e < L) mx = fmaxf(mx, sc[4 * jj + 2 * h + e] * scale_log2);
-        if (i < P && l < L)
+        if (i < q1 && l < L)
           *reinterpret_cast<float2*>(srow + l) =
               make_float2(sc[4 * jj + 2 * h], sc[4 * jj + 2 * h + 1]);
       }
@@ -710,7 +729,7 @@ scores_wide_kernel(const __grid_constant__ CUtensorMap tm_k,
       const float m = fmaxf(m_t[h], m1);
       const float l = (m_t[h] == -INFINITY ? 0.f : l_t[h] * ex2(m_t[h] - m)) +
                       (m1 == -INFINITY ? 0.f : l1 * ex2(m1 - m));
-      if (i < P) {
+      if (i < q1) {
         m_out[(size_t)b * P + i] = m;
         l_out[(size_t)b * P + i] = l;
       }
@@ -734,7 +753,8 @@ __global__ void __launch_bounds__(WP_THREADS, 1)
 pv_wide_kernel(const __grid_constant__ CUtensorMap tm_ph,
                const float* __restrict__ s_in, const float* __restrict__ m_in,
                const float* __restrict__ l_in, float* __restrict__ out,
-               int Hp, int Wp, float scale_log2) {
+               int Hp, int Wp, int y0, int y1, int q0, int q1,
+               float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* pt = smem;
@@ -746,18 +766,22 @@ pv_wide_kernel(const __grid_constant__ CUtensorMap tm_ph,
   const int b = blockIdx.y, P = Hp * Wp;
   const int Hq = Hp / S, Wq = Wp / S, lds = s_stride(Hq * Wq);
   const int ntx = (Wp + T - 1) / T;
-  const int ty0 = (blockIdx.x / ntx) * T, tx0 = (blockIdx.x % ntx) * T;
+  const int ty0 = y0 + (blockIdx.x / ntx) * T, tx0 = (blockIdx.x % ntx) * T;
   const int nkx = (Wq + T - 1) / T, nt = nkx * ((Hq + T - 1) / T);
+  // the attention rows of the band: output rows y0 .. y1 - 1 and their
+  // stencil halo; a query row outside it counts as off the grid (it
+  // reaches only output rows past y1, which this launch does not write)
+  const int a0 = max(y0 - 1, 0), a1 = min(y1 + 1, Hp);
 
   if (tid == 0) {
     mbar_init(pbar, 1);
     fence_barrier_init();
     load_phases_wide(pt, &tm_ph, pbar, 0, 0, b);
   }
-  // m + log2 l of the query halo's rows (+inf off the grid)
+  // m + log2 l of the query halo's rows (+inf off the band)
   for (int h = tid; h < NHR; h += WP_THREADS) {
     const int iy = ty0 + h / TH - 1, ix = tx0 + h % TH - 1;
-    const bool ok = h < NH && iy >= 0 && iy < Hp && ix >= 0 && ix < Wp;
+    const bool ok = h < NH && iy >= a0 && iy < a1 && ix >= 0 && ix < Wp;
     const size_t gi = (size_t)b * P + (ok ? iy * Wp + ix : 0);
     mrow[h] = ok ? m_in[gi] + __log2f(l_in[gi]) : INFINITY;
   }
@@ -781,11 +805,11 @@ pv_wide_kernel(const __grid_constant__ CUtensorMap tm_ph,
       const int iy = ty0 + hq / TH - 1, ix = tx0 + hq % TH - 1;
       const int ly = ky0 + cy - 1, lx = kx0 + cx - 1;
       float p = 0.f;
-      if (iy >= 0 && iy < Hp && ix >= 0 && ix < Wp && ly >= 0 && ly < Hq &&
+      if (iy >= a0 && iy < a1 && ix >= 0 && ix < Wp && ly >= 0 && ly < Hq &&
           lx >= 0 && lx < Wq)
-        p = ex2(fmaf(
-            s_in[((size_t)b * P + iy * Wp + ix) * lds + ly * Wq + lx],
-            scale_log2, -mrow[hq]));
+        p = ex2(fmaf(s_in[((size_t)b * (q1 - q0) + iy * Wp + ix - q0) * lds +
+                          ly * Wq + lx],
+                     scale_log2, -mrow[hq]));
       sa[hq * LDSA + cy * KCOLS + cx] = p;
     }
     bar_sync(1, WP_THREADS);  // p is whole; every warp is past M of j - 1
@@ -849,7 +873,7 @@ pv_wide_kernel(const __grid_constant__ CUtensorMap tm_ph,
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     const int iy = ty0 + row / T, ix = tx0 + row % T;
-    if (iy >= Hp || ix >= Wp) continue;
+    if (iy >= y1 || ix >= Wp) continue;
 #pragma unroll
     for (int jj = 0; jj < 32; ++jj) {
       const int u = 256 * wg + 8 * jj + 2 * q4, a = u / (S * WC);
@@ -948,14 +972,18 @@ extern "C" int csa_stencil_sm90(const void* match, const void* keys,
   return (int)cudaGetLastError();
 }
 
-// K4 at the wide instance: match (B, Hp, Wp, 96), keys (B, Hp/2 * Wp/2,
-// 864), embed (B, Hp, Wp, 192) bf16 -> out (B, 2Hp, 2Wp, 192) f32 (every
-// element written); s_buf (B, Hp*Wp, ldS), m_buf, l_buf (B, Hp*Wp) f32
-// scratch, ldS = L = Hp/2 * Wp/2 rounded up to a multiple of 4
+// K4, row 5 and row 6 at the wide instance, one block of output rows:
+// match (B, Hp, Wp, 96), keys (B, Hp/2 * Wp/2, 864), embed (B, Hp, Wp,
+// 192) bf16 -> rows y0 .. y1 - 1 of out (B, 2Hp, 2Wp, 192) f32 (every
+// element of those rows written). Scratch: s_buf (B, q1 - q0, ldS) f32,
+// the raw scores of query pixels q0 .. q1 - 1, which must hold the band
+// of attention rows max(y0 - 1, 0) .. min(y1 + 1, Hp) - 1; m_buf, l_buf
+// (B, Hp*Wp) f32. ldS = L = Hp/2 * Wp/2 rounded up to a multiple of 4.
 extern "C" int csa_stencil_sm90_wide(const void* match, const void* keys,
                                      const void* embed, void* s_buf,
                                      void* m_buf, void* l_buf, void* out,
-                                     int B, int Hp, int Wp, float scale,
+                                     int B, int Hp, int Wp, int y0, int y1,
+                                     int q0, int q1, float scale,
                                      void* stream) {
   static cudaError_t attr_a = allow_smem(scores_wide_kernel, SMEM_WS);
   static cudaError_t attr_b = allow_smem(pv_wide_kernel, SMEM_WP);
@@ -964,21 +992,25 @@ extern "C" int csa_stencil_sm90_wide(const void* match, const void* keys,
   if (B <= 0 || Hp <= 0 || Wp <= 0 || Hp % S || Wp % S)
     return (int)cudaErrorInvalidValue;
   const int Hq = Hp / S, Wq = Wp / S, P = Hp * Wp, L = Hq * Wq;
+  if (y0 < 0 || y1 <= y0 || y1 > Hp || q0 < 0 ||
+      q0 > (y0 > 0 ? y0 - 1 : 0) * Wp || q1 < (y1 < Hp ? y1 + 1 : Hp) * Wp ||
+      q1 > P)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tk, tph;
   int err = map_keys_wide(&tk, keys, B, L);
   if (!err) err = map_phases_wide(&tph, embed, B, Hp, Wp);
   if (err) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
-  scores_wide_kernel<<<dim3((P + WS_Q - 1) / WS_Q, B), WS_THREADS, SMEM_WS,
-                       st>>>(tk, (const bf16*)match, (float*)s_buf,
-                             (float*)m_buf, (float*)l_buf, Hp, Wp, L,
-                             scale_log2);
+  scores_wide_kernel<<<dim3((q1 - q0 + WS_Q - 1) / WS_Q, B), WS_THREADS,
+                       SMEM_WS, st>>>(tk, (const bf16*)match, (float*)s_buf,
+                                      (float*)m_buf, (float*)l_buf, Hp, Wp,
+                                      L, q0, q1, scale_log2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int tiles = ((Hp + T - 1) / T) * ((Wp + T - 1) / T);
+  const int tiles = ((y1 - y0 + T - 1) / T) * ((Wp + T - 1) / T);
   pv_wide_kernel<<<dim3(tiles, B), WP_THREADS, SMEM_WP, st>>>(
       tph, (const float*)s_buf, (const float*)m_buf, (const float*)l_buf,
-      (float*)out, Hp, Wp, scale_log2);
+      (float*)out, Hp, Wp, y0, y1, q0, q1, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -37,15 +37,22 @@
 // 9C unfold never exists in memory. Any H and W; up to 9 shifts, taken
 // 4 at a time.
 //
-// Widths: compiled for (C, DC) = (64, 64), the flagship (DV = 640), and
+// Widths: compiled for (C, DC) = (64, 64), the flagship (DV = 640),
 // (192, 0), SwinIR-CiaoSR's 180 channels zero-padded, without CSA
-// (DV = 1728). At DV = 1728 the 32 x DV f32 value accumulator (221 KB)
-// does not fit in shared memory, so this "wide" instantiation blends the
-// value 256 columns at a time: the blend is linear, so imnet_q's first
+// (DV = 1728), and (192, 192), config 001 swinir's 180 feature and 180
+// CSA channels zero-padded (DV = 1920). At DV = 1728 and 1920 the
+// 32 x DV f32 value accumulator (221 and 246 KB) does not fit in shared
+// memory, so these "wide" instantiations blend the value 256 columns at
+// a time: the blend is linear, so imnet_q's first
 // layer is sum over chunks of bf16(sum_i attn_i pred_i[:, chunk]) @
 // W_q0[chunk, :]; each chunk's 32 x 256 blend (f32, rounded to bf16 as
 // the flagship rounds the whole outv) is multiplied at once into a
-// 32 x 256 f32 sum in shared memory (196 KB in all). It needs every
+// 32 x 256 f32 sum in shared memory (196 KB in all, the same at both
+// wide widths). At DV = 1920 the last chunk is 128 columns (1792-1919:
+// the gemm's warps past column 128 idle, the qin product is 128 deep),
+// and the chunk 1536-1791 crosses the unfold/CSA boundary at DK = 1728,
+// where the value read switches from the 3x3 feature taps to the CSA map
+// (groups of 8 columns never straddle it: DK % 8 = 0). It needs every
 // shift's hidden rows at once, so it takes at most 4 shifts (one group:
 // local_size 1 or 2), checked on the host. Bound at C = 180 on a 256 x 256
 // map at x2.5: 3.2 ms.
@@ -519,6 +526,7 @@ int launch(const Params& P, dim3 grid, void* stream) {
 int dispatch(int C, int DC, const Params& P, dim3 grid, void* stream) {
   if (C == 64 && DC == 64) return launch<64, 64>(P, grid, stream);
   if (C == 192 && DC == 0) return launch<192, 0>(P, grid, stream);
+  if (C == 192 && DC == 192) return launch<192, 192>(P, grid, stream);
   return (int)cudaErrorInvalidValue;
 }
 

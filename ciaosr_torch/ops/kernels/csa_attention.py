@@ -20,9 +20,11 @@ v_l the (3s)×(3s) stride-s patches of the embedding:
   plain version stays the bank form.
 
 Outputs are f32. The kernels take bf16 at s = 2 and the flagship's
-(Cr, C) = (32, 64); row 7 also at (96, 192), config 001 swinir's (90,
-180) zero-padded: Dk = 864, Dv = 6912. Rows 6 and 8 raise there (ROADMAP
-queue 2, item 1).
+(Cr, C) = (32, 64); rows 6 and 7 also at (96, 192), config 001 swinir's
+(90, 180) zero-padded: row 7's banks are Dk = 864, Dv = 6912, and row 6
+launches K4's wide pair over blocks of output rows
+(``csa_stencil.wide_blocks``). Row 8, which nothing calls, takes the
+flagship pair only.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import _build
 from ciaosr_torch.ops.kernels.csa_stencil import (C, INSTANCES, S,
                                                   launch_stencil_sm90,
-                                                  no_wide_kernel,
                                                   row_blocks)
 from ciaosr_torch.ops.neighborhood import extract_patches_same, overlap_add
 
@@ -144,9 +145,8 @@ def csa_attention_overlap_add(q: torch.Tensor, k: torch.Tensor,
 
 def csa_fused(match: torch.Tensor, keys: torch.Tensor, embed: torch.Tensor,
               scale: float, s: int) -> torch.Tensor:
-    """Row 6 on CUDA tensors (K4's kernel: the same function of the same
+    """Row 6 on CUDA tensors (K4's kernels: the same function of the same
     inputs), the plain version (the bank form) on CPU tensors."""
     if match.device.type == "cpu":
         return csa_fused_plain(match, keys, embed, scale, s)
-    no_wide_kernel("csa_fused", match.shape[-1], embed.shape[-1])
     return launch_stencil_sm90("csa_fused", match, keys, embed, scale, s)

@@ -15,11 +15,13 @@ s-downsampled match map (L = Hp/s · Wp/s), embed (B, Hp, Wp, C). Returns
 Widths. The kernels are compiled for the (Cr, C) pairs of ``INSTANCES``
 at s = 2: the flagship's (32, 64) and (96, 192), which config 001
 swinir's (90, 180) reaches zero-padded (``padded_widths``; the model pads,
-``models/csa.py``). K4 runs both: the flagship pair on csa_stencil_sm90's
-one-pass kernels, the wide pair on its two-kernel form with the scores in
-device memory. Row 5, and row 6 in csa_attention.py, take the flagship
-pair only (ROADMAP queue 2, item 1: only full-image ``predict`` reaches
-them at C = 180).
+``models/csa.py``). At the flagship pair K4 and row 6 run
+csa_stencil_sm90's one-pass kernels and row 5 its own csa_stencil.cu. At
+the wide pair all three launch csa_stencil_sm90's two-kernel form, which
+is row 5's TPU design: the attention (raw scores, with each row's max
+and sum) through device memory, then the stencil product. Its scores
+take 4PL bytes, so it runs over blocks of output rows whose scores fit a
+budget (``wide_blocks``, 2 GiB by default: a 192² tile is one block).
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ CR, C = INSTANCES[0]
 S = 2
 # f32 elements of one (query rows, L) attention block of a plain version
 PLAIN_BLOCK = 1 << 27
+# bytes of raw scores one launch of the wide pair may write
+SCORES_BUDGET = 2 << 30
+# the wide pair's query tile side and queries per scores CTA
+TILE, SCORES_CTA = 8, 64
 
 
 def row_blocks(n: int, per_row: int, halo: int = 0) -> list[tuple[int, int]]:
@@ -116,16 +122,6 @@ def pad_maps(match: torch.Tensor, keys: torch.Tensor,
     return match, keys, embed
 
 
-def no_wide_kernel(name: str, cr: int, c: int) -> None:
-    """Raise for the wide pair on a wrapper whose kernel is compiled for
-    the flagship's only."""
-    if (cr, c) == INSTANCES[1]:
-        raise ValueError(f"{name} kernel is compiled for (Cr, C) = "
-                         f"{INSTANCES[0]} only; (Cr, C) = {INSTANCES[1]} is "
-                         "ROADMAP queue 2, item 1 (only full-image predict "
-                         "reaches it at C = 180)")
-
-
 def check_inputs(name: str, match, keys, embed,
                  s: int) -> tuple[int, int, int]:
     """Raise unless the CSA middle's kernels take these inputs; returns
@@ -144,13 +140,55 @@ def check_inputs(name: str, match, keys, embed,
     return b, hp, wp
 
 
+def scores_stride(hp: int, wp: int, s: int = S) -> int:
+    """ldS, the f32 row stride of the wide pair's scores: L rounded up to
+    a multiple of 4."""
+    return -(-(hp // s) * (wp // s) // 4) * 4
+
+
+def wide_band(hp: int, wp: int, y0: int, y1: int) -> tuple[int, int]:
+    """The query pixels [q0, q1) whose scores the output rows [y0, y1)
+    need: the attention rows y0 − 1 .. y1 of the 3×3 stencil, cut at the
+    grid, with q0 rounded down to a scores CTA (so that every scores CTA
+    of a block is one of the unblocked launch)."""
+    q0 = max(y0 - 1, 0) * wp // SCORES_CTA * SCORES_CTA
+    return q0, min(y1 + 1, hp) * wp
+
+
+def wide_blocks(b: int, hp: int, wp: int,
+                budget: int = SCORES_BUDGET) -> list[tuple[int, int]]:
+    """[y0, y1) blocks of the Hp output rows for the wide pair, in order:
+    each as tall as its scores (B · (q1 − q0) · ldS f32, ``wide_band``)
+    allow within ``budget`` bytes, in multiples of the 8-row query tile
+    while at least one tile fits, else of single rows; one block (0, Hp)
+    wherever the whole map fits. A block holds one row even where its
+    scores alone pass the budget."""
+    row_bytes = 4 * b * scores_stride(hp, wp)
+
+    def fits(y0, y1):
+        q0, q1 = wide_band(hp, wp, y0, y1)
+        return (q1 - q0) * row_bytes <= budget
+
+    blocks, y0 = [], 0
+    while y0 < hp:
+        y1 = hp
+        while y1 - y0 > 1 and not fits(y0, y1):
+            y1 = y1 - 1 if y1 - y0 <= TILE else max(
+                y0 + TILE, (y1 - 1) // TILE * TILE)
+        blocks.append((y0, y1))
+        y0 = y1
+    return blocks
+
+
 def launch_stencil_sm90(name: str, match: torch.Tensor, keys: torch.Tensor,
-                       embed: torch.Tensor, scale: float,
-                       s: int) -> torch.Tensor:
-    """The stencil-form kernel of csrc/csa_stencil_sm90.cu on CUDA tensors,
-    counted under ``name``: K4 and row 6 compute the same function from
-    the same inputs and both launch it. At the wide pair the raw scores go
-    through device memory: B·P·ldS f32, ldS = L rounded up to 4."""
+                       embed: torch.Tensor, scale: float, s: int,
+                       budget: int = SCORES_BUDGET) -> torch.Tensor:
+    """The stencil-form kernels of csrc/csa_stencil_sm90.cu on CUDA
+    tensors, each launch counted under ``name``: K4, row 5 (wide pair
+    only) and row 6 compute the same function from the same inputs and
+    launch them. At the flagship pair, one launch; at the wide pair one
+    launch a block of ``wide_blocks(..., budget)``, whose raw scores go
+    through device memory (one buffer of the largest block's, reused)."""
     b, hp, wp = check_inputs(name, match, keys, embed, s)
     c = embed.shape[-1]
     dev = match.device
@@ -158,19 +196,25 @@ def launch_stencil_sm90(name: str, match: torch.Tensor, keys: torch.Tensor,
     l_buf = torch.empty_like(m_buf)
     out = torch.empty(b, s * hp, s * wp, c, device=dev, dtype=torch.float32)
     if c == C:
-        entry, scratch = "csa_stencil_sm90", (m_buf, l_buf)
+        entry, scratch, bands = "csa_stencil_sm90", (m_buf, l_buf), [()]
     else:
-        s_buf = torch.empty(b, hp * wp, -(-keys.shape[1] // 4) * 4,
-                            device=dev, dtype=torch.float32)
+        bands = [(y0, y1, *wide_band(hp, wp, y0, y1))
+                 for y0, y1 in wide_blocks(b, hp, wp, budget)]
+        s_buf = torch.empty(b * max(q1 - q0 for _, _, q0, q1 in bands),
+                            scores_stride(hp, wp), device=dev,
+                            dtype=torch.float32)
         entry, scratch = "csa_stencil_sm90_wide", (s_buf, m_buf, l_buf)
     fn = getattr(_build.load("csa_stencil_sm90"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * (4 + len(scratch)) + [
-        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(*(_build.ptr(t) for t in (match, keys, embed, *scratch, out)),
-             b, hp, wp, float(scale), _build.stream_ptr(dev))
-    kernels.LAUNCHES[name] += 1
-    _build.check(err, name)
+        ctypes.c_int] * (3 + len(bands[0])) + [ctypes.c_float,
+                                               ctypes.c_void_p]
+    for band in bands:
+        err = fn(*(_build.ptr(t) for t in (match, keys, embed, *scratch,
+                                           out)),
+                 b, hp, wp, *band, float(scale), _build.stream_ptr(dev))
+        kernels.LAUNCHES[name] += 1
+        _build.check(err, name)
     return out
 
 
@@ -186,11 +230,15 @@ def csa_stencil_fused(match: torch.Tensor, keys: torch.Tensor,
 
 def csa_stencil(match: torch.Tensor, keys: torch.Tensor,
                 embed: torch.Tensor, scale: float, s: int) -> torch.Tensor:
-    """Row 5 on CUDA tensors (Ā through device memory: B·P·⌈L/64⌉·64 bf16
-    scratch), the plain version on CPU tensors."""
+    """Row 5 on CUDA tensors, the plain version on CPU tensors. At the
+    flagship pair csrc/csa_stencil.cu (Ā through device memory:
+    B·P·⌈L/64⌉·64 bf16 scratch); at the wide pair the two-kernel form of
+    csrc/csa_stencil_sm90.cu over row blocks (``launch_stencil_sm90``)."""
     if match.device.type == "cpu":
         return csa_stencil_plain(match, keys, embed, scale, s)
-    no_wide_kernel("csa_stencil", match.shape[-1], embed.shape[-1])
+    if embed.shape[-1] != C:
+        return launch_stencil_sm90("csa_stencil", match, keys, embed, scale,
+                                   s)
     b, hp, wp = check_inputs("csa_stencil", match, keys, embed, s)
     dev = match.device
     lda = -(-keys.shape[1] // 64) * 64

@@ -25,8 +25,9 @@ swinir) at (192, 192), its 180 feature and CSA channels zero-padded
 (``padded_widths``; ``pack_decoder(c_pad=..., dc_pad=...)`` puts zero rows
 and columns at the padded channels of every unfold block and of the CSA
 block, so the padding changes no result). The wrappers read C and DC from
-their tensors and raise for any other pair; the rational mode takes the
-first two only (ROADMAP queue 2, item 1).
+their tensors and raise for any other pair; both modes of K3 take all
+three (the rational mode's kernel blends the value in 256-column chunks
+at C = 192: at (192, 192) the last one is 128 columns wide).
 """
 
 from __future__ import annotations
@@ -45,8 +46,6 @@ from ciaosr_torch.ops.neighborhood import (shift_edge, tap_major_perm,
 
 # the (C, DC) pairs the kernels are compiled for, and the MLP widths
 INSTANCES = ((64, 64), (192, 0), (192, 192))
-# the pairs K3's rational mode is compiled for
-RATIONAL_INSTANCES = INSTANCES[:2]
 HID, N_HIDDEN = 256, 4
 # at C = 192 the rational mode's kernel blends the value chunk by chunk
 # straight into imnet_q's first layer, which needs every shift's row in one
@@ -69,15 +68,10 @@ def widths(feature, csa) -> tuple[int, int]:
     return feature.shape[-1], 0 if csa is None else csa.shape[-1]
 
 
-def _check_instance(c: int, dc: int, name: str,
-                    instances=INSTANCES) -> None:
-    if (c, dc) in INSTANCES and (c, dc) not in instances:
-        raise ValueError(f"{name}: no kernel at (C, DC) = ({c}, {dc}) yet "
-                         f"(compiled for {instances}); ROADMAP queue 2, "
-                         "item 1")
-    if (c, dc) not in instances:
+def _check_instance(c: int, dc: int, name: str) -> None:
+    if (c, dc) not in INSTANCES:
         raise ValueError(f"{name}: the kernels are compiled for (C, DC) in "
-                         f"{instances}, got ({c}, {dc})")
+                         f"{INSTANCES}, got ({c}, {dc})")
 
 # the 3×3 edge-clamped shifts d = (dy, dx) in the order of the wt planes
 SHIFTS9 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -560,8 +554,7 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     b, h, w, _ = feature.shape
     py, n_shift, oh = tabs["yk"].shape
     px, _, ow = tabs["xk"].shape
-    _check_instance(*widths(feature, csa), "grid_decode_rational",
-                    RATIONAL_INSTANCES)
+    _check_instance(*widths(feature, csa), "grid_decode_rational")
     c, dc = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk, n_shift)
     i32, f = torch.int32, torch.float32
     _build.check_tensor(tabs["yq"], (py, oh), "yq", i32)

@@ -843,8 +843,10 @@ def test_decode_kernels_widths(case, swin_csa_case, width, hw):
 
 @torch.inference_mode()
 def test_wide_rational_and_csa_forms_raise(swin_csa_case):
-    """At the wide pairs K3's rational mode and rows 5 and 6 raise with
-    their ROADMAP item, before any launch."""
+    """At the wide pairs K3's rational mode and rows 5 and 6 launch their
+    kernels: rows 5 and 6 K4's wide pair (the same bits as K4), the
+    rational mode its (192, 192) instance (×2.5, within 1e-2 of its plain
+    version); every other width still raises before any launch."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops import kernels
     from ciaosr_torch.ops.kernels import csa_attention as ca
@@ -854,15 +856,82 @@ def test_wide_rational_and_csa_forms_raise(swin_csa_case):
     _, feat, maps = _net_maps(net, (16, 32), 8)
     padded = st.pad_maps(*maps)
     n0 = dict(kernels.LAUNCHES)
+    want = st.csa_stencil_fused(*padded, 10.0, 2)
     for fn in (st.csa_stencil, ca.csa_fused):
-        with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-            fn(*padded, 10.0, 2)
+        assert torch.equal(fn(*padded, 10.0, 2), want)
     mp = net._kernel_maps(feat, rational_cell(16, 32, 40, 80))
     tabs = dk.rational_tables(16, 32, 5, 2, 5, 2, 2, feat.device)
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        dk.grid_decode_rational(*mp, tabs, 1.0)
+    got = dk.grid_decode_rational(*mp, tabs, 1.0)
+    assert _rel(got, dk.grid_decode_rational_plain(
+        *_f32(mp[:6]), _f32(mp[6]), tabs, 1.0)) <= REL_TOL
     assert {k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]
-            } == {"csa_stencil_fused": 1, "f3p_build": 1, "wt_hoist": 1}
+            } == {"csa_stencil_fused": 2, "csa_stencil": 1, "csa_fused": 1,
+                  "f3p_build": 1, "wt_hoist": 1, "grid_decode_rational": 1}
+    with pytest.raises(ValueError, match="compiled for"):
+        dk.grid_decode_rational(mp[0][..., :96].contiguous(), None, *mp[2:],
+                                tabs, 1.0)
+    assert kernels.LAUNCHES["grid_decode_rational"] == n0[
+        "grid_decode_rational"] + 1
+
+
+# rows 5 and 6 at (96, 192) on a 40 × 48 map (scores 92 KB a row of
+# queries) with the scores budget forced down: 5 blocks of 8-row query
+# tiles, and 28 blocks of 1-3 rows off the tiles
+@pytest.mark.parametrize("name", ["csa_stencil", "csa_fused"])
+@pytest.mark.parametrize("budget,n_blocks", [(1_100_000, 5), (420_000, 28)],
+                         ids=["tiles", "rows"])
+@torch.inference_mode()
+def test_wide_csa_forms_blocked(swin_csa_case, name, budget, n_blocks):
+    """The wide pair over blocks of output rows gives the same bits as one
+    launch over the whole map, one launch a block counted under the
+    wrapper's name, and holds the plain version at the real widths."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    from ciaosr_torch.ops.kernels import csa_stencil as st
+    _, _, maps = _net_maps(swin_csa_case, (40, 48), 12)
+    c = maps[2].shape[-1]
+    padded = st.pad_maps(*maps)
+    assert st.wide_blocks(1, 40, 48) == [(0, 40)]
+    assert len(st.wide_blocks(1, 40, 48, budget)) == n_blocks
+    whole = (st.csa_stencil if name == "csa_stencil" else ca.csa_fused)(
+        *padded, 10.0, 2)
+    n0 = kernels.LAUNCHES[name]
+    got = st.launch_stencil_sm90(name, *padded, 10.0, 2, budget=budget)
+    assert kernels.LAUNCHES[name] == n0 + n_blocks
+    assert torch.equal(got, whole)
+    ref = st.csa_stencil_plain(*(t.float() for t in maps), 10.0, 2)
+    assert not got[..., c:].any()
+    assert _rel(got[..., :c], ref) <= REL_TOL
+
+
+# row 10 at (192, 192) on the model's own maps, against its plain version
+# at the real widths (unpacked at 180 channels)
+@pytest.mark.parametrize("py,qy,hw", [(5, 2, (16, 32)), (7, 3, (21, 39))],
+                         ids=["x2.5", "x7/3"])
+@torch.inference_mode()
+def test_grid_decode_rational_c180_csa(swin_csa_case, py, qy, hw):
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = swin_csa_case
+    _, feat, _ = _net_maps(net, hw, py)
+    c = feat.shape[-1]
+    cell = rational_cell(*hw, hw[0] * py // qy, hw[1] * py // qy)
+    feat_p, csa_p, gk, gv, wt, ck, pk = net._kernel_maps(feat, cell)
+    assert dk.widths(feat_p, csa_p) == (192, 192)
+    pk_r = _f32(dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, c,
+                                cell, torch.bfloat16))
+    tabs = dk.rational_tables(*hw, py, qy, py, qy, net.local_size,
+                              feat.device)
+    got = dk.grid_decode_rational(feat_p, csa_p, gk, gv, wt, ck, pk, tabs,
+                                  net.softmax_scale)
+    assert torch.equal(got, dk.grid_decode_rational(
+        feat_p, csa_p, gk, gv, wt, ck, pk, tabs, net.softmax_scale))
+    ref = dk.grid_decode_rational_plain(
+        feat_p[..., :c].float(), csa_p[..., :c].float(), gk.float(),
+        gv.float(), wt.float(), ck, pk_r, tabs, net.softmax_scale)
+    assert got.shape == ref.shape == (1, py * py, hw[0] // qy, hw[1] // qy,
+                                      3)
+    assert _rel(got, ref) <= REL_TOL
 
 
 @pytest.mark.parametrize("hw,middle", [((16, 32), "csa_stencil_fused"),

@@ -14,14 +14,25 @@ generator dict cut to one Swin block (as tests/test_torch_swinir_csa.py's
 - ``pack_decoder(c_pad=192, dc_pad=192)``: the plain K1 → K2 → K3 chain
   on the padded maps equals the unpadded chain; the flagship widths pack
   as they did.
+- The rational dense decode through the kernel route (K1 → K2 → K3's
+  rational mode at (192, 192)) against JAX's per-query ``query_rgb`` over
+  the HR grid, at ×2.5 and ×7/3; the padded rational chain equals the
+  unpadded one.
+- The config's ``val_scale > 4`` protocol: ``forward_test`` at ×6 with a
+  test_cfg without ``tile`` (a full-image ``predict``) against JAX.
+- ``csa_stencil.wide_blocks``, the wide CSA pair's plan of row blocks:
+  every output row in one block, each block's scores within its budget.
 - With the card's dtype rule in place, what each wrapper receives at 180
-  channels, and the wrappers that raise at the wide widths (rows 5, 6 and
-  K3's rational mode) on tensors of the ``meta`` device.
+  channels, and the rational wrapper's rejection of an uncompiled width
+  on tensors of the ``meta`` device.
 
-Tolerances: f32 against JAX ≤ 1e-5 abs; the padded chain ≤ 1e-6 abs (only
-zero terms differ); the bf16-fed route ≤ 1e-2 of max|ref| (the class the
-card holds).
+Tolerances: f32 against JAX ≤ 1e-5 abs; the padded chains ≤ 1e-6 abs
+(only zero terms differ); the bf16-fed route ≤ 1e-2 of max|ref| (the class
+the card holds).
 """
+
+from fractions import Fraction
+
 
 import jax
 import jax.numpy as jnp
@@ -34,9 +45,10 @@ from ciaosr_torch.convert.from_jax import state_dict_from_jax
 from ciaosr_torch.core.coords import make_coord_cell
 from ciaosr_torch.models import csa as mcsa
 from ciaosr_torch.models.builder import build_generator
+from ciaosr_torch.models.ciaosr import rational_cell
 from ciaosr_torch.models.csa import csa_route
+from ciaosr_torch.models.restorers import CiaoSRRestorer
 from ciaosr_torch.ops import kernels
-from ciaosr_torch.ops.kernels import csa_attention as ca
 from ciaosr_torch.ops.kernels import csa_stencil as st
 from ciaosr_torch.ops.kernels import decoder as dk
 from tests.test_torch_swinir_csa import _cut
@@ -51,6 +63,7 @@ C, CR = 180, 90
 # on the banks) and decodes at the odd width 9 (row 9 on the card);
 # 16 × 16 takes the stencil form (K4) and decodes at W % 8 = 0
 STREAMING, STENCIL = (10, 9), (16, 16)
+MEAN = np.asarray((0.4488, 0.4371, 0.4040), np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -247,32 +260,154 @@ def _meta(*shape, dtype=BF):
     return torch.empty(*shape, device="meta", dtype=dtype)
 
 
-@pytest.mark.parametrize("wrapper", ["csa_stencil", "csa_fused"])
-def test_unported_wide_csa_forms_raise(wrapper):
-    """Rows 5 and 6 are compiled at the flagship widths only: at (96, 192)
-    their wrappers raise with the ROADMAP item before any launch."""
-    fn = st.csa_stencil if wrapper == "csa_stencil" else ca.csa_fused
-    n0 = kernels.LAUNCHES[wrapper]
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        fn(_meta(1, 16, 16, 96), _meta(1, 64, 864), _meta(1, 16, 16, 192),
-           10.0, 2)
-    assert kernels.LAUNCHES[wrapper] == n0
-
-
-def test_rational_decode_raises_at_the_wide_pair():
-    """K3's rational mode has no (192, 192) instance: its wrapper raises
-    with the ROADMAP item (the ×2.5 route of config 001 swinir fails
-    loudly), and still names the compiled pairs otherwise."""
+def test_rational_decode_rejects_uncompiled_widths():
+    """K3's rational mode takes every compiled (C, DC) pair; at another
+    its wrapper raises, naming the compiled pairs, before any launch."""
     b, h, w, n = 1, 4, 6, 4
-    maps = (_meta(b, h, w, 192), _meta(b, h, w, 192), _meta(b, h, w, 256),
+    maps = (_meta(b, h, w, 96), None, _meta(b, h, w, 256),
             _meta(b, h, w, 256), _meta(9, b, h, w, 256),
             _meta(9, b, h, w, dtype=F32))
     tabs = {"yk": _meta(5, n, 2, dtype=torch.int32),
             "xk": _meta(5, n, 3, dtype=torch.int32)}
     n0 = kernels.LAUNCHES["grid_decode_rational"]
-    with pytest.raises(ValueError, match="ROADMAP queue 2, item 1"):
-        dk.grid_decode_rational(*maps, {}, tabs, 1.0)
     with pytest.raises(ValueError, match="compiled for"):
-        dk.grid_decode_rational(_meta(b, h, w, 96), None, *maps[2:], {},
-                                tabs, 1.0)
+        dk.grid_decode_rational(*maps, {}, tabs, 1.0)
     assert kernels.LAUNCHES["grid_decode_rational"] == n0
+
+
+def _jax_grid(nets, x, th, tw):
+    """JAX's per-query decode of x (B, h, w, 3) over the th × tw HR grid,
+    with JAX's own features and CSA: (B, th, tw, 3), and the features."""
+    jnet, params, _, feat_fn, nl_fn = nets
+    feat = feat_fn(params, jnp.asarray(x))
+    co, ce = (t.numpy()[None] for t in make_coord_cell((th, tw)))
+    ref = jax_query_rgb(jnet, params, feat, x, co, ce, nl_fn(params, feat))
+    return ref.reshape(x.shape[0], th, tw, 3), feat
+
+
+# (py, qy, LR H × W): 7/3 needs 3 | H and 3 | W, so 18 × 30 there
+@pytest.mark.parametrize("py,qy,hw", [(5, 2, (16, 32)), (7, 3, (18, 30))],
+                         ids=["x2.5", "x7/3"])
+def test_rational_kernel_route_matches_jax_gather(nets, py, qy, hw):
+    """The rational dense decode through the CSA kernel route and K1 → K2
+    → K3's rational mode (plain versions on CPU tensors, the decoder maps
+    padded to (192, 192)) against JAX's per-query decoder over every HR
+    pixel, with JAX's own CSA."""
+    pnet = nets[2]
+    x = _lr(hw, py)
+    th, tw = hw[0] * py // qy, hw[1] * py // qy
+    ref, feat = _jax_grid(nets, x, th, tw)
+    widths = []
+    k3 = dk.grid_decode_rational
+
+    def spy(feature, csa, *rest):
+        widths.append(dk.widths(feature, csa))
+        return k3(feature, csa, *rest)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dk, "grid_decode_rational", spy)
+        with torch.no_grad():
+            got = pnet.query_rgb_grid_rational_kernels(
+                torch.from_numpy(np.array(feat)), torch.from_numpy(x), py,
+                qy, py, qy).numpy()
+    assert widths == [(192, 192)]
+    assert got.shape == ref.shape == (1, th, tw, 3)
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+
+
+def test_padded_rational_decode_changes_nothing(nets):
+    """K3's rational plain version on the maps zero-padded to (192, 192)
+    with the padded packing equals it at 180 channels (×2.5)."""
+    pnet = nets[2]
+    rng = np.random.default_rng(6)
+    h, w = 6, 8
+    feat = torch.as_tensor(rng.standard_normal((1, h, w, C)), dtype=F32)
+    csa = torch.as_tensor(rng.standard_normal((1, h, w, C)), dtype=F32)
+    tabs = dk.rational_tables(h, w, 5, 2, 5, 2, pnet.local_size, "cpu")
+    cell = rational_cell(h, w, h * 5 // 2, w * 5 // 2)
+    mlps = (pnet.imnet_k, pnet.imnet_v, pnet.imnet_q)
+
+    def chain(f, m, pk):
+        gk, gv = dk.f3p_build_plain(f, m, pk["wk0"], pk["wvu"], pk["wvc"])
+        wt, ck = dk.wt_hoist_plain(f, pk["wkout"], pk["bkout"])
+        return dk.grid_decode_rational_plain(f, m, gk, gv, wt, ck, pk, tabs,
+                                             pnet.softmax_scale)
+
+    with torch.no_grad():
+        ref = chain(feat, csa, dk.pack_decoder(*mlps, C, cell, F32))
+        got = chain(F.pad(feat, (0, 12)), F.pad(csa, (0, 12)),
+                    dk.pack_decoder(*mlps, C, cell, F32, c_pad=192,
+                                    dc_pad=192))
+    assert got.shape == ref.shape == (1, 25, h // 2, w // 2, 3)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6, rtol=0)
+
+
+def test_full_image_forward_test_x6_matches_jax(nets):
+    """The config's protocol for val_scale > 4: its test_cfg has no tile,
+    so ``forward_test`` at ×6 is a full-image ``predict``, here through
+    the kernel route (the integer decode at 36 phases, K3 at (192, 192))
+    against JAX's per-query decoder, denormalized and clamped."""
+    pnet = nets[2]
+    restorer = CiaoSRRestorer(
+        dict(CFG, use_kernels=True), rgb_mean=tuple(MEAN),
+        test_cfg=dict(metrics=["PSNR", "SSIM"], crop_border=6, scale=6,
+                      convert_to="y"), device="cpu")
+    restorer.generator.load_state_dict(pnet.state_dict(), strict=True)
+    lq = _lr((8, 10), 11)[0]
+    ref, _ = _jax_grid(nets, lq[None] - MEAN, 48, 60)
+    got = restorer.forward_test(lq)
+    assert got.shape == (48, 60, 3)
+    np.testing.assert_allclose(got, np.clip(ref[0] + MEAN, 0, 1), atol=TOL,
+                               rtol=0)
+
+
+# (B, Hp, Wp, budget in bytes): one block where the map fits, blocks of
+# 8-row query tiles, single rows where a tile's band does not fit, a
+# budget below one row's band, B > 1; ldS = ⌈L/4⌉·4 (L = Hp·Wp/4)
+@pytest.mark.parametrize("b,hp,wp,budget", [
+    (1, 192, 192, 2 << 30),     # a 192² tile: 1.27 GiB, one block
+    (1, 192, 512, 2 << 30),     # 9.0 GiB: five blocks of 40 rows or less
+    (1, 192, 512, 1 << 30),
+    (1, 48, 1024, 2 << 30),     # 2.25 GiB: two blocks
+    (1, 536, 304, 2 << 30),
+    (2, 40, 24, 40_000),        # under one tile's band: single rows
+    (1, 6, 18, 1_000),          # under one row's band: one row a block
+    (3, 34, 22, 400_000),
+], ids=["192x192", "192x512", "192x512_1GiB", "48x1024", "536x304",
+        "B2_rows", "under_a_row", "B3_34x22"])
+def test_wide_blocks_cover_rows_within_budget(b, hp, wp, budget):
+    blocks = st.wide_blocks(b, hp, wp, budget)
+    row_bytes = 4 * b * st.scores_stride(hp, wp)
+    assert row_bytes == 4 * b * (-(-(hp // 2) * (wp // 2) // 4) * 4)
+    # every output row in exactly one block, in order, none empty
+    assert blocks[0][0] == 0 and blocks[-1][1] == hp
+    assert all(y1 > y0 for y0, y1 in blocks)
+    assert all(a[1] == c[0] for a, c in zip(blocks, blocks[1:]))
+    for y0, y1 in blocks:
+        q0, q1 = st.wide_band(hp, wp, y0, y1)
+        # the band holds the attention rows y0 - 1 .. y1 of the stencil
+        assert q0 <= max(y0 - 1, 0) * wp and q0 % st.SCORES_CTA == 0
+        assert q1 == min(y1 + 1, hp) * wp
+        if y1 - y0 > 1:
+            assert (q1 - q0) * row_bytes <= budget
+    whole = st.wide_band(hp, wp, 0, hp)
+    if (whole[1] - whole[0]) * row_bytes <= budget:
+        assert blocks == [(0, hp)]
+    else:
+        assert len(blocks) > 1
+        tile_band = st.wide_band(hp, wp, st.TILE, 2 * st.TILE)
+        if 2 * st.TILE <= hp and (tile_band[1] - tile_band[0]) * row_bytes \
+                <= budget:
+            # tile rows: every block but the last starts a query tile
+            assert all(y0 % st.TILE == 0 for y0, _ in blocks)
+            assert all((y1 - y0) % st.TILE == 0 for y0, y1 in blocks[:-1])
+
+
+@pytest.mark.parametrize("hw,n", [((192, 512), 5), ((48, 1024), 2),
+                                  ((192, 192), 1)],
+                         ids=["192x512", "48x1024", "192x192"])
+def test_wide_blocks_at_the_path_geometries(hw, n):
+    """The blocks of chip_smoke.py's geometries at the default 2 GiB: the
+    192×512 (row 6) and 48×1024 (row 5) full images and the 192² tile
+    (K4, one launch, as before blocking)."""
+    assert len(st.wide_blocks(1, *hw)) == n
