@@ -54,7 +54,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      with the config's test_cfg for val_scale > 4 (no tile: full-image
      ``predict``, 85² and 170×128), full-image ×4 ``predict`` of 192×512
      (row 6) and 48×1024 (row 5); its kernel route against its plain f32
-     route (a 192² tile's encoder, CSA and output, the 72² request); f32
+     route (a 192² tile's encoder, CSA and output, the 72² request); then
+     config 001 edsr (EDSR-CiaoSR, C = 64, 16 blocks, CSA; bf16, seeded
+     random weights, full width and depth) through its test_cfg (tile
+     192, overlap 32 up to ×4, no tile above), as shipped (×4 on 256², the
+     Set5 ×4 shapes 72² and 57×86, ×2.5 on 256², ×6 on 85²: the
+     flagship's kernels) and without the unfold (feat_unfold=False: ×4 on
+     256², ×4 on 60×47, ×2.5 on 256² and 72², and one f32-model request on
+     a 192² tile: the one-tap instances of K1, K2, K3, row 9 and row 10,
+     each also held against its plain version), every request with its
+     exact launches and against the plain f32 route; f32
      models (no dtype in their config, as every shipped config) through
      their kernels against their plain f32 route: a flagship ×4 192² tile,
      the SwinIR 70² request and the 001 swinir 72² request at ×4 and
@@ -64,7 +73,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      odd widths, row 7 and K4 at both, row 6, row 11 (shifted and
      unshifted, and at the training batch's shape) (the kernels redesigned
      for Hopper), K3's rational mode at both of its widths, rows 5, 8 and
-     12, and one tile of each generator;
+     12, the one-tap instances, and one tile of each generator;
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
      classical L1 objective): the Swin block (row 11, ``swin_block@
@@ -224,6 +233,46 @@ CSA_MODE_KERNEL = {"stencil_fused": "csa_stencil_fused",
 # SWIN_ODD image (one tile; the encoder pads it to a window multiple), and
 # the route checks' SWIN_SMALL and SWIN_ODD images
 SWIN_IMG, SWIN_TILE, SWIN_SMALL, SWIN_ODD = 384, 256, (48, 48), (70, 70)
+# the generator of configs/001_localimplicitsr_edsr_* (its 'generator'
+# dict, copied): EDSR-CiaoSR at C = 64, 16 residual blocks, imnet
+# [256]x4, CSA at scale 2, which the flagship's compiled kernels take as
+# they are; bf16 compute, the kernel route. Its test_cfg: x4 with tile
+# 192, overlap 32 (val_scale <= 4), no tile above (a full-image predict).
+EDSR_001 = dict(
+    type="LocalImplicitSREDSR",
+    encoder=dict(type="EDSR", in_channels=3, out_channels=3, mid_channels=64,
+                 num_blocks=16, res_scale=1.0),
+    imnet_q=dict(type="MLPRefiner", in_dim=4, out_dim=3,
+                 hidden_list=[256, 256, 256, 256]),
+    imnet_k=dict(type="MLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256, 256, 256]),
+    imnet_v=dict(type="MLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256, 256, 256]),
+    feat_unfold=True, eval_bsize=30000, dtype="bf16", use_kernels=True)
+EDSR_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=192,
+                     tile_overlap=32)
+EDSR_X6_TEST_CFG = dict(metrics=[], crop_border=6, scale=6)
+# the same generator without the unfold (feat_unfold=False, LIIF's "-u"
+# ablation): keys, values and queries are the feature pixel, and K1, K2,
+# K3 (row 9 at odd widths) and row 10 run their one-tap instances
+EDSR_U1 = dict(EDSR_001, feat_unfold=False)
+# their requests, (name, LR shape, scale, how): "tiled" is forward_test
+# through the test_cfg, "full" a full-image predict (the x6 test_cfg, or
+# the x4 odd-width request). Each takes the launches expected_launches
+# counts: edsr x4 on 256² (4 tiles: K4, K1, K2, K3), the Set5 x4 LR
+# shapes 72² (row 7, K3) and 57 x 86 (three 57² tiles: row 7, row 9),
+# x2.5 on 256² (K4, row 10), x6 on the Set5 x6 LR shape 85² (row 7, row 9
+# at 36 phases); edsr_u1 x4 on 256² (the one-tap K1, K2, K3), x4 on 60 x 47
+# (K4 at 60 x 48, one-tap row 9), x2.5 on 256² and 72² (one-tap row 10)
+EDSR_REQUESTS = (("x4", (256, 256), 4, "tiled"),
+                 ("x4", (72, 72), 4, "tiled"),
+                 ("x4", (57, 86), 4, "tiled"),
+                 ("x2.5", (256, 256), 2.5, "tiled"),
+                 ("x6", (85, 85), 6, "full"))
+U1_REQUESTS = (("x4", (256, 256), 4, "tiled"),
+               ("x4", (60, 47), 4, "full"),
+               ("x2.5", (256, 256), 2.5, "tiled"),
+               ("x2.5", (72, 72), 2.5, "tiled"))
 
 # the 002 recipe's training (configs/002_real_wogan_*: samples_per_gpu 6,
 # lq_patch_size 64, sample_quantity 4096 (a 64 × 64 block of one HR grid,
@@ -394,43 +443,13 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
         m * c * 2 + 9 * c * hid * 2 + 9 * c * 4 + 9 * m * (hid * 2 + 4),
         None)
 
-    def run_decode(name, replaces, maps, tabs, rational):
-        """The decode kernel (integer or rational mode) on ``maps``, the
-        outputs of K4, K1 and K2 at one LR shape."""
-        fb, fh, fw, fc = maps[0].shape
-        if rational:
-            kern = dk.grid_decode_rational
-            plain = dk.grid_decode_rational_plain
-            n_phase = tabs["yk"].shape[0] * tabs["xk"].shape[0]
-            n_shift = tabs["yk"].shape[1]
-            m_out = fb * tabs["yk"].shape[2] * tabs["xk"].shape[2]
-        else:
-            kern, plain = dk.grid_decode, dk.grid_decode_plain
-            (n_phase, n_shift), m_out = tabs["dys"].shape, fb * fh * fw
-        dv = 9 * fc + maps[1].shape[-1]
-        mlp = n_shift * (6 * hid * hid + hid * dv + hid) + dv * hid \
-            + 3 * hid * hid + hid * 3
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (*maps[-1].values(), *tabs.values()))
-        run(name, "ciaosr_torch/csrc/grid_decode.cu" if rational
-            else "ciaosr_torch/csrc/grid_decode_sm90.cu", replaces,
-            lambda: kern(*maps[:6], maps[6], tabs, ss),
-            lambda: plain(*f32(maps[:6]), f32(maps[6]), tabs, ss),
-            2 * n_phase * m_out * mlp,
-            fb * fh * fw * (2 * fc * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4))
-            + nbytes + n_phase * m_out * 3 * 4,
-            None)
-
-    run_decode("grid_decode",
-               "ciaosr_tpu/ops/pallas/decoder_kernel.py:1329 "
-               "(_grid_decode_halo)", int_maps, tabs, False)
-    run_decode("grid_decode_rational",
-               "ciaosr_tpu/ops/pallas/decoder_kernel.py:1224 "
-               "(grid_decode_fused_rational)", rat_maps, tabs_r, True)
-    run_decode("grid_decode@{}x{}".format(*feat_odd.shape[1:3]),
-               "ciaosr_tpu/ops/pallas/decoder_kernel.py:255 "
-               "(grid_decode_fused, assembly='stacked')",
-               odd_maps, tabs_odd, False)
+    rows.append(decode_row("grid_decode", DECODE_REPLACES[False], int_maps,
+                           tabs, False, ss))
+    rows.append(decode_row("grid_decode_rational", DECODE_REPLACES[True],
+                           rat_maps, tabs_r, True, ss))
+    rows.append(decode_row("grid_decode@{}x{}".format(*feat_odd.shape[1:3]),
+                           DECODE_REPLACES["odd"], odd_maps, tabs_odd, False,
+                           ss))
     hp, wp = match.shape[1:3]
     p_, l_ = hp * wp, keys.shape[1]
     run("csa_stencil_fused", "ciaosr_torch/csrc/csa_stencil_sm90.cu",
@@ -443,6 +462,48 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
              + p_ * c * 2 + 4 * p_ * c * 4),
         None)
     return rows
+
+
+# the TPU functions of the decode kernel's modes
+DECODE_REPLACES = {
+    False: "ciaosr_tpu/ops/pallas/decoder_kernel.py:1329 (_grid_decode_halo)",
+    True: "ciaosr_tpu/ops/pallas/decoder_kernel.py:1224 "
+          "(grid_decode_fused_rational)",
+    "odd": "ciaosr_tpu/ops/pallas/decoder_kernel.py:255 "
+           "(grid_decode_fused, assembly='stacked')"}
+
+
+def decode_row(name, replaces, maps, tabs, rational, ss) -> dict:
+    """The decode kernel (integer or rational mode) on ``maps``, the
+    outputs of the CSA, K1 and K2 at one LR shape (``_kernel_maps``),
+    against its plain version; the value is DV = taps·C + DC wide."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    hid = 256
+    fb, fh, fw, fc = maps[0].shape
+    if rational:
+        kern = dk.grid_decode_rational
+        plain = dk.grid_decode_rational_plain
+        n_phase = tabs["yk"].shape[0] * tabs["xk"].shape[0]
+        n_shift = tabs["yk"].shape[1]
+        m_out = fb * tabs["yk"].shape[2] * tabs["xk"].shape[2]
+    else:
+        kern, plain = dk.grid_decode, dk.grid_decode_plain
+        (n_phase, n_shift), m_out = tabs["dys"].shape, fb * fh * fw
+    dv = maps[6]["vout"].shape[1]
+    mlp = n_shift * (6 * hid * hid + hid * dv + hid) + dv * hid \
+        + 3 * hid * hid + hid * 3
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*maps[-1].values(), *tabs.values()))
+    return kernel_row(
+        name, "ciaosr_torch/csrc/grid_decode.cu" if rational
+        else "ciaosr_torch/csrc/grid_decode_sm90.cu", replaces,
+        lambda: kern(*maps[:6], maps[6], tabs, ss),
+        lambda: plain(*f32(maps[:6]), f32(maps[6]), tabs, ss),
+        2 * n_phase * m_out * mlp,
+        fb * fh * fw * (2 * fc * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4))
+        + nbytes + n_phase * m_out * 3 * 4,
+        None)
 
 
 def csa_inputs(restorer, img, banks: bool = False):
@@ -665,7 +726,8 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
 
 def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
                  lq_s: np.ndarray, big: np.ndarray,
-                 sw1_ms: dict | None = None) -> None:
+                 sw1_ms: dict | None = None, edsr=None, u1=None,
+                 u1_ms: dict | None = None) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
     redesigned for Hopper (K1 and K3's integer mode at both widths, K3 at
     row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
@@ -681,7 +743,10 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     and these are read in one call. ``sw1_ms`` (the normal run) gives the
     001 swinir instances' times that check_swin001_kernels measured in
     this run; without it (``--kernel-times``) they are timed here, and
-    the wide pair is split by launch (torch.profiler)."""
+    the wide pair is split by launch (torch.profiler). Last, config 001
+    edsr's one-tap instances (``u1_ms`` from check_u1_kernels in the
+    normal run, else timed here) and a TILE² x4 tile of config 001 edsr
+    and of its generator without the unfold (``edsr``, ``u1``)."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
@@ -795,6 +860,14 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
         lambda: sw1.grid_predict(torch.as_tensor(
             lq_s[:SWIN_001_TILE, :SWIN_001_TILE], device="cuda")[None], 4),
         reps=3, warm=1)
+    if u1 is not None:
+        if u1_ms is not None:
+            times.update(u1_ms)
+        else:
+            time_u1_kernels(times, u1, lq)
+        for name, r in (("001 edsr", edsr), ("001 edsr_u1", u1)):
+            times[f"{name} x4 {TILE} tile (grid_predict)"] = time_ms(
+                lambda: r.grid_predict(tile, 4), reps=3, warm=1)
     log(f"kernel times ({label}): " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in times.items()))
 
@@ -1409,36 +1482,236 @@ def swin001_route_checks(sw, lq_s: np.ndarray) -> None:
         raise AssertionError(f"001 swinir kernel route disagrees: {bad}")
 
 
-def swin001_expected(images, scale, tiled: bool, n_blocks: int) -> dict:
-    """Config 001 swinir's exact launches for requests on LR images of the
-    shapes ``images`` at ``scale``: per LR tile (the test_cfg's tiling,
-    or with ``tiled`` False the whole image) ``n_blocks`` Swin block
-    launches; the CSA middle csa_route picks at the tile's geometry
-    (reflect-padded to even), row 7 once or the wide pair once a block of
-    ``wide_blocks``; K1 and K2 once; K3's integer or rational mode once."""
+def expected_launches(images, scale, tile: int | None, c: int,
+                      n_blocks: int = 0, overlap: int = 32) -> dict:
+    """Exact launches of requests on LR images of the shapes ``images`` at
+    ``scale`` by a CSA generator of C = ``c`` channels (bf16): per LR tile
+    (``predict_tiled``'s tiling at ``tile``, ``overlap``; with ``tile``
+    None the whole image) ``n_blocks`` Swin block launches (none for a
+    conv encoder); the CSA middle csa_route picks at the tile's geometry
+    (reflect-padded to even), row 7 once, K4 and rows 5-6 once at the
+    flagship's widths or once a block of ``wide_blocks`` at 001 swinir's;
+    K1 and K2 once; K3's integer or rational mode once."""
     from ciaosr_torch.models.csa import csa_route
     from ciaosr_torch.models.restorers import as_scale_fraction, tile_layout
     from ciaosr_torch.ops.kernels.csa_stencil import wide_blocks
 
     f = as_scale_fraction(scale)
-    c = SWIN_001["encoder"]["embed_dim"]
     decode = "grid_decode" if f.denominator == 1 else "grid_decode_rational"
     want: dict = {}
     for h, w in images:
         tiles = [(h, w)]
-        if tiled:
-            t, hs, ws = tile_layout(h, w, f, SWIN_001_TILE,
-                                    SWIN_001_TEST_CFG["tile_overlap"])
+        if tile:
+            t, hs, ws = tile_layout(h, w, f, tile, overlap)
             tiles = [(t, t)] * (len(hs) * len(ws))
         for th, tw in tiles:
             hp, wp = th + th % 2, tw + tw % 2
             csa = CSA_MODE_KERNEL[csa_route(hp, wp, 2, c, c // 2, 2)]
-            n_csa = 1 if csa == "csa_attention" else len(
+            n_csa = 1 if csa == "csa_attention" or c <= 64 else len(
                 wide_blocks(1, hp, wp))
             for k, n in ((csa, n_csa), ("f3p_build", 1), ("wt_hoist", 1),
                          (decode, 1), ("swin_block", n_blocks)):
-                want[k] = want.get(k, 0) + n
+                if n:
+                    want[k] = want.get(k, 0) + n
     return want
+
+
+def swin001_expected(images, scale, tiled: bool, n_blocks: int) -> dict:
+    """Config 001 swinir's exact launches (``expected_launches`` through
+    its test_cfg, or with ``tiled`` False on whole images)."""
+    return expected_launches(images, scale, SWIN_001_TILE if tiled else None,
+                             SWIN_001["encoder"]["embed_dim"], n_blocks,
+                             SWIN_001_TEST_CFG["tile_overlap"])
+
+
+def u1_inputs(u1, lq: np.ndarray) -> dict:
+    """The one-tap decode kernels' inputs from the seeded image on the
+    edsr_u1 generator: the TILE² tile's maps at x4 (``int``) and x2.5
+    (``rat``, 25 phases of 96²) and the ODD image's maps at x4 (``odd``),
+    each (maps, tables) as ``_kernel_maps`` and the wrappers take them."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    net, ls = u1.generator, u1.generator.local_size
+    with torch.inference_mode():
+        def feat(hw):
+            return net.gen_feature(u1.normalize(torch.as_tensor(
+                lq[:hw[0], :hw[1]], device="cuda")[None])).contiguous()
+
+        f, fo = feat((TILE, TILE)), feat(ODD)
+        return {
+            "int": (net._kernel_maps(f, (0.5, 0.5)),
+                    dk.decoder_tables(4, TILE, TILE, ls, f.device)),
+            "rat": (net._kernel_maps(f, rational_cell(
+                TILE, TILE, TILE * 5 // 2, TILE * 5 // 2)),
+                dk.rational_tables(TILE, TILE, 5, 2, 5, 2, ls, f.device)),
+            "odd": (net._kernel_maps(fo, (0.5, 0.5)),
+                    dk.decoder_tables(4, *ODD, ls, f.device))}
+
+
+def check_u1_kernels(u1, lq: np.ndarray) -> list[dict]:
+    """The one-tap instances (DK = C = 64) on the edsr_u1 generator's
+    path tensors, each (bf16) against its plain version (f32, the same
+    values): K1 and K2 on a TILE² tile, K3 on it at x4 and on the ODD
+    image (row 9), row 10 on the tile at x2.5. K1's library yardstick is
+    one matmul of [feature | csa] by [[W_k0, W_vu], [0, W_vc]]: at one
+    tap K1 is nothing else."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    inputs = u1_inputs(u1, lq)
+    ss = u1.generator.softmax_scale
+    (feature, csa, _, _, _, _, pk), tabs = inputs["int"]
+    b, h, w, c = feature.shape
+    dc, m, hid = csa.shape[-1], b * h * w, 256
+    w_lib = torch.zeros(c + dc, 2 * hid, device="cuda", dtype=torch.bfloat16)
+    w_lib[:c, :hid], w_lib[:c, hid:] = pk["wk0"], pk["wvu"]
+    w_lib[c:, hid:] = pk["wvc"]
+    x_lib = torch.cat([feature, csa], -1)
+    at = "ciaosr_tpu/ops/pallas/decoder_kernel.py:"
+    rows = [kernel_row(
+        "f3p_build@u1", "ciaosr_torch/csrc/f3p_build.cu",
+        at + "623 (_build_f3p; _f3p_kernel u_map mode :561)",
+        lambda: dk.f3p_build(feature, csa, pk["wk0"], pk["wvu"], pk["wvc"]),
+        lambda: dk.f3p_build_plain(*f32((feature, csa, pk["wk0"], pk["wvu"],
+                                         pk["wvc"]))),
+        2 * m * (c * 2 * hid + dc * hid),
+        m * (c + dc) * 2 + (2 * c + dc) * hid * 2 + m * 2 * hid * 2,
+        lambda: torch.matmul(x_lib, w_lib))]
+    rows.append(kernel_row(
+        "wt_hoist@u1", "ciaosr_torch/csrc/wt_hoist.cu",
+        at + "762 (_wt_hoist_planes, dk = C)",
+        lambda: dk.wt_hoist(feature, pk["wkout"], pk["bkout"]),
+        lambda: dk.wt_hoist_plain(feature.float(), pk["wkout"].float(),
+                                  pk["bkout"]),
+        2 * 9 * m * c * (hid + 1),
+        m * c * 2 + c * hid * 2 + c * 4 + 9 * m * (hid * 2 + 4), None))
+    rows.append(decode_row("grid_decode@u1", DECODE_REPLACES[False],
+                           *inputs["int"], False, ss))
+    rows.append(decode_row("grid_decode@u1@{}x{}".format(*ODD),
+                           DECODE_REPLACES["odd"], *inputs["odd"], False, ss))
+    rows.append(decode_row("grid_decode_rational@u1", DECODE_REPLACES[True],
+                           *inputs["rat"], True, ss))
+    return rows
+
+
+def time_u1_kernels(times: dict, u1, lq: np.ndarray) -> None:
+    """The one-tap instances' times into ``times``, on the maps
+    check_u1_kernels holds."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    inputs = u1_inputs(u1, lq)
+    ss = u1.generator.softmax_scale
+    (feature, csa, _, _, _, _, pk), _ = inputs["int"]
+    with torch.inference_mode():
+        times["f3p_build@u1"] = time_ms(lambda: dk.f3p_build(
+            feature, csa, pk["wk0"], pk["wvu"], pk["wvc"]), reps=20)
+        times["wt_hoist@u1"] = time_ms(lambda: dk.wt_hoist(
+            feature, pk["wkout"], pk["bkout"]), reps=20)
+        for name, key, fn in (
+                ("grid_decode@u1", "int", dk.grid_decode),
+                ("grid_decode@u1@{}x{}".format(*ODD), "odd", dk.grid_decode),
+                ("grid_decode_rational@u1", "rat",
+                 dk.grid_decode_rational)):
+            maps, tabs = inputs[key]
+            times[name] = time_ms(lambda: fn(*maps, tabs, ss), reps=5)
+
+
+def edsr_phases(drive, check_image,
+                lq: np.ndarray) -> tuple[list, dict, dict]:
+    """Config 001 edsr (phase "edsr", as shipped) and its generator
+    without the unfold (phase "edsr_u1"), full width, bf16, seeded random
+    weights: each request of EDSR_REQUESTS / U1_REQUESTS on the seeded
+    image with exactly the launches expected_launches counts and no
+    other, its output checked and held against the plain f32 route of the
+    same weights (max|d|/max|ref| <= REL_TOL); the one-tap kernel rows
+    (check_u1_kernels); then one f32-model request (the config without
+    ``dtype``) on a TILE² tile through the one-tap kernels, against the
+    plain f32 route. Returns the one-tap rows, each kernel row's launches
+    over both phases (the nine-tap phase's go to the flagship's rows: the
+    same compiled instances) and the two phases' kernel-route restorers."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+    from ciaosr_torch.ops import kernels
+
+    csa_rows = {"csa_stencil_fused": "csa_stencil_fused",
+                "csa_attention": "csa_attention@{}x{}".format(*SET5[0])}
+    row_launches: dict = {}
+    u1_rows: list = []
+    restorers: dict = {}
+    for phase, cfg, requests in (("edsr", EDSR_001, EDSR_REQUESTS),
+                                 ("edsr_u1", EDSR_U1, U1_REQUESTS)):
+        suffix = "" if cfg["feat_unfold"] else "@u1"
+        gens = [CiaoSRRestorer(dict(cfg, **kw), rgb_mean=RGB_MEAN,
+                               test_cfg=EDSR_TEST_CFG, device="cuda", seed=0)
+                for kw in ({}, dict(dtype=None, use_kernels=False))]
+        t0 = time.perf_counter()
+        for name, hw, scale, how in requests:
+            img = lq[:hw[0], :hw[1]]
+            tiled = how == "tiled"
+            want = expected_launches([hw], scale, TILE if tiled else None,
+                                     EDSR_001["encoder"]["mid_channels"],
+                                     overlap=EDSR_TEST_CFG["tile_overlap"])
+            out_hw = hr(hw, scale)
+
+            def run(r):
+                if tiled:
+                    return r.forward_test(img, scale=scale)
+                return r.predict(img, out_hw[:2])
+
+            label = "{} {} {}x{} ({})".format(phase, name, *hw, how)
+            out, launches, _ = drive(
+                f"{label}, want {want}", lambda: run(gens[0]), list(want),
+                [k for k in kernels.LAUNCHES if k not in want])
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"path {label}: launches {got}, want "
+                                     f"{want}")
+            check_image(label, out, out_hw)
+            a, r = errors(torch.as_tensor(out), torch.as_tensor(run(gens[1])))
+            log(f"e2e {label}: kernel route (bf16) vs plain route (f32) "
+                f"max|d|={a:.3e} max|d|/max|ref|={r:.3e}")
+            if not r <= REL_TOL:
+                raise AssertionError(f"{label}: kernel route disagrees: "
+                                     f"{r:.3e}")
+            tile_w = min(TILE, *hw) if tiled else hw[1]
+            for k, n in got.items():
+                row = csa_rows.get(k, k + suffix)
+                if k == "grid_decode" and tile_w % 8:   # row 9's odd width
+                    row += "@{}x{}".format(*ODD)
+                row_launches[row] = row_launches.get(row, 0) + n
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s for "
+            f"{len(requests)} requests, kernel and plain routes")
+        if suffix:
+            u1_rows = check_u1_kernels(gens[0], lq)
+            f32k = CiaoSRRestorer(dict(cfg, dtype=None), rgb_mean=RGB_MEAN,
+                                  device="cuda", seed=0)
+            tile = torch.as_tensor(lq[:TILE, :TILE], device="cuda")[None]
+            ran = ["csa_stencil_fused", "f3p_build", "wt_hoist",
+                   "grid_decode"]
+            got, launches, _ = drive(
+                f"edsr_u1 f32 model x4 {TILE}x{TILE} tile (kernel route)",
+                lambda: f32k.grid_predict(tile, 4), ran,
+                [k for k in kernels.LAUNCHES if k not in ran])
+            if any(launches[k] != 1 for k in ran):
+                raise AssertionError(f"edsr_u1 f32 model: launches "
+                                     f"{launches}, want one of each {ran}")
+            for k in ran:
+                row = csa_rows.get(k, k + suffix)
+                row_launches[row] = row_launches.get(row, 0) + 1
+            a, r = errors(got, gens[1].grid_predict(tile, 4))
+            log(f"e2e f32 model, kernel route vs plain f32 route, edsr_u1 "
+                f"x4 {TILE}x{TILE}: max|d|={a:.3e} max|d|/max|ref|={r:.3e}")
+            if not r <= REL_TOL:
+                raise AssertionError(f"edsr_u1 f32 model's kernel route "
+                                     f"disagrees: {r:.3e}")
+            del f32k
+        restorers[phase] = gens[0]
+        del gens
+    return u1_rows, row_launches, restorers
+
+
+def hr(hw, s=4):
+    """The HR shape of an LR (H, W) at scale s."""
+    return (round(s * hw[0]), round(s * hw[1]), 3)
 
 
 def swin_breakdown(swin, lq_tile: torch.Tensor) -> None:
@@ -1804,9 +2077,6 @@ def main() -> int:
     def lr(hw):
         return lq[:hw[0], :hw[1]]
 
-    def hr(hw, s=4):
-        return (round(s * hw[0]), round(s * hw[1]), 3)
-
     big = np.random.default_rng(1).random((192, 1024, 3), dtype=np.float32)
     if full_only:
         time_full_images(restorer, big)
@@ -1820,7 +2090,11 @@ def main() -> int:
         sw1 = CiaoSRRestorer(SWIN_001, rgb_mean=RGB_MEAN,
                              test_cfg=SWIN_001_TEST_CFG, device="cuda",
                              seed=0)
-        time_kernels(tree, restorer, swin, sw1, lq, lq_s, big)
+        edsr, u1 = (CiaoSRRestorer(cfg, rgb_mean=RGB_MEAN,
+                                   test_cfg=EDSR_TEST_CFG, device="cuda",
+                                   seed=0) for cfg in (EDSR_001, EDSR_U1))
+        time_kernels(tree, restorer, swin, sw1, lq, lq_s, big, edsr=edsr,
+                     u1=u1)
         return 0
 
     def full(hw):
@@ -2226,12 +2500,37 @@ def main() -> int:
         f"{(4 * SWIN_001_IMG) ** 2 / 1e3 / ms_001:.3f} MP/s")
     swin001_route_checks(sw1, lq_s)
     mark("the 001 swinir paths and route checks")
+
+    # ---- config 001 edsr, as shipped and without the unfold
+    u1_rows, edsr_launches, edsr_gens = edsr_phases(drive, check_image, lq)
+    unrowed = set(edsr_launches) - {r["name"] for r in rows + u1_rows}
+    if unrowed:
+        raise AssertionError(f"config 001 edsr launched {unrowed}, which "
+                             "no kernel row holds")
+    for r in u1_rows:
+        r["launches"] = edsr_launches[r["name"]]
+    for r in rows:   # the nine-tap phase's launches at the flagship's rows
+        if r["name"] in edsr_launches:
+            r["launches_edsr"] = edsr_launches[r["name"]]
+            r["launches"] += r["launches_edsr"]
+    for r in u1_rows + [r for r in rows if "launches_edsr" in r]:
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "
+            f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']} "
+            f"launches={r['launches']} (config 001 edsr "
+            f"{r.get('launches_edsr', r['launches'])}) "
+            f"tflops={r['tflops']:.1f}")
+    rows += u1_rows
+    mark("the 001 edsr phases")
     f32_model_checks(drive, lq, lq_s)
     swin_breakdown(swin, swin_tile)
     mark("the f32 models and the SwinIR breakdown")
     time_kernels(tree, restorer, swin, sw1, lq, lq_s, big,
-                 {r["name"]: r["ms"] for r in sw1_rows})
-    del sw1
+                 {r["name"]: r["ms"] for r in sw1_rows},
+                 edsr_gens["edsr"], edsr_gens["edsr_u1"],
+                 {r["name"]: r["ms"] for r in u1_rows})
+    del sw1, edsr_gens
     mark("time_kernels")
 
     # ---- training the 002 generator: rows 11 and 12 at the batch's

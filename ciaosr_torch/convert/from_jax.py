@@ -1,16 +1,18 @@
 """JAX (flax) param tree → the port's reference-layout state_dict.
 
 Inverts each step of ciaosr_tpu/convert/torch_weights.py::convert_generator
-(RDN and SwinIR generators): Dense (in, out) → Linear (out, in); HWIO →
+(RDN, EDSR and SwinIR generators): Dense (in, out) → Linear (out, in); HWIO →
 OIHW; LayerNorm ``scale`` → ``weight``; the PReLU scalar → a (1,) weight;
 ``rdb_i/layers_j`` → ``rdbs.i.layers.j.conv``; ``gff_0/1`` → ``gff.0/1``;
-``patch_embed_norm`` → ``patch_embed.norm``; ``layers_i/blocks_j/mlp_fc1``
-→ ``layers.i.residual_group.blocks.j.mlp.fc1`` (and the SwinIR
+``body_i/conv1`` → ``body.i.conv1``; ``patch_embed_norm`` →
+``patch_embed.norm``; ``layers_i/blocks_j/mlp_fc1`` →
+``layers.i.residual_group.blocks.j.mlp.fc1`` (and the SwinIR
 converter's other block keys); ``cs_attn/*_conv``/``*_prelu``/``down`` →
 ``cs_attn.*.0``/``.1``/``down``; and the tap-major → channel-major
-permutation of the imnet unfold blocks. Input: nested dicts of arrays
-(optionally under a top-level "params" key). Output: a dict of f32 CPU
-tensors for ``CiaoSRNet.load_state_dict(strict=True)``.
+permutation of the imnet unfold blocks (none without the unfold). Input:
+nested dicts of arrays (optionally under a top-level "params" key).
+Output: a dict of f32 CPU tensors for
+``CiaoSRNet.load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -81,6 +83,20 @@ def rdn_state_dict_from_jax(enc: dict) -> dict:
     return sd
 
 
+def edsr_state_dict_from_jax(enc: dict) -> dict:
+    """The EDSR encoder subtree → ``conv_first``/``body.*``/
+    ``conv_after_body`` keys (the inverse of
+    ciaosr_tpu/convert/torch_weights.py::convert_edsr_encoder)."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(enc["conv_first"], "conv_first", sd)
+    n_blocks = len([k for k in enc if k.startswith("body_")])
+    for i in range(n_blocks):
+        for name in ("conv1", "conv2"):
+            _conv(enc[f"body_{i}"][name], f"body.{i}.{name}", sd)
+    _conv(enc["conv_after_body"], "conv_after_body", sd)
+    return sd
+
+
 def swin_block_state_dict_from_jax(blk: dict) -> dict:
     """One Swin block's subtree → ``norm1``/``attn.*``/``norm2``/``mlp.*``
     keys (no prefix)."""
@@ -119,19 +135,24 @@ def swinir_state_dict_from_jax(enc: dict) -> dict:
 
 
 _ENCODERS = {"rdn": rdn_state_dict_from_jax,
+             "edsr": edsr_state_dict_from_jax,
              "swinir": swinir_state_dict_from_jax}
 
 
 def state_dict_from_jax(params: dict, *, feat_dim: int, n_hidden: int = 4,
                         multi_scale=(2,), encoder: str = "rdn",
-                        non_local_attn: bool = True) -> dict:
-    """Flax params of a LocalImplicitSR{RDN,SWINIR} generator (feat_unfold
-    on; non-local attention as given) → reference-layout state_dict."""
+                        non_local_attn: bool = True,
+                        feat_unfold: bool = True) -> dict:
+    """Flax params of a LocalImplicitSR{RDN,EDSR,SWINIR} generator
+    (non-local attention and the unfold as given) → reference-layout
+    state_dict. Without the unfold the blocks are C wide and their
+    permutation is the identity."""
     p = params.get("params", params)
     c = feat_dim
-    base = 9 * c
+    taps = 9 if feat_unfold else 1
+    base = taps * c
     nla = c * len(multi_scale) if non_local_attn else 0
-    perm = tap_major_perm(c)
+    perm = tap_major_perm(c, taps)
 
     def block_perm(extra: int) -> np.ndarray:
         return np.concatenate([perm, base + np.arange(extra)])

@@ -36,7 +36,12 @@
 // Compiled for (C, DC) = (64, 64), the flagship, (192, 0), SwinIR-CiaoSR
 // without CSA, and (192, 192), SwinIR-CiaoSR with CSA (config 001 swinir:
 // its 180 feature and CSA channels zero-padded to 192 on the host, so the
-// CSA map's 64-channel chunks are three and TMA rows 384 bytes).
+// CSA map's 64-channel chunks are three and TMA rows 384 bytes). Without
+// the unfold (feat_unfold=False: TAPS = 1, the from_feature=False mode of
+// the TPU kernel with u_map = feature) u is the feature itself: the
+// unfold's nine K chunks a channel slice become one, at the centre, and
+// the weight maps have C rows. Compiled so at (64, 64): g_k is one
+// K = 64 product and g_v two (feature, CSA).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -59,7 +64,7 @@ constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 static_assert(CONSUMERS * HID * 64 * 2 <= STAGES * STAGE_BYTES,
               "the epilogue tiles overlay the ring");
 
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 __global__ void __launch_bounds__(THREADS, 1)
 f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
            const __grid_constant__ CUtensorMap tm_csa,
@@ -69,7 +74,7 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
            const __grid_constant__ CUtensorMap tm_gk,
            const __grid_constant__ CUtensorMap tm_gv) {
   constexpr int CS = C / KC;    // channel slices a tap
-  constexpr int NKU = 9 * CS;   // K chunks of the unfold
+  constexpr int NKU = TAPS * CS;  // K chunks of the unfold (of u)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -100,7 +105,8 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
         unsigned char* bt = a + A_BYTES;
         mbar_expect_tx(&full[s], STAGE_BYTES);
         if (kc < NKU) {
-          const int t = kc / CS, cs = kc % CS;
+          // the tap's shifted box; at one tap the centre
+          const int t = TAPS == 9 ? kc / CS : 4, cs = kc % CS;
           tma_load_4d(a, &tm_feat, &full[s], cs * KC, x0 + t % 3 - 1,
                       y0 + t / 3 - 1, b);
           for (int j = 0; j < HID / 64; ++j)
@@ -194,16 +200,16 @@ int map_weights(CUtensorMap* m, const void* p, int rows) {
                      box);
 }
 
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
            const void* wvc, void* gk, void* gv, int B, int H, int W,
            void* stream) {
-  static cudaError_t attr = allow_smem(f3p_kernel<C, DC>, SMEM);
+  static cudaError_t attr = allow_smem(f3p_kernel<C, DC, TAPS>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tf, tc, tk, tv, tvc, tok, tov;
   int err = map_nhwc(&tf, feat, B, H, W, C, BH);
-  if (!err) err = map_weights(&tk, wk, 9 * C);
-  if (!err) err = map_weights(&tv, wvu, 9 * C);
+  if (!err) err = map_weights(&tk, wk, TAPS * C);
+  if (!err) err = map_weights(&tv, wvu, TAPS * C);
   if (!err) err = map_nhwc(&tok, gk, B, H, W, HID, BH / CONSUMERS);
   if (!err) err = map_nhwc(&tov, gv, B, H, W, HID, BH / CONSUMERS);
   if (err) return err;
@@ -215,7 +221,7 @@ int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
     tvc = tk;
   }
   const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH, 2 * B);
-  f3p_kernel<C, DC><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+  f3p_kernel<C, DC, TAPS><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       tf, tc, tk, tv, tvc, tok, tov);
   return (int)cudaGetLastError();
 }
@@ -224,13 +230,19 @@ int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
 
 extern "C" int f3p_build(const void* feat, const void* csa, const void* wk,
                          const void* wvu, const void* wvc, void* gk, void* gv,
-                         int B, int H, int W, int C, int DC, void* stream) {
-  if (C == 64 && DC == 64)
-    return launch<64, 64>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
-  if (C == 192 && DC == 0)
-    return launch<192, 0>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
-  if (C == 192 && DC == 192)
-    return launch<192, 192>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
-                            stream);
+                         int B, int H, int W, int C, int DC, int taps,
+                         void* stream) {
+  if (C == 64 && DC == 64 && taps == 9)
+    return launch<64, 64, 9>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                             stream);
+  if (C == 192 && DC == 0 && taps == 9)
+    return launch<192, 0, 9>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                             stream);
+  if (C == 192 && DC == 192 && taps == 9)
+    return launch<192, 192, 9>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                               stream);
+  if (C == 64 && DC == 64 && taps == 1)
+    return launch<64, 64, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                             stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,6 +56,9 @@
 // shift's hidden rows at once, so it takes at most 4 shifts (one group:
 // local_size 1 or 2), checked on the host. Bound at C = 180 on a 256 x 256
 // map at x2.5: 3.2 ms.
+// Without the unfold (feat_unfold=False: TAPS = 1) u is the feature
+// itself, DK = C: compiled so at (64, 64), DV = 128, one partial value
+// chunk of 128 columns (the warps past it idle), u read at q itself.
 #include "common.cuh"
 
 namespace {
@@ -76,9 +79,9 @@ constexpr int OFF_W = ROWS * LDA * 2;  // act: 67584 B
 // wide: one 32 x 256 chunk of it), in the wide one also the f32 imnet_q
 // sum qacc (32 x 256) and its bf16 chunk input qin (32 x 264); then the
 // warp scratch (8 KB), the logit partials (2 KB), logits and softmax.
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 struct Lay {
-  static constexpr int DK = 9 * C, DV = DK + DC;
+  static constexpr int DK = TAPS * C, DV = DK + DC;
   static constexpr bool WIDE = PIX * DV * 4 > 96 * 1024;
   static constexpr int LDQ = DV + 16;  // narrow: imnet_q input row stride
   static constexpr int OFF_OUTV = OFF_W + 2 * KC * LDW * 2;
@@ -202,9 +205,9 @@ __device__ void epi_hidden(FragC (&acc)[RF][CF], float* scr,
 }
 
 // query and key pixels, and their rel terms, from the rational tables
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
-  using L = Lay<C, DC>;
+  using L = Lay<C, DC, TAPS>;
   constexpr int DK = L::DK, DV = L::DV;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);
@@ -384,8 +387,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params P) {
               if (r_q[row] >= 0) {
                 __align__(16) bf16 xv[8];
                 *reinterpret_cast<uint4*>(xv) = zero8();
-                if (jg < DK) {
-                  const int t = jg / C;
+                if (jg < DK) {  // at one tap the centre: q itself
+                  const int t = TAPS == 9 ? jg / C : 4;
                   const int yy = r_qy[row] + t / 3 - 1, xx = r_qx[row] + t % 3 - 1;
                   if (yy >= 0 && yy < H && xx >= 0 && xx < W)
                     *reinterpret_cast<uint4*>(xv) = ld8(
@@ -511,22 +514,28 @@ Params common_params(void* const* ptrs, int B, int H, int W, int n_phase,
   return P;
 }
 
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 int launch(const Params& P, dim3 grid, void* stream) {
-  using L = Lay<C, DC>;
-  static cudaError_t attr = allow_smem(decode_kernel<C, DC>, L::SMEM);
+  using L = Lay<C, DC, TAPS>;
+  static cudaError_t attr = allow_smem(decode_kernel<C, DC, TAPS>, L::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   if (P.n_shift < 1 || P.n_shift > (L::WIDE ? SG : MAX_SHIFT))
     return (int)cudaErrorInvalidValue;
-  decode_kernel<C, DC>
+  decode_kernel<C, DC, TAPS>
       <<<grid, THREADS, L::SMEM, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int C, int DC, const Params& P, dim3 grid, void* stream) {
-  if (C == 64 && DC == 64) return launch<64, 64>(P, grid, stream);
-  if (C == 192 && DC == 0) return launch<192, 0>(P, grid, stream);
-  if (C == 192 && DC == 192) return launch<192, 192>(P, grid, stream);
+int dispatch(int C, int DC, int taps, const Params& P, dim3 grid,
+             void* stream) {
+  if (C == 64 && DC == 64 && taps == 9)
+    return launch<64, 64, 9>(P, grid, stream);
+  if (C == 192 && DC == 0 && taps == 9)
+    return launch<192, 0, 9>(P, grid, stream);
+  if (C == 192 && DC == 192 && taps == 9)
+    return launch<192, 192, 9>(P, grid, stream);
+  if (C == 64 && DC == 64 && taps == 1)
+    return launch<64, 64, 1>(P, grid, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -535,9 +544,9 @@ int dispatch(int C, int DC, const Params& P, dim3 grid, void* stream) {
 // ptrs: the 22 common pointers, then yq, yk, xq, xk, rely, relx, out.
 // Phases p = a * px + b, n_phase = py * px; out (B, n_phase, OH, OW, 3).
 extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
-                                    int C, int DC, int OH, int OW, int py,
-                                    int px, int n_shift, float softmax_scale,
-                                    void* stream) {
+                                    int C, int DC, int taps, int OH, int OW,
+                                    int py, int px, int n_shift,
+                                    float softmax_scale, void* stream) {
   if (py < 1 || px < 1 || py * px > 65535) return (int)cudaErrorInvalidValue;
   Params P = common_params(ptrs, B, H, W, py * px, n_shift, softmax_scale);
   P.yq = (const int*)ptrs[22];
@@ -551,6 +560,6 @@ extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
   P.OW = OW;
   P.MO = B * OH * OW;
   P.px = px;
-  return dispatch(C, DC, P, dim3((P.MO + PIX - 1) / PIX, py * px),
-                        stream);
+  return dispatch(C, DC, taps, P, dim3((P.MO + PIX - 1) / PIX, py * px),
+                  stream);
 }

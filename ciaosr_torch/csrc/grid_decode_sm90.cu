@@ -63,6 +63,12 @@
 // the DK = 1728 boundary falls in the middle of the 14th value chunk, on a
 // 64-column slab boundary (27 slabs), as DK = 576 does in the flagship's
 // 5th: each slab is gathered from the feature or from the CSA map alone.
+// Without the unfold (feat_unfold=False: TAPS = 1; the TPU kernel with
+// u_map = feature) u is the feature itself, DK = C: compiled so at
+// (64, 64), DV = 128 is one blend chunk of two slabs, the first read
+// from the feature at q, the second from the CSA map; imnet_q's first
+// layer is K = 128. The MLP layers, the ring and the shared memory are
+// the nine-tap instance's.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -284,10 +290,10 @@ __device__ __forceinline__ void blend(const float (&acc)[64], int mode,
 }
 
 // the two consumer warpgroups: warpgroup wg owns rows 64 wg .. 64 wg + 63
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 __device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
                                         Tables& T, int ph) {
-  constexpr int DK = 9 * C, DV = DK + DC;
+  constexpr int DK = TAPS * C, DV = DK + DC;
   unsigned char* act = smem;
   const unsigned char* ring = smem + OFF_RING;
   unsigned char* qin = smem + OFF_QIN;
@@ -422,9 +428,9 @@ __device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
       const int nc = min(VCH, DV - n0);
       gemm<128, false>(accv, act_wg, ACT_SLAB, 4, ring, 0, full, empty, it);
       // acc = attn * bf16(x (.) (acc + b_vout)), x from the 3 x 3 taps of
-      // the feature at q (or csa[q]); 0 for rows without a pixel. A 64-column
-      // slab lies in one tap (C is a multiple of 64), so one row pointer
-      // serves it.
+      // the feature at q (at one tap the feature at q itself; or csa[q]);
+      // 0 for rows without a pixel. A 64-column slab lies in one tap (C is
+      // a multiple of 64), so one row pointer serves it.
 #pragma unroll
       for (int sl = 0; sl < VCH / 64; ++sl) {
         const int c0 = n0 + 64 * sl;
@@ -437,7 +443,8 @@ __device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
             if (q >= 0 && c0 >= DK) {
               xs = P.csa + (size_t)q * DC + (c0 - DK);
             } else if (q >= 0) {
-              const int tap = c0 / C, dy = tap / 3 - 1, dx = tap % 3 - 1;
+              const int tap = TAPS == 9 ? c0 / C : 4;
+              const int dy = tap / 3 - 1, dx = tap % 3 - 1;
               const int yy = T.qy[row0 + 8 * h] + dy;
               const int xx = T.qx[row0 + 8 * h] + dx;
               if (yy >= 0 && yy < H && xx >= 0 && xx < W)
@@ -538,10 +545,10 @@ __device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
   }
 }
 
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_sm90(const __grid_constant__ Maps maps, const Params P) {
-  constexpr int DV = 9 * C + DC;
+  constexpr int DV = TAPS * C + DC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* ring = smem + OFF_RING;
@@ -604,7 +611,7 @@ decode_sm90(const __grid_constant__ Maps maps, const Params P) {
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<C, DC>(P, smem, T, ph);
+    consume<C, DC, TAPS>(P, smem, T, ph);
   }
 }
 
@@ -617,11 +624,11 @@ int map_matrix(CUtensorMap* m, const void* p, int rows, int cols) {
                      box);
 }
 
-template <int C, int DC>
+template <int C, int DC, int TAPS>
 int launch(void* const* ptrs, int B, int H, int W, int n_phase, int n_shift,
            float softmax_scale, void* stream) {
-  constexpr int DV = 9 * C + DC;
-  static cudaError_t attr = allow_smem(decode_sm90<C, DC>, SMEM);
+  constexpr int DV = TAPS * C + DC;
+  static cudaError_t attr = allow_smem(decode_sm90<C, DC, TAPS>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   // the host's limit: 9 shifts (local_size 3) at the flagship width only
   if (n_shift < 1 || n_shift > (C == 64 ? MAX_SHIFT : SG) || n_phase < 1)
@@ -666,8 +673,8 @@ int launch(void* const* ptrs, int B, int H, int W, int n_phase, int n_shift,
   if (err) return err;
   const long long blocks = (long long)((P.M + PIX - 1) / PIX) * n_phase;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  decode_sm90<C, DC><<<(unsigned)blocks, THREADS, SMEM,
-                       (cudaStream_t)stream>>>(m, P);
+  decode_sm90<C, DC, TAPS><<<(unsigned)blocks, THREADS, SMEM,
+                             (cudaStream_t)stream>>>(m, P);
   return (int)cudaGetLastError();
 }
 
@@ -676,16 +683,19 @@ int launch(void* const* ptrs, int B, int H, int W, int n_phase, int n_shift,
 // ptrs: feat, csa, gk, gv, wt, ck, kw, vw, vout, qw0, qw, kb, vb, vbout,
 // qb0, qb, krel, kb0, vrel, vb0, qwout, qbout, dys, dxs, rely, relx, out
 extern "C" int grid_decode(void* const* ptrs, int B, int H, int W, int C,
-                           int DC, int n_phase, int n_shift,
+                           int DC, int taps, int n_phase, int n_shift,
                            float softmax_scale, void* stream) {
-  if (C == 64 && DC == 64)
-    return launch<64, 64>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
-                          stream);
-  if (C == 192 && DC == 0)
-    return launch<192, 0>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
-                          stream);
-  if (C == 192 && DC == 192)
-    return launch<192, 192>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
-                            stream);
+  if (C == 64 && DC == 64 && taps == 9)
+    return launch<64, 64, 9>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
+                             stream);
+  if (C == 192 && DC == 0 && taps == 9)
+    return launch<192, 0, 9>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
+                             stream);
+  if (C == 192 && DC == 192 && taps == 9)
+    return launch<192, 192, 9>(ptrs, B, H, W, n_phase, n_shift,
+                               softmax_scale, stream);
+  if (C == 64 && DC == 64 && taps == 1)
+    return launch<64, 64, 1>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
+                             stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,11 +15,16 @@
 // bf16 wt written (+1.3 MB ck, 4.7 MB feature read) take 52 us, so it is
 // compute-bound. SwinIR-CiaoSR (C = 180 padded to 192 with zero weight
 // rows) on a 256 x 256 map: 489 GFLOP of the function's, 0.49 ms.
+// Without the unfold (feat_unfold=False, TAPS = 1) u is the feature
+// itself, DK = C: the TPU kernel still forms the nine shifted planes, of
+// the feature, so the same kernel runs with one tap; 10.9 GFLOP at
+// M = 192*192, C = 64, where the 170 MB of wt written set the bound.
 // Design: implicit GEMM as in f3p_build.cu. A block takes
-// 32 pixels and one shift, builds the 32 x 9C qk rows in shared memory
-// from two gathers of the feature, and 8 warps run the 9C -> 256 product
+// 32 pixels and one shift, builds the 32 x DK qk rows in shared memory
+// from two gathers of the feature, and 8 warps run the DK -> 256 product
 // on the tensor cores; ck is a warp-reduced dot product of the same rows.
-// Compiled for C = 64 (the flagship) and C = 192.
+// Compiled for C = 64 (the flagship) and C = 192 with the unfold, and for
+// C = 64 without it.
 #include "common.cuh"
 
 namespace {
@@ -28,19 +33,19 @@ constexpr int HID = 256;
 constexpr int ROWS = 32;
 constexpr int THREADS = 256;
 
-template <int C>
+template <int C, int TAPS>
 struct Wt {
-  static constexpr int DK = 9 * C;
+  static constexpr int DK = TAPS * C;
   static constexpr int LDA = DK + 16;  // 16-row starts stay 32B-aligned
   static constexpr int SMEM = ROWS * LDA * 2 + 8 * 256 * 4;
 };
 
-template <int C>
+template <int C, int TAPS>
 __global__ void __launch_bounds__(THREADS)
 wt_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ wkt,
           const float* __restrict__ bk, bf16* __restrict__ wt,
           float* __restrict__ ck, int H, int W, int M) {
-  constexpr int DK = Wt<C>::DK, LDA = Wt<C>::LDA;
+  constexpr int DK = Wt<C, TAPS>::DK, LDA = Wt<C, TAPS>::LDA;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a = reinterpret_cast<bf16*>(smem);
   float* scratch = reinterpret_cast<float*>(smem + ROWS * LDA * 2);
@@ -58,7 +63,9 @@ wt_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ wkt,
     if (p < M) {
       const int t = j / (C / 8), cv = j % (C / 8);
       const int x = p % W, y = (p / W) % H, b = p / (W * H);
-      const int ty = t / 3 - 1, tx = t % 3 - 1;
+      // the tap's offset; none at one tap (u is the feature)
+      const int ty = TAPS == 9 ? t / 3 - 1 : 0;
+      const int tx = TAPS == 9 ? t % 3 - 1 : 0;
       const int ys = clampi(y + dy, 0, H - 1), xs = clampi(x + dx, 0, W - 1);
       const int y0 = y + ty, x0 = x + tx, y1 = ys + ty, x1 = xs + tx;
       if (y0 >= 0 && y0 < H && x0 >= 0 && x0 < W && y1 >= 0 && y1 < H &&
@@ -115,15 +122,15 @@ wt_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ wkt,
                       col0 + 16 * j);
 }
 
-template <int C>
+template <int C, int TAPS>
 int launch(const void* feat, const void* wkt, const void* bk, void* wt,
            void* ck, int B, int H, int W, void* stream) {
-  constexpr int SMEM = Wt<C>::SMEM;
-  static cudaError_t attr = allow_smem(wt_kernel<C>, SMEM);
+  constexpr int SMEM = Wt<C, TAPS>::SMEM;
+  static cudaError_t attr = allow_smem(wt_kernel<C, TAPS>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const int M = B * H * W;
   dim3 grid((M + ROWS - 1) / ROWS, 9);
-  wt_kernel<C><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+  wt_kernel<C, TAPS><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       (const bf16*)feat, (const bf16*)wkt, (const float*)bk, (bf16*)wt,
       (float*)ck, H, W, M);
   return (int)cudaGetLastError();
@@ -133,8 +140,12 @@ int launch(const void* feat, const void* wkt, const void* bk, void* wt,
 
 extern "C" int wt_hoist(const void* feat, const void* wkt, const void* bk,
                         void* wt, void* ck, int B, int H, int W, int C,
-                        void* stream) {
-  if (C == 64) return launch<64>(feat, wkt, bk, wt, ck, B, H, W, stream);
-  if (C == 192) return launch<192>(feat, wkt, bk, wt, ck, B, H, W, stream);
+                        int taps, void* stream) {
+  if (C == 64 && taps == 9)
+    return launch<64, 9>(feat, wkt, bk, wt, ck, B, H, W, stream);
+  if (C == 192 && taps == 9)
+    return launch<192, 9>(feat, wkt, bk, wt, ck, B, H, W, stream);
+  if (C == 64 && taps == 1)
+    return launch<64, 1>(feat, wkt, bk, wt, ck, B, H, W, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,15 @@
 """Config-driven generator builder with the reference's config surface.
 
 Counterpart of ciaosr_tpu/models/builder.py for ``LocalImplicitSRRDN``
-(an RDN encoder) and ``LocalImplicitSRSWINIR`` (a SwinIR encoder; the
+(an RDN encoder), ``LocalImplicitSREDSR`` (an EDSR encoder),
+``LocalImplicitSRNet`` (an RDN or EDSR encoder, named by the encoder's
+``type``) and ``LocalImplicitSRSWINIR`` (a SwinIR encoder; the
 generator's ``window_size`` reaches the encoder), plus MLPRefiner
-imnet_q/k/v configs. The imnet in/out dims are recomputed from the feature
-width, not read from the config (the net overwrites them): imnet_k 580 →
-576, imnet_v 644 → 640, imnet_q 640 → 3 at C = 64 with CSA. The 002
+imnet_q/k/v configs and ``feat_unfold``. The imnet in/out dims are
+recomputed from the feature width, not read from the config (the net
+overwrites them): imnet_k 580 → 576, imnet_v 644 → 640, imnet_q 640 → 3
+at C = 64 with CSA (68 → 64, 132 → 128, 128 → 3 with
+``feat_unfold=False``). The 002
 configs' decoder knobs with baked-in semantics are accepted and checked
 as in the JAX package. Weights are random, drawn from an explicit seed
 with PyTorch's default Linear/Conv2d init (U(±1/√fan_in)) and PReLU 0.25;
@@ -24,15 +28,16 @@ import torch.nn as nn
 
 from ciaosr_torch.core.device import resolve_device, resolve_dtype
 from ciaosr_torch.models.ciaosr import CiaoSRNet
+from ciaosr_torch.models.edsr import EDSR
 from ciaosr_torch.models.rdn import RDN
 from ciaosr_torch.models.swinir import SwinIR
 
-_NOT_PORTED = {
-    "LocalImplicitSREDSR": "ROADMAP.md queue 1 item 2 (EDSR encoder)",
-    "LocalImplicitSRNet": "ROADMAP.md queue 1 item 2 (EDSR encoder)",
-}
-_ENCODERS = {"LocalImplicitSRRDN": ("RDN", RDN),
-             "LocalImplicitSRSWINIR": ("SwinIR", SwinIR)}
+_BACKBONES = {"RDN": RDN, "EDSR": EDSR, "SwinIR": SwinIR}
+# generator type -> the encoder types it takes (the first is the default)
+_ENCODERS = {"LocalImplicitSRRDN": ("RDN",),
+             "LocalImplicitSREDSR": ("EDSR",),
+             "LocalImplicitSRNet": ("RDN", "EDSR"),
+             "LocalImplicitSRSWINIR": ("SwinIR",)}
 
 # Knobs the 002 configs pass that are constants in the shipped decoder
 # (unfold + lec + mulwkv + res always on): name -> required value.
@@ -97,22 +102,18 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
     dev = resolve_device(device)
     cfg = copy.deepcopy(dict(cfg))
     gname = cfg.pop("type")
-    if gname in _NOT_PORTED:
-        raise NotImplementedError(f"generator {gname} is not ported yet: "
-                                  f"{_NOT_PORTED[gname]}")
     if gname not in _ENCODERS:
         raise KeyError(f"unknown generator type {gname}")
     _check_baked_in(cfg)
-    enc_type, enc_cls = _ENCODERS[gname]
     enc_cfg = dict(cfg.pop("encoder"))
-    if enc_cfg.pop("type", enc_type) != enc_type:
-        raise NotImplementedError(f"{gname} takes a {enc_type} encoder")
+    enc_type = enc_cfg.pop("type", _ENCODERS[gname][0])
+    if enc_type not in _ENCODERS[gname]:
+        raise KeyError(f"{gname} takes a {' or '.join(_ENCODERS[gname])} "
+                       f"encoder, got {enc_type}")
+    enc_cls = _BACKBONES[enc_type]
     window_size = cfg.pop("window_size", None)
     if enc_cls is SwinIR and window_size is not None:
         enc_cfg.setdefault("window_size", window_size)
-    if not cfg.pop("feat_unfold", True):
-        raise NotImplementedError("feat_unfold=False is not ported yet: "
-                                  "ROADMAP.md queue 1 item 4")
     encoder = enc_cls(**enc_cfg)
     imnet_q = cfg.pop("imnet_q", None)
     imnet_k = cfg.pop("imnet_k", None)
@@ -125,6 +126,7 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
         hidden_k=_hidden(imnet_k),
         hidden_v=_hidden(imnet_v),
         local_size=cfg.pop("local_size", 2),
+        feat_unfold=cfg.pop("feat_unfold", True),
         non_local_attn=cfg.pop("non_local_attn", True),
         multi_scale=tuple(cfg.pop("multi_scale", (2,))),
         softmax_scale=cfg.pop("softmax_scale", 1.0),

@@ -18,6 +18,10 @@ Counterpart of ciaosr_tpu/models/ciaosr.py::CiaoSRNet:
 
 With ``non_local_attn=False`` (the 002 SwinIR-CiaoSR configs) there is no
 CSA: the value features are the unfold alone and no CSA kernel runs.
+With ``feat_unfold=False`` (LIIF's "-u" ablation) the keys, values and
+queries are the feature pixel itself, not its 3×3 unfold: every map and
+MLP block is C wide instead of 9C, and the decode kernels run their
+one-tap instances.
 
 State-dict layout is the reference's: the encoder's modules sit at the
 top level (``sfe1``, ``rdbs.*``, ``gff.*`` for RDN; ``conv_first``,
@@ -43,7 +47,7 @@ from ciaosr_torch.ops.kernels import decoder as dk_ops
 from ciaosr_torch.ops.kernels.decoder import (grid_axis_tables,
                                               shift_offsets, take2)
 from ciaosr_torch.ops.neighborhood import (gather_patches, shift_edge,
-                                           tap_major_perm, unfold_nhwc)
+                                           tap_major_perm)
 from ciaosr_torch.ops.sampling import (grid_sample_bilinear_border,
                                        interpolate_bilinear, nearest_index)
 
@@ -75,7 +79,7 @@ class CiaoSRNet(nn.Module):
                  out_dim: int = 3, hidden_q: Sequence[int] = (256,) * 4,
                  hidden_k: Sequence[int] = (256,) * 4,
                  hidden_v: Sequence[int] = (256,) * 4, local_size: int = 2,
-                 non_local_attn: bool = True,
+                 feat_unfold: bool = True, non_local_attn: bool = True,
                  multi_scale: Sequence[int] = (2,),
                  softmax_scale: float = 1.0,
                  eval_bsize: int | None = 30000,
@@ -88,7 +92,8 @@ class CiaoSRNet(nn.Module):
         self.__dict__["encoder"] = encoder
         for name, mod in encoder.named_children():
             self.add_module(name, mod)
-        base = feat_dim * 9
+        self.feat_unfold = feat_unfold
+        base = feat_dim * self.taps
         nla = feat_dim * len(multi_scale) if non_local_attn else 0
         self.local_size = local_size
         self.non_local_attn = non_local_attn
@@ -102,6 +107,12 @@ class CiaoSRNet(nn.Module):
         if non_local_attn:
             self.cs_attn = CrossScaleAttention(channels=feat_dim,
                                                scales=multi_scale)
+
+    @property
+    def taps(self) -> int:
+        """The taps of the unfold a key carries: 9 (the 3×3
+        neighbourhood) or, without the unfold, 1 (the pixel alone)."""
+        return 9 if self.feat_unfold else 1
 
     # ------------------------------------------------------------ features
     def gen_feature(self, x: torch.Tensor) -> torch.Tensor:
@@ -145,9 +156,10 @@ class CiaoSRNet(nn.Module):
         dt = self.dtype
         if nl_feat is None:
             nl_feat = self.nl_feature(feature, use_kernel=self.use_kernels)
+        ksize = 3 if self.feat_unfold else 1
         iy0 = nearest_index(coord[..., 0], h).clamp(0, h - 1)
         ix0 = nearest_index(coord[..., 1], w).clamp(0, w - 1)
-        query = gather_patches(feature, iy0, ix0)
+        query = gather_patches(feature, iy0, ix0, ksize)
 
         rx = (1.0 - cell[:, 0, 0]) / (h - 1)
         ry = (1.0 - cell[:, 0, 1]) / (w - 1)
@@ -164,7 +176,7 @@ class CiaoSRNet(nn.Module):
 
         iy = nearest_index(coord_s[..., 0], h).clamp(0, h - 1)
         ix = nearest_index(coord_s[..., 1], w).clamp(0, w - 1)
-        key = gather_patches(feature, iy, ix)
+        key = gather_patches(feature, iy, ix, ksize)
         value = key
         if nl_feat is not None:
             idx = (iy * w + ix).reshape(b, -1).long()
@@ -192,15 +204,16 @@ class CiaoSRNet(nn.Module):
     # ---------------------------------------------------------- plain grid
     def _plain_maps(self, feature: torch.Tensor):
         """The plain dense decodes' per-image maps in the compute dtype:
-        u (3×3 unfold, tap-major), v = [u | CSA] (u alone without CSA), the
-        hoisted first-layer products g_k = u@W_k0 and g_v = v@W_v0, and the
-        permutations between the tap-major maps and the MLPs' channel-major
-        blocks (perm for k, vperm for v; inv takes imnet_q's input back)."""
+        u (3×3 unfold, tap-major; the feature itself without the unfold),
+        v = [u | CSA] (u alone without CSA), the hoisted first-layer
+        products g_k = u@W_k0 and g_v = v@W_v0, and the permutations
+        between the tap-major maps and the MLPs' channel-major blocks (perm
+        for k, vperm for v; inv takes imnet_q's input back)."""
         dt = self.dtype
-        dk = 9 * feature.shape[-1]
-        perm = torch.as_tensor(tap_major_perm(feature.shape[-1]),
+        dk = self.taps * feature.shape[-1]
+        perm = torch.as_tensor(tap_major_perm(feature.shape[-1], self.taps),
                                device=feature.device)
-        u_map = unfold_nhwc(feature).to(dt)
+        u_map = dk_ops.unfold_taps(feature, self.taps).to(dt)
         csa = self.nl_feature(feature, use_kernel=False)
         v_map = u_map if csa is None else torch.cat([u_map, csa.to(dt)], -1)
         vperm = torch.cat([perm, torch.arange(dk, v_map.shape[-1],
@@ -277,7 +290,7 @@ class CiaoSRNet(nn.Module):
         feature = feature.to(self.dtype)   # CSA computes in the model dtype
         csa = self.nl_feature(feature.contiguous(), use_kernel=True)
         dc = 0 if csa is None else csa.shape[-1]
-        cp, dcp = dk_ops.padded_widths(c, dc)
+        cp, dcp = dk_ops.padded_widths(c, dc, self.taps)
         if csa is not None:
             csa = csa.to(dt)
             if dcp != dc:

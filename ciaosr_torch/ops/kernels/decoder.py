@@ -15,19 +15,28 @@ models/ciaosr.py::shift_offsets / _grid_axis_tables.
 Weights enter packed (``pack_decoder``): tap-major unfold blocks, (in, out)
 matrices in the compute dtype, f32 biases, the cell terms folded into the
 first-layer bias, imnet_v's output layer and imnet_q's first layer split
-at 9C. The decoder reads u (the 3×3 unfold) nowhere from memory: K2 and K3
-rebuild it from the raw feature.
+at DK = taps·C. The decoder reads u (the 3×3 unfold) nowhere from memory:
+K2 and K3 rebuild it from the raw feature.
 
-Widths. The kernels are compiled for three (C, DC) pairs, ``INSTANCES``:
-the RDN flagship (64 feature, 64 CSA channels), SwinIR-CiaoSR without CSA
-(DC = 0, csa None) at C = 192 and SwinIR-CiaoSR with CSA (config 001
-swinir) at (192, 192), its 180 feature and CSA channels zero-padded
-(``padded_widths``; ``pack_decoder(c_pad=..., dc_pad=...)`` puts zero rows
-and columns at the padded channels of every unfold block and of the CSA
-block, so the padding changes no result). The wrappers read C and DC from
-their tensors and raise for any other pair; both modes of K3 take all
-three (the rational mode's kernel blends the value in 256-column chunks
-at C = 192: at (192, 192) the last one is 128 columns wide).
+Taps. u is the 3×3 unfold of the feature (9 taps, DK = 9C) or, for a
+generator with ``feat_unfold=False``, the feature itself (1 tap, DK = C):
+the JAX package passes ``u_map = feature`` to the same TPU kernels. K1
+then takes one K chunk a channel slice instead of nine, K2 still forms
+the nine shifted planes (of the feature), and K3's value is [feature |
+csa]. The wrappers read the tap count from the packed weights' rows.
+
+Widths. The kernels are compiled for the (C, DC, taps) triples of
+``INSTANCES``: the RDN flagship (64 feature, 64 CSA channels), SwinIR-
+CiaoSR without CSA (DC = 0, csa None) at C = 192 and SwinIR-CiaoSR with
+CSA (config 001 swinir) at (192, 192), its 180 feature and CSA channels
+zero-padded (``padded_widths``; ``pack_decoder(c_pad=..., dc_pad=...)``
+puts zero rows and columns at the padded channels of every unfold block
+and of the CSA block, so the padding changes no result), all with the
+unfold; and (64, 64) without it (config 001 edsr's generator with
+``feat_unfold=False``). The wrappers read C and DC from their tensors and
+raise for any other triple; both modes of K3 take all four (the rational
+mode's kernel blends the value in 256-column chunks: at (192, 192) the
+last one is 128 columns wide, at one tap the only one).
 """
 
 from __future__ import annotations
@@ -44,9 +53,11 @@ from ciaosr_torch.ops.kernels import _build
 from ciaosr_torch.ops.neighborhood import (shift_edge, tap_major_perm,
                                            unfold_nhwc)
 
-# the (C, DC) pairs the kernels are compiled for, and the MLP widths
-INSTANCES = ((64, 64), (192, 0), (192, 192))
+# the (C, DC, taps) triples the kernels are compiled for, and the MLP widths
+INSTANCES = ((64, 64, 9), (192, 0, 9), (192, 192, 9), (64, 64, 1))
 HID, N_HIDDEN = 256, 4
+# where the one-tap widths that have no instance are queued
+ONE_TAP_ITEM = "ROADMAP.md queue 2 item 3"
 # at C = 192 the rational mode's kernel blends the value chunk by chunk
 # straight into imnet_q's first layer, which needs every shift's row in one
 # product; both modes take at most 4 shifts there (local_size ≤ 2, as every
@@ -54,12 +65,14 @@ HID, N_HIDDEN = 256, 4
 WIDE_MAX_SHIFT = 4
 
 
-def padded_widths(c: int, dc: int) -> tuple[int, int]:
+def padded_widths(c: int, dc: int, taps: int = 9) -> tuple[int, int]:
     """The kernel widths a c-channel feature and a dc-channel CSA map
-    (0: none) are zero-padded to: the smallest compiled pair that holds
-    both, with CSA as the map has it ((c, dc) itself past the widest)."""
-    return min((p for p in INSTANCES
-                if p[0] >= c and p[1] >= dc and (p[1] > 0) == (dc > 0)),
+    (0: none) decoded with ``taps`` taps are zero-padded to: the smallest
+    compiled pair of those taps that holds both, with CSA as the map has
+    it ((c, dc) itself past the widest)."""
+    return min((p[:2] for p in INSTANCES
+                if p[2] == taps and p[0] >= c and p[1] >= dc
+                and (p[1] > 0) == (dc > 0)),
                default=(c, dc))
 
 
@@ -68,10 +81,31 @@ def widths(feature, csa) -> tuple[int, int]:
     return feature.shape[-1], 0 if csa is None else csa.shape[-1]
 
 
-def _check_instance(c: int, dc: int, name: str) -> None:
-    if (c, dc) not in INSTANCES:
-        raise ValueError(f"{name}: the kernels are compiled for (C, DC) in "
-                         f"{INSTANCES}, got ({c}, {dc})")
+def taps_of(rows: int, c: int, name: str) -> int:
+    """The taps of a decode whose packed unfold block has ``rows`` rows
+    at C = c: 9 (the 3×3 unfold) or 1 (the feature itself)."""
+    if rows not in (9 * c, c):
+        raise ValueError(f"{name}: {rows} unfold rows at C={c}: want 9C "
+                         "or C")
+    return rows // c
+
+
+def unfold_taps(feature, taps: int):
+    """u of a decode: the 3×3 unfold of the feature, or at one tap the
+    feature itself."""
+    return unfold_nhwc(feature) if taps == 9 else feature
+
+
+def _check_instance(c: int, dc: int, taps: int | None, name: str) -> None:
+    """Raise unless (c, dc, taps) is compiled; ``taps`` None: unless (c, dc)
+    is, at some tap count."""
+    if (c, dc) not in {p[:2] for p in INSTANCES} or (
+            taps is not None and (c, dc, taps) not in INSTANCES):
+        where = f"; the other one-tap widths are {ONE_TAP_ITEM}" \
+            if taps == 1 else ""
+        raise ValueError(f"{name}: the kernels are compiled for (C, DC, "
+                         f"taps) in {INSTANCES}, got ({c}, {dc}, {taps})"
+                         + where)
 
 # the 3×3 edge-clamped shifts d = (dy, dx) in the order of the wt planes
 SHIFTS9 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -128,28 +162,30 @@ def pack_decoder(imnet_k: nn.Module, imnet_v: nn.Module, imnet_q: nn.Module,
 
     The MLPs' unfold blocks are channel-major (c·9 + tap); the packed ones
     are tap-major (tap·C + c) over ``c_pad`` ≥ c channels per tap, zero
-    at the padded ones, then the CSA block over ``dc_pad`` ≥ DC channels,
-    zero at its padded ones. Matrices are (in, out) in ``dtype``;
+    at the padded ones (one tap, the feature itself, where the MLPs were
+    built without the unfold: their blocks are C wide), then the CSA
+    block over ``dc_pad`` ≥ DC channels, zero at its padded ones. Matrices are (in, out) in ``dtype``;
     biases, rel rows and the out layers feeding f32 dot products are f32
     (rounded through ``dtype`` where the kernel multiplies them as such).
     ``cell`` = (cell_y·H, cell_x·W), folded into the first-layer biases:
     (2/s, 2/s) at integer scale s."""
     cp = c if c_pad is None else c_pad
-    dk = 9 * c
-    perm = torch.as_tensor(tap_major_perm(c))
     lk, lv, lq = imnet_k.linears, imnet_v.linears, imnet_q.linears
+    taps = taps_of(lk[0].in_features - 4, c, "pack_decoder")
+    dk = taps * c
+    perm = torch.as_tensor(tap_major_perm(c, taps))
     if not len(lk) == len(lv) == len(lq):
         raise ValueError("imnet_k/v/q need the same depth")
     dv = lv[0].in_features - 4
     dc = dv - dk
     dcp = dc if dc_pad is None else dc_pad
     vperm = torch.cat([perm, torch.arange(dk, dv)])
-    dkp, dvp = 9 * cp, 9 * cp + dcp
+    dkp, dvp = taps * cp, taps * cp + dcp
 
     def spread(t, n, dim=0):   # the real entries to their packed ones
         if cp == c and dcp == dc:
             return t
-        at = torch.as_tensor([i * cp + ch for i in range(9)
+        at = torch.as_tensor([i * cp + ch for i in range(taps)
                               for ch in range(c)]
                              + list(range(dkp, dkp + dc)), device=t.device)
         out = t.new_zeros(*t.shape[:dim], n, *t.shape[dim + 1:])
@@ -282,36 +318,39 @@ def grid_axis_tables(n: int, tn: int, p: int, local_size: int) -> dict:
 
 def f3p_build_plain(feature, csa, wk0, wvu, wvc):
     """g_k = u@W_k0, g_v = u@W_vu + csa@W_vc (u@W_vu without CSA) with
-    u = unfold(feature)."""
-    u = unfold_nhwc(feature)
+    u = unfold(feature), or u = feature where W_k0 has C rows (one tap)."""
+    u = unfold_taps(feature, taps_of(wk0.shape[0], feature.shape[-1],
+                                     "f3p_build"))
     gv = u @ wvu
     return u @ wk0, gv if csa is None else gv + csa @ wvc
 
 
 def f3p_build(feature, csa, wk0, wvu, wvc):
     """K1 on CUDA tensors, the plain version on CPU tensors. feature
-    (B, H, W, C), csa (B, H, W, DC) or None; W_k0, W_vu: (9C, 256); W_vc:
-    (DC, 256). Returns g_k, g_v (B, H, W, 256)."""
+    (B, H, W, C), csa (B, H, W, DC) or None; W_k0, W_vu: (taps·C, 256);
+    W_vc: (DC, 256). Returns g_k, g_v (B, H, W, 256)."""
     if feature.device.type == "cpu":
         return f3p_build_plain(feature, csa, wk0, wvu, wvc)
     b, h, w, _ = feature.shape
     c, dc = widths(feature, csa)
-    _check_instance(c, dc, "f3p_build")
+    _check_instance(c, dc, None, "f3p_build")
+    taps = taps_of(wk0.shape[0], c, "f3p_build")
+    _check_instance(c, dc, taps, "f3p_build")
     _build.check_tensor(feature, (b, h, w, c), "feature")
     if csa is not None:
         _build.check_tensor(csa, (b, h, w, dc), "csa")
-    _build.check_tensor(wk0, (9 * c, HID), "wk0")
-    _build.check_tensor(wvu, (9 * c, HID), "wvu")
+    _build.check_tensor(wk0, (taps * c, HID), "wk0")
+    _build.check_tensor(wvu, (taps * c, HID), "wvu")
     _build.check_tensor(wvc, (dc, HID), "wvc")
     gk = torch.empty(b, h, w, HID, device=feature.device,
                      dtype=torch.bfloat16)
     gv = torch.empty_like(gk)
     fn = _build.load("f3p_build").f3p_build
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     err = fn(*(_ptr(t) for t in (feature, csa, wk0, wvu, wvc, gk, gv)),
-             b, h, w, c, dc, _build.stream_ptr(feature.device))
+             b, h, w, c, dc, taps, _build.stream_ptr(feature.device))
     kernels.LAUNCHES["f3p_build"] += 1
     _build.check(err, "f3p_build")
     return gk, gv
@@ -321,8 +360,10 @@ def f3p_build(feature, csa, wk0, wvu, wvc):
 
 def wt_hoist_plain(feature, wkout, bkout):
     """wt_d = (u ⊙ u_d)@W_kout, ck_d = (u ⊙ u_d)·b_kout for the nine
-    edge-clamped shifts d; u_d = u read at clamp(p + d)."""
-    u = unfold_nhwc(feature)
+    edge-clamped shifts d; u_d = u read at clamp(p + d). u is the unfold,
+    or the feature itself where W_kout has C rows (one tap)."""
+    u = unfold_taps(feature, taps_of(wkout.shape[0], feature.shape[-1],
+                                     "wt_hoist"))
     wts, cks = [], []
     for dy, dx in SHIFTS9:
         qk = u * shift_edge(u, dy, dx)
@@ -333,26 +374,31 @@ def wt_hoist_plain(feature, wkout, bkout):
 
 def wt_hoist(feature, wkout, bkout):
     """K2 on CUDA tensors, the plain version on CPU tensors. feature
-    (B, H, W, C), W_kout (9C, 256), b_kout (9C,) f32. Returns wt
+    (B, H, W, C), W_kout (taps·C, 256), b_kout (taps·C,) f32. Returns wt
     (9, B, H, W, 256) and ck (9, B, H, W) f32."""
     if feature.device.type == "cpu":
         return wt_hoist_plain(feature, wkout, bkout)
     b, h, w, c = feature.shape
-    if c not in (ci for ci, _ in INSTANCES):
-        raise ValueError(f"wt_hoist: the kernel is compiled for C in "
-                         f"{[ci for ci, _ in INSTANCES]}, got {c}")
+    built = sorted({(ci, t) for ci, _, t in INSTANCES})
+    taps = taps_of(wkout.shape[0], c, "wt_hoist") \
+        if c in (ci for ci, _ in built) else None
+    if (c, taps) not in built:
+        where = f"; the other one-tap widths are {ONE_TAP_ITEM}" \
+            if taps == 1 else ""
+        raise ValueError(f"wt_hoist: the kernel is compiled for (C, taps) "
+                         f"in {built}, got ({c}, {taps})" + where)
     _build.check_tensor(feature, (b, h, w, c), "feature")
-    _build.check_tensor(wkout, (9 * c, HID), "wkout")
-    _build.check_tensor(bkout, (9 * c,), "bkout", torch.float32)
+    _build.check_tensor(wkout, (taps * c, HID), "wkout")
+    _build.check_tensor(bkout, (taps * c,), "bkout", torch.float32)
     wt = torch.empty(9, b, h, w, HID, device=feature.device,
                      dtype=torch.bfloat16)
     ck = torch.empty(9, b, h, w, device=feature.device, dtype=torch.float32)
     fn = _build.load("wt_hoist").wt_hoist
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     err = fn(*(_build.ptr(t) for t in (feature, wkout, bkout, wt, ck)),
-             b, h, w, c, _build.stream_ptr(feature.device))
+             b, h, w, c, taps, _build.stream_ptr(feature.device))
     kernels.LAUNCHES["wt_hoist"] += 1
     _build.check(err, "wt_hoist")
     return wt, ck
@@ -370,10 +416,12 @@ def grid_decode_plain(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
                       softmax_scale: float):
     """Per phase: four k-paths (first layer from the shifted g_k plus the
     rel terms, hidden layers, logit = wt·h + ck), softmax over the shifts,
-    four v-paths blended into outv, then imnet_q. Returns (B, P, H, W, 3)."""
+    four v-paths blended into outv, then imnet_q. Returns (B, P, H, W, 3).
+    The value is [u | csa], u the unfold or (one tap) the feature."""
     dys, dxs = tabs["dys"].tolist(), tabs["dxs"].tolist()
     rely, relx = tabs["rely"], tabs["relx"]
-    u = unfold_nhwc(feature)
+    u = unfold_taps(feature, taps_of(pk["wk0"].shape[0], feature.shape[-1],
+                                     "grid_decode"))
     dt = gk.dtype
     out = []
     for p in range(len(dys)):
@@ -418,17 +466,19 @@ _DECODE_ORDER = ("kw", "vw", "vout", "qw0", "qw", "kb", "vb", "vbout",
 
 
 def _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk: dict,
-                         n_shift: int) -> tuple[int, int]:
+                         n_shift: int, name: str) -> tuple[int, int, int]:
     """Raise unless the decode kernel's LR inputs and packed weights have
     the widths, dtypes and layout of an instantiation it is compiled for;
-    returns its (C, DC)."""
+    returns its (C, DC, taps)."""
     b, h, w, _ = feature.shape
     C, DC = widths(feature, csa)
-    _check_instance(C, DC, "grid_decode")
+    _check_instance(C, DC, None, name)
+    taps = taps_of(pk["wk0"].shape[0], C, name)
+    _check_instance(C, DC, taps, name)
     if pk["kw"].shape[0] != N_HIDDEN - 1 or pk["qw"].shape[0] != N_HIDDEN - 1:
         raise ValueError(f"grid_decode kernel is built for {N_HIDDEN} "
                          "hidden layers")
-    max_shift = 9 if (C, DC) == INSTANCES[0] else WIDE_MAX_SHIFT
+    max_shift = 9 if C == 64 else WIDE_MAX_SHIFT
     if not 1 <= n_shift <= max_shift:
         raise ValueError(f"grid_decode at C={C} takes 1..{max_shift} "
                          f"shifts, got {n_shift}")
@@ -440,17 +490,18 @@ def _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk: dict,
     _build.check_tensor(wt, (9, b, h, w, HID), "wt")
     _build.check_tensor(ck, (9, b, h, w), "ck", torch.float32)
     bf, f = torch.bfloat16, torch.float32
+    dv = taps * C + DC
     shapes = {"kw": ((3, HID, HID), bf), "vw": ((3, HID, HID), bf),
-              "vout": ((HID, 9 * C + DC), bf), "qw0": ((9 * C + DC, HID), bf),
+              "vout": ((HID, dv), bf), "qw0": ((dv, HID), bf),
               "qw": ((3, HID, HID), bf), "kb": ((3, HID), f),
-              "vb": ((3, HID), f), "vbout": ((9 * C + DC,), f),
+              "vb": ((3, HID), f), "vbout": ((dv,), f),
               "qb0": ((HID,), f), "qb": ((3, HID), f),
               "krel": ((2, HID), f), "kb0": ((HID,), f),
               "vrel": ((2, HID), f), "vb0": ((HID,), f),
               "qwout": ((3, HID), f), "qbout": ((3,), f)}
     for k in _DECODE_ORDER:
         _build.check_tensor(pk[k], shapes[k][0], k, shapes[k][1])
-    return C, DC
+    return C, DC, taps
 
 
 def _ptr(t) -> int:
@@ -467,7 +518,8 @@ def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
                                  softmax_scale)
     b, h, w, _ = feature.shape
     n_phase, n_shift = tabs["dys"].shape
-    c, dc = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk, n_shift)
+    c, dc, taps = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk,
+                                       n_shift, "grid_decode")
     f = torch.float32
     _build.check_tensor(tabs["dys"], (n_phase, n_shift), "dys", torch.int32)
     _build.check_tensor(tabs["dxs"], (n_phase, n_shift), "dxs", torch.int32)
@@ -479,10 +531,11 @@ def grid_decode(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     ptrs = (ctypes.c_void_p * len(args))(*(_ptr(t) for t in args))
     fn = _build.load("grid_decode_sm90").grid_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc, n_phase,
-             n_shift, float(softmax_scale), _build.stream_ptr(feature.device))
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc, taps,
+             n_phase, n_shift, float(softmax_scale),
+             _build.stream_ptr(feature.device))
     kernels.LAUNCHES["grid_decode"] += 1
     _build.check(err, "grid_decode")
     return out
@@ -512,8 +565,10 @@ def grid_decode_rational_plain(feature, csa, gk, gv, wt, ck, pk: dict,
     """K3's math at a rational scale, from ``rational_tables``: for phase
     (a, b) and shift i the k/v first layers read g_k / g_v at the key
     pixels with the table's rel, the logit reads the wt plane
-    d = key − query at the query pixel. Returns (B, py·px, H/qy, W/qx, 3)."""
-    u = unfold_nhwc(feature)
+    d = key − query at the query pixel. Returns (B, py·px, H/qy, W/qx, 3).
+    The value is [u | csa], u the unfold or (one tap) the feature."""
+    u = unfold_taps(feature, taps_of(pk["wk0"].shape[0], feature.shape[-1],
+                                     "grid_decode_rational"))
     dt = gk.dtype
     out = []
     for qy_, qx_, shifts in rational_phases(tabs):
@@ -554,8 +609,8 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     b, h, w, _ = feature.shape
     py, n_shift, oh = tabs["yk"].shape
     px, _, ow = tabs["xk"].shape
-    _check_instance(*widths(feature, csa), "grid_decode_rational")
-    c, dc = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk, n_shift)
+    c, dc, taps = _check_decode_inputs(feature, csa, gk, gv, wt, ck, pk,
+                                       n_shift, "grid_decode_rational")
     i32, f = torch.int32, torch.float32
     _build.check_tensor(tabs["yq"], (py, oh), "yq", i32)
     _build.check_tensor(tabs["yk"], (py, n_shift, oh), "yk", i32)
@@ -570,10 +625,10 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
     ptrs = (ctypes.c_void_p * len(args))(*(_ptr(t) for t in args))
     fn = _build.load("grid_decode").grid_decode_rational
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_void_p]
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc, oh, ow, py,
-             px, n_shift, float(softmax_scale),
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc, taps, oh,
+             ow, py, px, n_shift, float(softmax_scale),
              _build.stream_ptr(feature.device))
     kernels.LAUNCHES["grid_decode_rational"] += 1
     _build.check(err, "grid_decode_rational")

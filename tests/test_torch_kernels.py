@@ -11,7 +11,10 @@ grids smaller than or off its tiles and at spread logits, the same bits
 from call to call and from either entry point, and row 7 also on seeded
 banks at the edges of its tiles and of its online softmax; the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
-≤ 2e-2) and K1-K3 at SwinIR-CiaoSR's 180 channels without CSA. Needs a
+≤ 2e-2), K1-K3 at SwinIR-CiaoSR's 180 channels without CSA, and the
+one-tap instances of K1, K2, K3 (row 9) and row 10 (feat_unfold=False,
+(C, DC) = (64, 64)) on an EDSR generator, every other one-tap width
+raising. Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
 ``python -m pytest --noconftest -q tests/test_torch_kernels.py`` (this file
 imports no JAX). Shapes are flagship widths (C = 64, hidden 256) at small,
@@ -957,3 +960,132 @@ def test_swin_csa_route_matches_plain_route(swin_csa_case, hw, middle):
         net.dtype, net.use_kernels = torch.bfloat16, True
     assert got.shape == ref.shape == (1, 4 * hw[0], 4 * hw[1], 3)
     assert _rel(got, ref) <= REL_TOL
+
+
+# ---- the one-tap instances (feat_unfold=False): K1, K2, K3 (row 9 at the
+# odd width) and row 10 at (C, DC) = (64, 64), DK = 64, on an EDSR
+# generator's own maps
+
+@pytest.fixture(scope="module")
+def u1_case():
+    from ciaosr_torch.models.builder import build_generator
+    cfg = dict(type="LocalImplicitSREDSR",
+               encoder=dict(type="EDSR", in_channels=3, mid_channels=64,
+                            num_blocks=2),
+               imnet_q=dict(type="MLPRefiner", out_dim=3,
+                            hidden_list=[256] * 4),
+               imnet_k=dict(type="MLPRefiner", out_dim=64,
+                            hidden_list=[256] * 4),
+               imnet_v=dict(type="MLPRefiner", out_dim=64,
+                            hidden_list=[256] * 4),
+               feat_unfold=False, dtype="bf16", use_kernels=True)
+    return build_generator(cfg, device="cuda", seed=5)
+
+
+@pytest.mark.parametrize("hw,scale,local_size", [
+    ((21, 37), 4, 2), ((13, 29), 3, 3), ((60, 47), 4, 2), ((20, 38), 2, 1)],
+    ids=["x4", "x3_9shifts", "60x47", "x2_1shift"])
+@torch.inference_mode()
+def test_one_tap_decode_kernels(u1_case, hw, scale, local_size):
+    """K1, K2 and K3 at one tap, each against its plain version on the
+    same inputs; 60 × 47 is row 9's odd width."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = u1_case
+    _, feat, csa = _features(net, hw, hw[0] + scale)
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                         (2.0 / scale, 2.0 / scale), torch.bfloat16)
+    assert pk["wk0"].shape == (64, 256) and pk["vout"].shape == (256, 128)
+    n0 = dict(kernels.LAUNCHES)
+    gk, gv = dk.f3p_build(feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+    assert _rel((gk, gv), dk.f3p_build_plain(*_f32((
+        feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])))) <= REL_TOL
+    wt, ck = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
+    assert _rel((wt, ck), dk.wt_hoist_plain(
+        feat.float(), pk["wkout"].float(), pk["bkout"])) <= REL_TOL
+    tabs = dk.decoder_tables(scale, *hw, local_size, feat.device)
+    got = dk.grid_decode(feat, csa, gk, gv, wt, ck, pk, tabs, 1.0)
+    ref = dk.grid_decode_plain(*_f32((feat, csa, gk, gv, wt, ck)), _f32(pk),
+                               tabs, 1.0)
+    assert {k: v - n0[k] for k, v in kernels.LAUNCHES.items()
+            if v != n0[k]} == {"f3p_build": 1, "wt_hoist": 1,
+                               "grid_decode": 1}
+    assert got.shape == (2, scale * scale, *hw, 3)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("py,qy,hw,local_size", [
+    (5, 2, (20, 38), 2), (7, 3, (21, 39), 2), (5, 2, (20, 38), 3)],
+    ids=["x2.5", "x7/3", "x2.5_9shifts"])
+@torch.inference_mode()
+def test_one_tap_rational(u1_case, py, qy, hw, local_size):
+    """Row 10 at one tap (DV = 128: one partial value chunk) against its
+    plain version, and the whole one-tap rational route against the plain
+    f32 route of the same features."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = u1_case
+    x, feat, csa = _features(net, hw, py + local_size)
+    h, w = hw
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                         rational_cell(h, w, h * py // qy, w * py // qy),
+                         torch.bfloat16)
+    tabs = dk.rational_tables(h, w, py, qy, py, qy, local_size, feat.device)
+    gk, gv = dk.f3p_build(feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+    wt, ck = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
+    n0 = kernels.LAUNCHES["grid_decode_rational"]
+    got = dk.grid_decode_rational(feat, csa, gk, gv, wt, ck, pk, tabs, 1.0)
+    assert kernels.LAUNCHES["grid_decode_rational"] == n0 + 1
+    ref = dk.grid_decode_rational_plain(*_f32((feat, csa, gk, gv, wt, ck)),
+                                        _f32(pk), tabs, 1.0)
+    assert got.shape == (2, py * py, h // qy, w // qy, 3)
+    assert _rel(got, ref) <= REL_TOL
+    got = net.query_rgb_grid_rational_kernels(feat, x, py, qy, py, qy)
+    net.dtype = torch.float32
+    try:
+        ref = net.query_rgb_grid_rational(feat.float(), x, py, qy, py, qy)
+    finally:
+        net.dtype = torch.bfloat16
+    assert _rel(got, ref) <= REL_TOL
+
+
+@torch.inference_mode()
+def test_one_tap_route_matches_plain_route(u1_case):
+    """The one-tap kernel route (K4, K1-K3, bf16) ×4 against the plain f32
+    route of the same weights, through the encoder."""
+    net = u1_case
+    x = torch.as_tensor(np.random.default_rng(8).random(
+        (1, 32, 40, 3), dtype=np.float32), device="cuda") - 0.45
+    got = net.decode_grid(x, 4)
+    net.dtype, net.use_kernels = torch.float32, False
+    try:
+        ref = net.decode_grid(x, 4)
+    finally:
+        net.dtype, net.use_kernels = torch.bfloat16, True
+    assert got.shape == ref.shape == (1, 128, 160, 3)
+    assert _rel(got, ref) <= REL_TOL
+
+
+@torch.inference_mode()
+def test_one_tap_other_widths_raise(u1_case):
+    """A one-tap decode at (C, DC) = (192, 192) or (192, 0) has no instance:
+    every wrapper raises before a launch, naming its ROADMAP.md item."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import decoder as dk
+    rng = np.random.default_rng(2)
+    n0 = dict(kernels.LAUNCHES)
+    for dc in (192, 0):
+        feat = _bf16(rng, 1, 8, 16, 192)
+        csa = _bf16(rng, 1, 8, 16, dc) if dc else None
+        w0 = _bf16(rng, 192, 256)
+        with pytest.raises(ValueError, match="queue 2 item 3"):
+            dk.f3p_build(feat, csa, w0, w0, _bf16(rng, dc, 256))
+        with pytest.raises(ValueError, match="queue 2 item 3"):
+            dk.wt_hoist(feat, w0, torch.zeros(192, device="cuda"))
+        tabs = dk.decoder_tables(2, 8, 16, 2, feat.device)
+        with pytest.raises(ValueError, match="queue 2 item 3"):
+            dk.grid_decode(feat, csa, None, None, None, None, {"wk0": w0},
+                           tabs, 1.0)
+    assert kernels.LAUNCHES == n0

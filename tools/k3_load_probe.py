@@ -9,9 +9,11 @@ copies of it with one class of global loads replaced by a constant.
 
 The copies compute wrong values and serve timing only; the drop in time
 against the kernel is what those loads cost on top of the rest. Runs on
-one CUDA card, at the two shapes of the main path: the flagship decoder
-(C = 64 with CSA) on a 192^2 map at x4, and SwinIR-CiaoSR's (C = 180,
-padded to 192) on a 256^2 map at x4, on seeded random maps and weights.
+one CUDA card, at the three shapes of the main paths: the flagship decoder
+(C = 64 with CSA) on a 192^2 map at x4, the same without the unfold (the
+one-tap instance of feat_unfold=False: u is the feature, the gathers one
+pixel) and SwinIR-CiaoSR's (C = 180, padded to 192) on a 256^2 map at
+x4, on seeded random maps and weights.
 
     python3 tools/k3_load_probe.py
 
@@ -44,6 +46,7 @@ FLAGSHIP = dict(
                  num_layers=2, channel_growth=64),
     imnet_q=dict(IMNET, out_dim=3), imnet_k=dict(IMNET, out_dim=64),
     imnet_v=dict(IMNET, out_dim=64), dtype="bf16", use_kernels=True)
+FLAGSHIP_U1 = dict(FLAGSHIP, feat_unfold=False)
 SWINIR = dict(
     type="LocalImplicitSRSWINIR", window_size=8,
     encoder=dict(type="SwinIR", embed_dim=180, depths=[2], num_heads=[6]),
@@ -90,15 +93,16 @@ def launch(fn, feature, csa, gk, gv, wt, ck, pk, tabs, ss):
     b, h, w, _ = feature.shape
     n_phase, n_shift = tabs["dys"].shape
     c, dc = dk.widths(feature, csa)
+    taps = dk.taps_of(pk["wk0"].shape[0], c, "probe copy")
     out = torch.empty(b, n_phase, h, w, 3, device=feature.device)
     args = [feature, csa, gk, gv, wt, ck, *(pk[k] for k in dk._DECODE_ORDER),
             tabs["dys"], tabs["dxs"], tabs["rely"], tabs["relx"], out]
     ptrs = (ctypes.c_void_p * len(args))(*(dk._ptr(t) for t in args))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     _build.check(fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, dc,
-                    n_phase, n_shift, float(ss),
+                    taps, n_phase, n_shift, float(ss),
                     _build.stream_ptr(feature.device)), "probe copy")
     return out
 
@@ -145,6 +149,7 @@ def main() -> int:
     with torch.inference_mode():
         for label, cfg, hw, c, c_pad, with_csa in (
                 ("C64@192x192", FLAGSHIP, 192, 64, 64, True),
+                ("C64u1@192x192", FLAGSHIP_U1, 192, 64, 64, True),
                 ("C180@256x256", SWINIR, 256, 180, 192, False)):
             net = build_generator(cfg, device="cuda", seed=1)
             mp, tabs = maps(net, hw, c, c_pad, with_csa, seed=hw)
