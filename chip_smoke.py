@@ -8,8 +8,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      inputs) at the flagship shapes (the decode kernel's rational mode at
      ×2.5 on a 192 tile: 25 phases of 96²; its integer mode once more at
      the odd-width request's shapes; the CSA kernels of rows 5-8 at the
-     geometries of the CSA paths below), max|Δ|/max|ref| ≤ 1e-2, and
-     times both with CUDA events (median of several runs after warm-up),
+     geometries of the CSA paths below), max|Δ|/max|ref| ≤ 1e-2 (the
+     decode kernel's rows, both modes, also the same bits on two
+     launches), and times both with CUDA events (median of several runs
+     after warm-up),
      next to the roofline bound and, where one PyTorch call computes the
      same function, that call's time;
   4. drives the flagship RDN-CiaoSR restorer (config 001 rdn, bf16
@@ -73,7 +75,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      odd widths, row 7 and K4 at both, row 6, row 11 (shifted and
      unshifted, and at the training batch's shape) (the kernels redesigned
      for Hopper), K3's rational mode at both of its widths, rows 5, 8 and
-     12, the one-tap instances, and one tile of each generator;
+     12, the one-tap instances, and one tile of each generator (the
+     flagship's and edsr_u1's also at ×2.5);
   7. trains that generator as the 002 recipe does (batch 6 of 64² LR
      patches, 4096 queries a sample, Adam 2e-4, betas (0.9, 0.99), the
      classical L1 objective): the Swin block (row 11, ``swin_block@
@@ -306,7 +309,9 @@ def time_ms(fn, reps: int = 5, warm: int = 2) -> float:
     back, divided by BATCH: the path enqueues its kernels behind each
     other, so the host's dispatch (argument checks, tensor maps) overlaps
     the device's work, which a lone call between two events would not
-    show."""
+    show. The choice reads a batched sample: a lone call's time carries
+    the dispatch, so a call just under 1 ms would read over it in some
+    runs and be timed alone in those."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -321,7 +326,7 @@ def time_ms(fn, reps: int = 5, warm: int = 2) -> float:
         b.synchronize()
         return a.elapsed_time(b) / n
 
-    n = BATCH if sample(1) < 1.0 else 1
+    n = BATCH if sample(1) < 2.0 and sample(BATCH) < 1.0 else 1
     return statistics.median(sample(n) for _ in range(reps))
 
 
@@ -355,16 +360,19 @@ def f32(x):
 
 
 def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
-               library, reps: int = 5, crop=None) -> dict:
+               library, reps: int = 5, crop=None,
+               same_bits: bool = False) -> dict:
     """One row of the kernels line: the kernel (bf16) against its plain
     version (f32, same values), max|Δ|/max|ref| ≤ REL_TOL, with CUDA-event
     times of both (the plain version: median of 3, its reference call
     above the warm-up),
     the bound from ``flops`` and ``nbytes``, and ``library``'s time where
     one PyTorch call computes the same function. ``crop`` takes a kernel
-    on zero-padded maps to the plain version's real widths."""
+    on zero-padded maps to the plain version's real widths; ``same_bits``
+    also holds a second launch to the first one's bits."""
     with torch.inference_mode():
         got = kern()
+        same = torch.equal(got, kern()) if same_bits else None
         torch.cuda.synchronize()
         ref = plain()
         abs_err, err = errors(got if crop is None else crop(got), ref)
@@ -375,10 +383,15 @@ def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
     bms, by = bound_ms(flops, nbytes)
     if not err <= REL_TOL:
         raise AssertionError(f"{name}: error {err:.3e} > {REL_TOL}")
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=0, max_abs_err=abs_err, max_rel_err=err,
-                tol_rel=REL_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms, tflops=tflops(flops, ms))
+    if same is False:
+        raise AssertionError(f"{name}: two launches gave different bits")
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=0, max_abs_err=abs_err, max_rel_err=err,
+               tol_rel=REL_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib_ms, tflops=tflops(flops, ms))
+    if same_bits:
+        row["reproducible"] = True
+    return row
 
 
 def check_kernels(restorer, lq_tile: torch.Tensor,
@@ -496,14 +509,13 @@ def decode_row(name, replaces, maps, tabs, rational, ss) -> dict:
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*maps[-1].values(), *tabs.values()))
     return kernel_row(
-        name, "ciaosr_torch/csrc/grid_decode.cu" if rational
-        else "ciaosr_torch/csrc/grid_decode_sm90.cu", replaces,
+        name, "ciaosr_torch/csrc/grid_decode_sm90.cu", replaces,
         lambda: kern(*maps[:6], maps[6], tabs, ss),
         lambda: plain(*f32(maps[:6]), f32(maps[6]), tabs, ss),
         2 * n_phase * m_out * mlp,
         fb * fh * fw * (2 * fc * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4))
         + nbytes + n_phase * m_out * 3 * 4,
-        None)
+        None, same_bits=True)
 
 
 def csa_inputs(restorer, img, banks: bool = False):
@@ -733,8 +745,9 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
     and unshifted on a SwinIR tile's tokens, shifted on a training batch's),
     of K3's rational mode at both widths, of rows 5 and 8, of row 12 (the
-    shifted block's backward), and of the two tiles that run K1 and K3 (a
-    flagship 192 tile at x4, a SwinIR 256 tile at x4), and of config 001
+    shifted block's backward), and of the tiles that run K1 and K3 or row
+    10 (a flagship 192 tile at x4 and x2.5, a SwinIR 256 tile at x4), and
+    of config 001
     swinir's instances (K4 and K1 on its 192² tile, row 7 at 72², K3 on
     both and at 70², row 10 at x2.5 on the 192² tile and 72², rows 6 and 5
     on the 192 x 512 and 48 x 1024 full images), at the main path's
@@ -745,8 +758,9 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     this run; without it (``--kernel-times``) they are timed here, and
     the wide pair is split by launch (torch.profiler). Last, config 001
     edsr's one-tap instances (``u1_ms`` from check_u1_kernels in the
-    normal run, else timed here) and a TILE² x4 tile of config 001 edsr
-    and of its generator without the unfold (``edsr``, ``u1``)."""
+    normal run, else timed here), a TILE² x4 tile of config 001 edsr and
+    of its generator without the unfold (``edsr``, ``u1``), and the
+    latter's tile at x2.5."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
@@ -850,6 +864,8 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     # times them after the same work as this one
     times["flagship x4 tile (grid_predict)"] = time_ms(
         lambda: restorer.grid_predict(tile, 4), reps=3, warm=1)
+    times["flagship x2.5 tile (grid_predict)"] = time_ms(
+        lambda: restorer.grid_predict(tile, Fraction(5, 2)), reps=3, warm=1)
     times["SwinIR x4 256 tile (grid_predict)"] = time_ms(
         lambda: swin.grid_predict(swin_tile, 4), reps=3, warm=1)
     if sw1_ms is not None:
@@ -868,6 +884,8 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
         for name, r in (("001 edsr", edsr), ("001 edsr_u1", u1)):
             times[f"{name} x4 {TILE} tile (grid_predict)"] = time_ms(
                 lambda: r.grid_predict(tile, 4), reps=3, warm=1)
+        times[f"001 edsr_u1 x2.5 {TILE} tile (grid_predict)"] = time_ms(
+            lambda: u1.grid_predict(tile, Fraction(5, 2)), reps=3, warm=1)
     log(f"kernel times ({label}): " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in times.items()))
 
@@ -1063,13 +1081,14 @@ def check_swin_kernels(swin, lq_tile: torch.Tensor,
             lambda: plain(*f32(mp[:6]), f32(mp[6]), tb, net.softmax_scale),
             2 * n_phase * m_out * mlp,
             m * (c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
-            + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3))
+            + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3,
+            same_bits=True))
 
     decode_row("grid_decode@C180", "ciaosr_torch/csrc/grid_decode_sm90.cu",
                src + "1329 (_grid_decode_halo)", dk.grid_decode,
                dk.grid_decode_plain, maps, tabs, 16, m)
     decode_row("grid_decode_rational@C180",
-               "ciaosr_torch/csrc/grid_decode.cu",
+               "ciaosr_torch/csrc/grid_decode_sm90.cu",
                src + "1224 (grid_decode_fused_rational)",
                dk.grid_decode_rational, dk.grid_decode_rational_plain,
                maps_r, tabs_r, py * py, b * (h // qy) * (w // qy))
@@ -1338,7 +1357,8 @@ def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
                 gv.float(), wt.float(), ck, pk_r, tabs, ss),
             2 * n_phase * m * mlp,
             m * (2 * c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
-            + tab_bytes + n_phase * m * 3 * 4, None, reps=3))
+            + tab_bytes + n_phase * m * 3 * 4, None, reps=3,
+            same_bits=True))
 
     decode_row("grid_decode@C180+csa", (SWIN_001_TILE, SWIN_001_TILE))
     odd = SET5_X4_ODD[0]
@@ -1363,7 +1383,7 @@ def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
         weights = (9 * hid * hid + 2 * hid * dv) * 2
         tab_bytes = sum(t.numel() * t.element_size() for t in tabs.values())
         rows.append(kernel_row(
-            name, "ciaosr_torch/csrc/grid_decode.cu",
+            name, "ciaosr_torch/csrc/grid_decode_sm90.cu",
             at + "decoder_kernel.py:1224 (grid_decode_fused_rational)",
             lambda: dk.grid_decode_rational(feat_p, csa_p, gk, gv, wt, ck,
                                             pk, tabs, ss),
@@ -1372,7 +1392,8 @@ def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
                 gv.float(), wt.float(), ck, pk_25, tabs, ss),
             2 * n_phase * m_out * mlp,
             m * (2 * c * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4)) + weights
-            + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3))
+            + tab_bytes + n_phase * m_out * 3 * 4, None, reps=3,
+            same_bits=True))
 
     rational_row("grid_decode_rational@C180+csa", (SWIN_001_TILE,) * 2)
     rational_row("grid_decode_rational@C180+csa@{}x{}".format(

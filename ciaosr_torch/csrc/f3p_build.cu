@@ -7,9 +7,9 @@
 //   g_v   = u @ W_v0[:9C] + csa @ W_v0[9C:9C+DC]
 // The TPU kernel also wrote three column-shifted copies, edge rows and
 // 128-lane pads of one merged map; all of that is TPU layout and is gone:
-// the decode kernels (grid_decode_sm90.cu; grid_decode.cu at rational
-// scales) read g_k / g_v at edge-clamped shifted pixels directly, and
-// rebuild u from the raw feature themselves, so u (42 MB of bf16 at a
+// the decode kernel (grid_decode_sm90.cu, both modes) reads g_k / g_v at
+// edge-clamped shifted pixels or the rational tables' keys directly, and
+// rebuilds u from the raw feature itself, so u (42 MB of bf16 at a
 // 192x192 tile) is never written.
 //
 // Bound on the H100: 2*M*(9C*2H + DC*H) = 23.0 GFLOP at M = 192*192,

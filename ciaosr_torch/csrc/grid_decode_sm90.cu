@@ -1,10 +1,12 @@
-// K3 grid_decode on Hopper: the integer-scale dense-grid decoder with
-// wgmma and TMA.
+// K3 grid_decode on Hopper: the dense-grid decoder with wgmma and TMA, at
+// integer scales and (its rational mode) at rational ones.
 //
 // Replaces ciaosr_tpu/ops/pallas/decoder_kernel.py::_grid_decode_halo
 // (kernel _decode_kernel_halo, integer mode, entered from
 // grid_decode_fused; at W % 8 != 0 also grid_decode_fused's stacked
-// assembly, which computes the same function). For each LR pixel p, HR
+// assembly, which computes the same function) and, in the rational mode,
+// grid_decode_fused_rational (the same kernel entered with `rational`).
+// Integer mode (entry point grid_decode). For each LR pixel p, HR
 // phase ph (s^2 of them) and local-ensemble shift i, with (dy, dx) = the
 // shift's constant offset for this phase and q = the edge-clamped pixel
 // p + (dy, dx):
@@ -24,6 +26,20 @@
 // + 3*256^2 + 256*3) = 3.05 TFLOP at s = 4, M = 192^2, DV = 640: 3.1 ms at
 // the bf16 dense peak; 8.07 TFLOP (8.2 ms) for C = 180 on a 256^2 map.
 // Compute-bound: the gathered inputs are L2-resident, the output small.
+//
+// Rational mode (entry point grid_decode_rational; index mode RatParams).
+// At py/qy x px/qx, phase (a, b) (ph = a * px + b) is an OH x OW =
+// (H/qy) x (W/qx) image. Its pixel (k, j) reads the query LR pixel
+// (yq[a,k], xq[b,j]) and, for shift i, the key pixel q = (yk[a,i,k],
+// xk[b,i,j]) with rel (yrel[a,i,k], xrel[b,i,j]), from the per-axis tables
+// of ops/kernels/decoder.py::rational_tables; the wt / ck plane is
+// d = q - query in {-1, 0, 1}^2, read at the query pixel. The rest is the
+// integer mode's code: only the pixel setup, the rows of a shift group and
+// the output store read the tables. A CTA walks B x OH x OW pixels of one
+// phase; the wt / ck rows stay indexed over the B x H x W LR pixels.
+// Output: (B, py * px, OH, OW, 3). Bound: 2 * py*px * B*OH*OW * (S * (6 *
+// 256^2 + 256*DV + 256) + DV*256 + 3*256^2 + 256*3) FLOPs at the bf16 dense
+// peak: 1.2 ms at x2.5 on a 192^2 flagship tile (25 phases of 96^2, S = 4).
 //
 // Design. A CTA decodes 32 pixels of one phase with the (up to) 4 shifts
 // of a group stacked into 128 rows: row = shift * 32 + pixel. Two consumer
@@ -68,7 +84,7 @@
 // (64, 64), DV = 128 is one blend chunk of two slabs, the first read
 // from the feature at q, the second from the CSA map; imnet_q's first
 // layer is K = 128. The MLP layers, the ring and the shared memory are
-// the nine-tap instance's.
+// the nine-tap instance's. Both modes are compiled at all four widths.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -122,6 +138,17 @@ struct Params {
   float* out;
   int H, W, M, n_phase, n_shift;
   float inv_softmax_scale;
+  static constexpr bool RAT = false;
+};
+
+// the rational mode's tables: yq (py, OH), yk (py, n_shift, OH), xq
+// (px, OW), xk (px, n_shift, OW); rely / relx hold yrel / xrel. M stays
+// B * H * W, the LR pixels that index the wt and ck rows; MO = B * OH * OW
+// counts the output pixels the CTAs walk
+struct RatParams : Params {
+  const int *yq, *yk, *xq, *xk;
+  int OH, OW, MO, px;
+  static constexpr bool RAT = true;
 };
 
 // the CTA's small tables: its pixels; the rows of the current shift group
@@ -290,8 +317,8 @@ __device__ __forceinline__ void blend(const float (&acc)[64], int mode,
 }
 
 // the two consumer warpgroups: warpgroup wg owns rows 64 wg .. 64 wg + 63
-template <int C, int DC, int TAPS>
-__device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
+template <int C, int DC, int TAPS, class Prm>
+__device__ __forceinline__ void consume(const Prm& P, unsigned char* smem,
                                         Tables& T, int ph) {
   constexpr int DK = TAPS * C, DV = DK + DC;
   unsigned char* act = smem;
@@ -316,17 +343,35 @@ __device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
     if (t < 64) {
       const int row = 64 * wg + t, pix = row % PIX, s = g0 + row / PIX;
       const bool ok = s < NS && T.row_p[pix] >= 0;
-      const int ps = ph * NS + (s < NS ? s : 0);
-      const int dy = P.dys[ps], dx = P.dxs[ps];
-      const int qy = clampi(T.row_y[pix] + dy, 0, H - 1);
-      const int qx = clampi(T.row_x[pix] + dx, 0, W - 1);
-      T.q[row] = ok ? (T.row_b[pix] * H + qy) * W + qx : -1;
-      T.qy[row] = qy;
-      T.qx[row] = qx;
-      T.ry[row] = P.rely[(size_t)ps * H + T.row_y[pix]];
-      T.rx[row] = P.relx[(size_t)ps * W + T.row_x[pix]];
-      T.wt[row] = ((size_t)((dy + 1) * 3 + (dx + 1)) * M +
-                   (ok ? T.row_p[pix] : 0)) * HID;
+      if constexpr (Prm::RAT) {
+        // the key pixel and its rel from the tables; the wt plane is
+        // d = key - query, its row the query's LR pixel
+        const int a = ph / P.px, b = ph % P.px, si = s < NS ? s : 0;
+        const int y = T.row_y[pix], x = T.row_x[pix];
+        const int sy = (a * NS + si) * P.OH + y;
+        const int sx = (b * NS + si) * P.OW + x;
+        const int qy = P.yk[sy], qx = P.xk[sx];
+        const int yq = P.yq[a * P.OH + y], xq = P.xq[b * P.OW + x];
+        T.q[row] = ok ? (T.row_b[pix] * H + qy) * W + qx : -1;
+        T.qy[row] = qy;
+        T.qx[row] = qx;
+        T.ry[row] = P.rely[sy];
+        T.rx[row] = P.relx[sx];
+        T.wt[row] = ((size_t)((qy - yq + 1) * 3 + (qx - xq + 1)) * M +
+                     (ok ? (T.row_b[pix] * H + yq) * W + xq : 0)) * HID;
+      } else {
+        const int ps = ph * NS + (s < NS ? s : 0);
+        const int dy = P.dys[ps], dx = P.dxs[ps];
+        const int qy = clampi(T.row_y[pix] + dy, 0, H - 1);
+        const int qx = clampi(T.row_x[pix] + dx, 0, W - 1);
+        T.q[row] = ok ? (T.row_b[pix] * H + qy) * W + qx : -1;
+        T.qy[row] = qy;
+        T.qx[row] = qx;
+        T.ry[row] = P.rely[(size_t)ps * H + T.row_y[pix]];
+        T.rx[row] = P.relx[(size_t)ps * W + T.row_x[pix]];
+        T.wt[row] = ((size_t)((dy + 1) * 3 + (dx + 1)) * M +
+                     (ok ? T.row_p[pix] : 0)) * HID;
+      }
     }
     bar_sync(bar_wg, 128);
   };
@@ -537,17 +582,23 @@ __device__ __forceinline__ void consume(const Params& P, unsigned char* smem,
   }
   bar_sync(BAR_ALL, 256);
   if (tid < PIX && T.row_p[tid] >= 0) {
-    float* dst = P.out + ((((size_t)T.row_b[tid] * P.n_phase + ph) * H +
-                           T.row_y[tid]) * W + T.row_x[tid]) * 3;
+    // (B, n_phase, H, W, 3); rational: (B, n_phase, OH, OW, 3)
+    int OH = H, OW = W;
+    if constexpr (Prm::RAT) {
+      OH = P.OH;
+      OW = P.OW;
+    }
+    float* dst = P.out + ((((size_t)T.row_b[tid] * P.n_phase + ph) * OH +
+                           T.row_y[tid]) * OW + T.row_x[tid]) * 3;
 #pragma unroll
     for (int o = 0; o < 3; ++o)
       dst[o] = T.part[0][tid][o] + T.part[1][tid][o] + P.qbout[o];
   }
 }
 
-template <int C, int DC, int TAPS>
+template <int C, int DC, int TAPS, class Prm>
 __global__ void __launch_bounds__(THREADS, 1)
-decode_sm90(const __grid_constant__ Maps maps, const Params P) {
+decode_sm90(const __grid_constant__ Maps maps, const Prm P) {
   constexpr int DV = TAPS * C + DC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -571,12 +622,20 @@ decode_sm90(const __grid_constant__ Maps maps, const Params P) {
     fence_barrier_init();
   }
   if (tid < PIX) {
+    // the block's pixels of its phase: (b, y, x) of the LR map, or of
+    // the OH x OW phase image in the rational mode
     const int p = p0 + tid;
-    const bool ok = p < M;
+    int PH = H, PW = W, PM = M;
+    if constexpr (Prm::RAT) {
+      PH = P.OH;
+      PW = P.OW;
+      PM = P.MO;
+    }
+    const bool ok = p < PM;
     T.row_p[tid] = ok ? p : -1;
-    T.row_x[tid] = ok ? p % W : 0;
-    T.row_y[tid] = ok ? (p / W) % H : 0;
-    T.row_b[tid] = ok ? p / (W * H) : 0;
+    T.row_x[tid] = ok ? p % PW : 0;
+    T.row_y[tid] = ok ? (p / PW) % PH : 0;
+    T.row_b[tid] = ok ? p / (PW * PH) : 0;
   }
   __syncthreads();
 
@@ -624,24 +683,17 @@ int map_matrix(CUtensorMap* m, const void* p, int rows, int cols) {
                      box);
 }
 
-template <int C, int DC, int TAPS>
-int launch(void* const* ptrs, int B, int H, int W, int n_phase, int n_shift,
-           float softmax_scale, void* stream) {
-  constexpr int DV = TAPS * C + DC;
-  static cudaError_t attr = allow_smem(decode_sm90<C, DC, TAPS>, SMEM);
-  if (attr != cudaSuccess) return (int)attr;
-  // the host's limit: 9 shifts (local_size 3) at the flagship width only
-  if (n_shift < 1 || n_shift > (C == 64 ? MAX_SHIFT : SG) || n_phase < 1)
-    return (int)cudaErrorInvalidValue;
-  Params P = {};
+// the 22 pointers both modes take first: feat, csa, gk, gv, wt, ck, kw,
+// vw, vout, qw0, qw, kb, vb, vbout, qb0, qb, krel, kb0, vrel, vb0, qwout,
+// qbout
+void common_params(Params& P, void* const* ptrs, int B, int H, int W,
+                   int n_phase, int n_shift, float softmax_scale) {
   P.feat = (const bf16*)ptrs[0];
   P.csa = (const bf16*)ptrs[1];
   P.gk = (const bf16*)ptrs[2];
   P.gv = (const bf16*)ptrs[3];
   P.wt = (const bf16*)ptrs[4];
   P.ck = (const float*)ptrs[5];
-  const void *kw = ptrs[6], *vw = ptrs[7], *vout = ptrs[8], *qw0 = ptrs[9],
-             *qw = ptrs[10];
   P.kb = (const float*)ptrs[11];
   P.vb = (const float*)ptrs[12];
   P.vbout = (const float*)ptrs[13];
@@ -653,49 +705,88 @@ int launch(void* const* ptrs, int B, int H, int W, int n_phase, int n_shift,
   P.vb0 = (const float*)ptrs[19];
   P.qwout = (const float*)ptrs[20];
   P.qbout = (const float*)ptrs[21];
-  P.dys = (const int*)ptrs[22];
-  P.dxs = (const int*)ptrs[23];
-  P.rely = (const float*)ptrs[24];
-  P.relx = (const float*)ptrs[25];
-  P.out = (float*)ptrs[26];
   P.H = H;
   P.W = W;
   P.M = B * H * W;
   P.n_phase = n_phase;
   P.n_shift = n_shift;
   P.inv_softmax_scale = 1.f / softmax_scale;
+}
+
+// one launch over `pixels` pixels of each of P.n_phase phases
+template <int C, int DC, int TAPS, class Prm>
+int launch(void* const* ptrs, const Prm& P, int pixels, void* stream) {
+  constexpr int DV = TAPS * C + DC;
+  static cudaError_t attr = allow_smem(decode_sm90<C, DC, TAPS, Prm>, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  // the host's limit: 9 shifts (local_size 3) at the flagship width only
+  if (P.n_shift < 1 || P.n_shift > (C == 64 ? MAX_SHIFT : SG) ||
+      P.n_phase < 1)
+    return (int)cudaErrorInvalidValue;
   Maps m;
-  int err = map_matrix(&m.kw, kw, 3 * HID, HID);
-  if (!err) err = map_matrix(&m.vw, vw, 3 * HID, HID);
-  if (!err) err = map_matrix(&m.qw, qw, 3 * HID, HID);
-  if (!err) err = map_matrix(&m.vout, vout, HID, DV);
-  if (!err) err = map_matrix(&m.qw0, qw0, DV, HID);
+  int err = map_matrix(&m.kw, ptrs[6], 3 * HID, HID);
+  if (!err) err = map_matrix(&m.vw, ptrs[7], 3 * HID, HID);
+  if (!err) err = map_matrix(&m.qw, ptrs[10], 3 * HID, HID);
+  if (!err) err = map_matrix(&m.vout, ptrs[8], HID, DV);
+  if (!err) err = map_matrix(&m.qw0, ptrs[9], DV, HID);
   if (err) return err;
-  const long long blocks = (long long)((P.M + PIX - 1) / PIX) * n_phase;
+  const long long blocks = (long long)((pixels + PIX - 1) / PIX) * P.n_phase;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  decode_sm90<C, DC, TAPS><<<(unsigned)blocks, THREADS, SMEM,
-                             (cudaStream_t)stream>>>(m, P);
+  decode_sm90<C, DC, TAPS, Prm><<<(unsigned)blocks, THREADS, SMEM,
+                                  (cudaStream_t)stream>>>(m, P);
   return (int)cudaGetLastError();
+}
+
+template <class Prm>
+int dispatch(int C, int DC, int taps, void* const* ptrs, const Prm& P,
+             int pixels, void* stream) {
+  if (C == 64 && DC == 64 && taps == 9)
+    return launch<64, 64, 9>(ptrs, P, pixels, stream);
+  if (C == 192 && DC == 0 && taps == 9)
+    return launch<192, 0, 9>(ptrs, P, pixels, stream);
+  if (C == 192 && DC == 192 && taps == 9)
+    return launch<192, 192, 9>(ptrs, P, pixels, stream);
+  if (C == 64 && DC == 64 && taps == 1)
+    return launch<64, 64, 1>(ptrs, P, pixels, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// ptrs: feat, csa, gk, gv, wt, ck, kw, vw, vout, qw0, qw, kb, vb, vbout,
-// qb0, qb, krel, kb0, vrel, vb0, qwout, qbout, dys, dxs, rely, relx, out
+// ptrs: the 22 common pointers, then dys, dxs, rely, relx, out
 extern "C" int grid_decode(void* const* ptrs, int B, int H, int W, int C,
                            int DC, int taps, int n_phase, int n_shift,
                            float softmax_scale, void* stream) {
-  if (C == 64 && DC == 64 && taps == 9)
-    return launch<64, 64, 9>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
-                             stream);
-  if (C == 192 && DC == 0 && taps == 9)
-    return launch<192, 0, 9>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
-                             stream);
-  if (C == 192 && DC == 192 && taps == 9)
-    return launch<192, 192, 9>(ptrs, B, H, W, n_phase, n_shift,
-                               softmax_scale, stream);
-  if (C == 64 && DC == 64 && taps == 1)
-    return launch<64, 64, 1>(ptrs, B, H, W, n_phase, n_shift, softmax_scale,
-                             stream);
-  return (int)cudaErrorInvalidValue;
+  Params P = {};
+  common_params(P, ptrs, B, H, W, n_phase, n_shift, softmax_scale);
+  P.dys = (const int*)ptrs[22];
+  P.dxs = (const int*)ptrs[23];
+  P.rely = (const float*)ptrs[24];
+  P.relx = (const float*)ptrs[25];
+  P.out = (float*)ptrs[26];
+  return dispatch(C, DC, taps, ptrs, P, P.M, stream);
+}
+
+// ptrs: the 22 common pointers, then yq, yk, xq, xk, yrel, xrel, out.
+// Phases ph = a * px + b, n_phase = py * px; out (B, n_phase, OH, OW, 3).
+extern "C" int grid_decode_rational(void* const* ptrs, int B, int H, int W,
+                                    int C, int DC, int taps, int OH, int OW,
+                                    int py, int px, int n_shift,
+                                    float softmax_scale, void* stream) {
+  if (py < 1 || px < 1 || OH < 1 || OW < 1)
+    return (int)cudaErrorInvalidValue;
+  RatParams P = {};
+  common_params(P, ptrs, B, H, W, py * px, n_shift, softmax_scale);
+  P.yq = (const int*)ptrs[22];
+  P.yk = (const int*)ptrs[23];
+  P.xq = (const int*)ptrs[24];
+  P.xk = (const int*)ptrs[25];
+  P.rely = (const float*)ptrs[26];
+  P.relx = (const float*)ptrs[27];
+  P.out = (float*)ptrs[28];
+  P.OH = OH;
+  P.OW = OW;
+  P.MO = B * OH * OW;
+  P.px = px;
+  return dispatch(C, DC, taps, ptrs, P, P.MO, stream);
 }

@@ -65,7 +65,8 @@ class CiaoSRRestorer:
     allowed_metrics = {"PSNR": psnr, "SSIM": ssim}
 
     def __init__(self, generator: dict, rgb_mean=(0.4488, 0.4371, 0.4040),
-                 rgb_std=(1.0, 1.0, 1.0), test_cfg: Any = None, *,
+                 rgb_std=(1.0, 1.0, 1.0), pixel_loss: dict | None = None,
+                 train_cfg: Any = None, test_cfg: Any = None, *,
                  device=None, seed: int = 0):
         self.generator = build_generator(generator, device=device, seed=seed)
         self.device = next(self.generator.parameters()).device
@@ -73,6 +74,10 @@ class CiaoSRRestorer:
                                      device=self.device)
         self.rgb_std = torch.tensor(rgb_std, dtype=torch.float32,
                                     device=self.device)
+        # stored as the JAX restorer stores them; ``train_forward`` computes
+        # the L1 objective both packages compute
+        self.pixel_loss_cfg = pixel_loss
+        self.train_cfg = train_cfg
         self.test_cfg = test_cfg or {}
         self.eval_bsize = self.generator.eval_bsize
 

@@ -7,8 +7,8 @@ Counterparts in ciaosr_tpu/ops/pallas/decoder_kernel.py:
   grid_decode ← _grid_decode_halo, integer mode (K3,
                 csrc/grid_decode_sm90.cu: wgmma and TMA)
   grid_decode_rational ← grid_decode_fused_rational, the rational mode of
-                _grid_decode_halo (csrc/grid_decode.cu, reading per-row
-                index tables)
+                _grid_decode_halo (row 10: the same kernel's rational index
+                mode, reading per-axis index tables)
 plus host copies of _phase_tables, _split_first_layer/_pack_weights and
 models/ciaosr.py::shift_offsets / _grid_axis_tables.
 
@@ -34,9 +34,8 @@ puts zero rows and columns at the padded channels of every unfold block
 and of the CSA block, so the padding changes no result), all with the
 unfold; and (64, 64) without it (config 001 edsr's generator with
 ``feat_unfold=False``). The wrappers read C and DC from their tensors and
-raise for any other triple; both modes of K3 take all four (the rational
-mode's kernel blends the value in 256-column chunks: at (192, 192) the
-last one is 128 columns wide, at one tap the only one).
+raise for any other triple; both modes of K3 take all four (the kernel
+blends the value in 128-column chunks: at one tap DV = 128 is one chunk).
 """
 
 from __future__ import annotations
@@ -58,10 +57,10 @@ INSTANCES = ((64, 64, 9), (192, 0, 9), (192, 192, 9), (64, 64, 1))
 HID, N_HIDDEN = 256, 4
 # where the one-tap widths that have no instance are queued
 ONE_TAP_ITEM = "ROADMAP.md queue 2 item 3"
-# at C = 192 the rational mode's kernel blends the value chunk by chunk
-# straight into imnet_q's first layer, which needs every shift's row in one
-# product; both modes take at most 4 shifts there (local_size ≤ 2, as every
-# config at that width)
+# the decode kernel blends its shifts in groups of 4 at every width, but
+# takes 9 (local_size 3) only at C = 64, the one width where that case is
+# held to its plain version on the card; at C = 192 both modes take at
+# most 4 shifts (local_size ≤ 2, as every config at that width)
 WIDE_MAX_SHIFT = 4
 
 
@@ -623,7 +622,7 @@ def grid_decode_rational(feature, csa, gk, gv, wt, ck, pk: dict, tabs: dict,
             tabs["yq"], tabs["yk"], tabs["xq"], tabs["xk"], tabs["yrel"],
             tabs["xrel"], out]
     ptrs = (ctypes.c_void_p * len(args))(*(_ptr(t) for t in args))
-    fn = _build.load("grid_decode").grid_decode_rational
+    fn = _build.load("grid_decode_sm90").grid_decode_rational
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_void_p]

@@ -3,9 +3,13 @@
 JAX kernels hold. Config 001 swinir's instances (K4 and row 7 at (Cr, C)
 = (96, 192), K1 and K3 at (C, DC) = (192, 192): its 90 and 180 channels
 zero-padded) are held against the plain versions at the real widths,
-beside a flagship case of each. K1 is held at patch-ragged shapes at both widths; the
-decode kernel at integer scales and, in its rational mode, at ×2.5, ×7/3,
-×1.5, 5/3 × 7/2 and an odd width; the CSA kernels (K4, rows 5-8) at
+beside a flagship case of each. K1 is held at patch-ragged shapes at
+both widths; the decode kernel at integer scales and, in its rational
+mode (an index mode of the same Hopper kernel), at ×2.5, ×7/3, ×1.5,
+5/3 × 7/2, an odd width and on 3 images at 3/2 × 5/3 (output pixels off
+the 32-pixel blocks and off the LR pixel count by a factor of 6), with
+the same bits from call to call at (64, 64) and (192, 192); the CSA
+kernels (K4, rows 5-8) at
 ragged, non-square geometries, K4 and row 6 (one kernel) also on key
 grids smaller than or off its tiles and at spread logits, the same bits
 from call to call and from either entry point, and row 7 also on seeded
@@ -194,6 +198,64 @@ def test_grid_decode_rational(case, py, qy, px, qx, hw, local_size):
                                         _f32(pk), tabs, 1.0)
     assert got.shape == (2, py * px, h // qy, w // qx, 3)
     assert _rel(got, ref) <= REL_TOL
+
+
+def _rational_maps(net, feat, csa, py, qy, px, qx, local_size):
+    """Packed weights, K1 / K2 maps and tables of a rational decode."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+    h, w = feat.shape[1:3]
+    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q,
+                         feat.shape[-1],
+                         rational_cell(h, w, h * py // qy, w * px // qx),
+                         torch.bfloat16)
+    gk, gv = dk.f3p_build(feat, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+    wt, ck = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
+    tabs = dk.rational_tables(h, w, py, qy, px, qx, local_size, feat.device)
+    return (feat, csa, gk, gv, wt, ck, pk), tabs
+
+
+@torch.inference_mode()
+def test_grid_decode_rational_pixel_counts(case):
+    """The output pixels a CTA walks (B·OH·OW) are not the LR pixels that
+    index the wt / ck rows (B·H·W): 3 images of 22 × 33 at 3/2 × 5/3 give
+    phase images of 11 × 11 (B·OH·OW = 363, not a multiple of 32;
+    H·W / OH·OW = 6, not a square), with 9 shifts."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = case[0]
+    lq = np.random.default_rng(33).random((3, 22, 33, 3), dtype=np.float32)
+    feat = net.gen_feature(torch.as_tensor(lq, device="cuda") - 0.45)
+    feat = feat.contiguous()
+    csa = net.nl_feature(feat, use_kernel=False).to(torch.bfloat16)
+    maps, tabs = _rational_maps(net, feat, csa.contiguous(), 3, 2, 5, 3, 3)
+    got = dk.grid_decode_rational(*maps[:6], maps[6], tabs, 1.0)
+    ref = dk.grid_decode_rational_plain(*_f32(maps[:6]), _f32(maps[6]), tabs,
+                                        1.0)
+    assert got.shape == ref.shape == (3, 15, 11, 11, 3)
+    assert bool(torch.isfinite(got).all())
+    for b in range(3):   # every image, not only the batch's largest values
+        assert _rel(got[b], ref[b]) <= REL_TOL
+
+
+@pytest.mark.parametrize("width", ["C64", "C180_csa"])
+@torch.inference_mode()
+def test_grid_decode_rational_same_bits(case, swin_csa_case, width):
+    """Two launches of the rational mode give the same bits, at (64, 64, 9)
+    with 9 shifts and at (192, 192, 9) with 4."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+    if width == "C64":
+        _, feat, csa = _features(case[0], (20, 38), 7)
+        maps, tabs = _rational_maps(case[0], feat, csa, 5, 2, 5, 2, 3)
+    else:
+        net = swin_csa_case
+        _, feat, _ = _net_maps(net, (16, 32), 9)
+        maps = net._kernel_maps(feat, rational_cell(16, 32, 40, 80))
+        tabs = dk.rational_tables(16, 32, 5, 2, 5, 2, net.local_size,
+                                  feat.device)
+    first = dk.grid_decode_rational(*maps[:6], maps[6], tabs, 1.0)
+    assert torch.equal(first,
+                       dk.grid_decode_rational(*maps[:6], maps[6], tabs, 1.0))
 
 
 @torch.inference_mode()
