@@ -1841,14 +1841,25 @@ def check_swin_bwd(swin, batch: dict) -> dict:
     nbytes = (3 * t_ * c * 4 + (4 * c * c + 2 * c * hid) * 2
               + (9 * c + hid) * 4 + 2 * heads * n_ * n_ * 4 + n_par * 4)
     bms, by = bound_ms(3 * fwd, nbytes)
+    # the window kernel alone (swin_bwd_sm90): x and dy in; dx, the bf16
+    # pairs (NT rows a window) and the f32 partial rows out; the recompute
+    # and the data products
+    nwin = t_ // (ws * ws)
+    win_bytes = (3 * t_ * c * 4 + nwin * sb.NT * 2 * sum(
+        width for _, width in sb._PAIRS) + nwin * 4 * (
+        sum(size for _, size in sb._VECTORS) + heads * n_ * n_))
+    wbms, wby = bound_ms(2 * fwd, win_bytes)
+    log(f"kernel swin_bwd_sm90 (row 12's window kernel) bound: "
+        f"{win_bytes / 1e6:.1f} MB, {2 * fwd / 1e9:.2f} GFLOP: {wbms:.4f} ms "
+        f"({wby})")
     row = dict(name=f"swin_block_bwd@{b}x{h}x{w}", route="cuda",
-               source="ciaosr_torch/csrc/swin_block_bwd.cu",
+               source="ciaosr_torch/csrc/swin_block_bwd_sm90.cu",
                replaces="ciaosr_tpu/ops/pallas/swin_block.py:290 "
                         "(_swin_block_bwd_call)",
                launches=0, max_abs_err=0.0, max_rel_err=0.0,
                max_rel_err_dx=0.0, tol_rel=BWD_TOL_PARAM,
                tol_rel_dx=BWD_TOL_DX, bound_ms=bms, bound_by=by,
-               library_ms=None)
+               window_bound_ms=wbms, library_ms=None)
     for tok, blk, sh, tag in ((tok1, blk1, shift, ""),
                               (tok0, blk0, 0, "_noshift")):
         pk = blk.packed(ws, dt)
@@ -1891,7 +1902,7 @@ def check_swin_bwd(swin, batch: dict) -> dict:
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     split = {}
-    for name in ("swin_bwd_kernel", "swin_wgrad_kernel", "swin_gsum_kernel"):
+    for name in ("swin_bwd_sm90", "swin_wgrad_kernel", "swin_gsum_kernel"):
         hits = [e for e in evs if name in e.key]
         split[name] = (sum(e.device_time_total for e in hits),
                        sum(e.count for e in hits))
@@ -1901,6 +1912,7 @@ def check_swin_bwd(swin, batch: dict) -> dict:
         + "; other device kernels: " + ", ".join(
             f"{e.key[:40]} x{e.count}" for e in evs
             if not any(k in e.key for k in split)))
+    row["split_ms"] = {k: t / max(n, 1) / 1e3 for k, (t, n) in split.items()}
     return row
 
 

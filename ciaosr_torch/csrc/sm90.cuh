@@ -277,9 +277,10 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 64) += A (64 x 16, K-major) B (16 x 64); TNSPB as above (K-major
-// B unless given)
-template <int TNSPB = 0>
+// d (64 x 64) += A (64 x 16) B (16 x 64); TNSPB as above (K-major B
+// unless given); TNSPA: 0 K-major A, 1 MN-major A (a row-major (K, M)
+// matrix, the M rows contiguous: its descriptor as an MN-major B's)
+template <int TNSPB = 0, int TNSPA = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -289,10 +290,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB), "n"(TNSPA));
 }
 
 // d (64 x 104) += A (64 x 16, K-major) B (16 x 104, K-major)

@@ -25,7 +25,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
 KERNELS = ("f3p_build", "wt_hoist", "grid_decode_sm90", "csa_stencil",
            "csa_stencil_sm90", "csa_attention", "csa_flash",
-           "swin_block_sm90", "swin_block_bwd")
+           "swin_block_sm90", "swin_block_bwd_sm90")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
               "-lineinfo"]

@@ -6,7 +6,7 @@ Counterpart of ciaosr_tpu/ops/pallas/swin_block.py::swin_block_fused
 (forward, ``_swin_block_call`` / ``_block_kernel``;
 csrc/swin_block_sm90.cu),
 of its custom VJP (backward, ``_swin_block_bwd_call`` /
-``_block_bwd_kernel``; csrc/swin_block_bwd.cu) and of
+``_block_bwd_kernel``; csrc/swin_block_bwd_sm90.cu) and of
 models/swinir.py::_attn_mask and WindowAttention._bias. On a token map
 that is already rolled by the shift:
 
@@ -299,7 +299,7 @@ def launch_swin_block(x: torch.Tensor, pk: dict, ws: int, shift: int,
 
 
 # ---------------------------------------------------------------- backward
-# Row 12 (csrc/swin_block_bwd.cu). The kernel returns one flat f32 buffer:
+# Row 12 (csrc/swin_block_bwd_sm90.cu). The kernel returns one flat f32 buffer:
 # the per-window sums (these vectors, then the (heads, N, N) bias
 # gradient), then the weight gradients (these matrices, row-major).
 WGRAD_SPLITS = 8   # token chunks of the weight-gradient products
@@ -351,6 +351,7 @@ def swin_block_bwd(x: torch.Tensor, dy: torch.Tensor, pk: dict, ws: int,
     b, h, w, c = x.shape
     heads = _check_call(x, pk, ws, shift, "swin_block_bwd")
     _build.check_tensor(dy, (b, h, w, c), "dy", torch.float32)
+    _build.check_tensor(pk["wqkv_hm"], (CP // HD * 3 * HD, CP), "wqkv_hm")
     n = ws * ws
     nwin = b * (h // ws) * (w // ws)
     lw = sum(size for _, size in _VECTORS) + heads * n * n
@@ -362,10 +363,11 @@ def swin_block_bwd(x: torch.Tensor, dy: torch.Tensor, pk: dict, ws: int,
     part = torch.empty(nwin, lw, device=dev)
     wpart = torch.empty(WGRAD_SPLITS, ld, device=dev)
     flat = torch.empty(lw + ld, device=dev)
-    lib = _build.load("swin_block_bwd")
+    lib = _build.load("swin_block_bwd_sm90")
     stream = _build.stream_ptr(dev)
 
-    args = [x, dy, *(pk[k] for k in _TENSORS), dx, *pairs, part]
+    # the window kernel streams wqkv in its head-major copy, as row 11
+    args = [x, dy, *(pk[k] for k in _FWD_TENSORS), dx, *pairs, part]
     ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
     fn = lib.swin_block_bwd
     fn.restype = ctypes.c_int

@@ -739,6 +739,51 @@ def test_swin_block_bwd(swin_case, shape, block):
     assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
 
 
+# narrow blocks on a (2, 16, 16) map, shifted: 3 heads of 32 (C = 96), 30
+# (C = 90) and 15 (C = 45, an odd C: unaligned f32 rows) leave head slots
+# 3-5 empty, channels past C and hidden columns past 2C padded, and
+# (below 32) columns of each slot past head_dim
+@pytest.mark.parametrize("c", [96, 90, 45],
+                         ids=["C96_3heads", "C90_3heads", "C45_3heads"])
+def test_swin_block_bwd_narrow(c):
+    """Row 12 on a block narrower than the packed layout: within the same
+    limits of its f32 plain version, the same bits twice, and every
+    gradient of a padded channel, an empty or padded head-slot column and a
+    padded hidden column exactly 0."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    blk = _block(c, 3, 8, 4, c)
+    ws, shift = blk.geometry(16, 16)
+    assert (ws, shift) == (8, 4)
+    rng = np.random.default_rng(c)
+    x, dy = (torch.as_tensor(rng.standard_normal((2, 16, 16, c)).astype(
+        np.float32), device="cuda") for _ in range(2))
+    pk = blk.packed(ws, torch.bfloat16)
+    dx, g = sb.swin_block_bwd(x, dy, pk, ws, shift)
+    rdx, rg = sb.swin_block_bwd_plain(x, dy, _f32(pk), ws, shift)
+    assert _rel(dx - dy, rdx - dy) <= 1e-2
+    for k, ref in rg.items():
+        assert _rel(g[k], ref) <= 2e-2, k
+    dx2, g2 = sb.swin_block_bwd(x, dy, pk, ws, shift)
+    assert torch.equal(dx, dx2) and all(torch.equal(g[k], g2[k]) for k in g)
+    hd, hid = c // 3, 2 * c
+    live = torch.zeros(3 * sb.CP, dtype=torch.bool, device="cuda")
+    for p in range(3):   # the q, k, v columns of the 3 heads' real dims
+        for h in range(3):
+            at = p * sb.CP + sb.HD * h
+            live[at:at + hd] = True
+    slot_rows = live[:sb.CP]   # wp's rows follow the same slots
+    zero = {"g1": g["g1"][c:], "b1": g["b1"][c:], "bp": g["bp"][c:],
+            "g2": g["g2"][c:], "b2": g["b2"][c:], "b2m": g["b2m"][c:],
+            "b1m": g["b1m"][hid:], "bqkv": g["bqkv"][~live],
+            "wqkv rows": g["wqkv"][c:], "wqkv cols": g["wqkv"][:, ~live],
+            "wp rows": g["wp"][~slot_rows], "wp cols": g["wp"][:, c:],
+            "w1 rows": g["w1"][c:], "w1 cols": g["w1"][:, hid:],
+            "w2 rows": g["w2"][hid:], "w2 cols": g["w2"][:, c:]}
+    for k, v in zero.items():
+        assert v.numel() and not v.any(), k
+    assert g["bqkv"][live].any() and g["wqkv"][:c, live].any()
+
+
 def test_swin_block_bwd_rejects(swin_case):
     from ciaosr_torch.ops.kernels import swin_block as sb
     blk = swin_case[0].encoder.layers[0].residual_group.blocks[0]

@@ -67,9 +67,13 @@ def assert_grads_close(got: dict, ref: dict, dim: int, tol: float) -> None:
 
 
 # ------------------------------------------------------------ Swin block --
+# the last: 002's real head layout (6 heads of 30 in slots of 32, hidden
+# 360) on a shifted 16 x 16 map
 BLOCK_CASES = [(16, 2, 4, (8, 8), 0), (16, 2, 4, (8, 12), 2),
-               (12, 3, 8, (16, 16), 0), (12, 3, 8, (16, 24), 4)]
-BLOCK_IDS = ["C16_ws4", "C16_ws4_shifted", "C12_ws8", "C12_ws8_shifted"]
+               (12, 3, 8, (16, 16), 0), (12, 3, 8, (16, 24), 4),
+               (180, 6, 8, (16, 16), 4)]
+BLOCK_IDS = ["C16_ws4", "C16_ws4_shifted", "C12_ws8", "C12_ws8_shifted",
+             "C180_ws8_shifted"]
 
 
 def _block_case(dim, heads, window, hw, shift):
