@@ -286,10 +286,17 @@ TRAIN_OPT = dict(type="Adam", lr=2e-4, betas=(0.9, 0.99))
 TRAIN_LR_CFG = dict(policy="Step", by_epoch=False,
                     step=[200000, 400000, 600000, 800000], gamma=1)
 BWD_KERNELS = ("swin_block_bwd", "swin_block_wgrad", "swin_block_gsum")
+# row 12's three kernels by their names in a profiler's trace
+BWD_KERNEL_NAMES = ("swin_bwd_sm90", "swin_wgrad_sm90", "swin_gsum_kernel")
+# calls of a path that log_launch_split profiles, and its profiles at most
+SPLIT_CALLS, SPLIT_TRIES = 3, 3
 # row 12 against its f32 plain version: dx - dy (the increment) and each
 # packed parameter gradient; the kernel rounds dq, dk, dv, dl, dz1 and dx1
 # to bf16 as the TPU kernel does, then sums over every token
 BWD_TOL_DX, BWD_TOL_PARAM = 1e-2, 2e-2
+# row 12's weight-gradient kernel alone against its plain version on the
+# same bf16 pairs: both sum bf16 products in f32, in another order
+WGRAD_TOL = 1e-3
 # one step's gradients, kernel route (bf16) against the plain f32 route:
 # each parameter tensor's ||Δ||/||ref|| within the JAX package's bound for
 # its fused block's gradients, or within TRAIN_ROUTE_FACTOR times the
@@ -745,7 +752,8 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
     and unshifted on a SwinIR tile's tokens, shifted on a training batch's),
     of K3's rational mode at both widths, of rows 5 and 8, of row 12 (the
-    shifted block's backward), and of the tiles that run K1 and K3 or row
+    shifted block's backward; its three kernels also by launch, with the
+    profiler), and of the tiles that run K1 and K3 or row
     10 (a flagship 192 tile at x4 and x2.5, a SwinIR 256 tile at x4), and
     of config 001
     swinir's instances (K4 and K1 on its 192² tile, row 7 at 72², K3 on
@@ -860,6 +868,9 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
             tok.shape).astype(np.float32), device="cuda")
         times["swin_block_bwd@{}x{}x{}".format(*tok.shape[:3])] = time_ms(
             lambda: sb.swin_block_bwd(tok, dy, pk1, ws, shift))
+        log_launch_split("swin_block_bwd@{}x{}x{}".format(*tok.shape[:3]),
+                         lambda: sb.swin_block_bwd(tok, dy, pk1, ws, shift),
+                         BWD_KERNEL_NAMES)
     # the tiles first: a checkout without config 001 swinir's rows then
     # times them after the same work as this one
     times["flagship x4 tile (grid_predict)"] = time_ms(
@@ -1202,22 +1213,50 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
                                  f"{name}: {r:.3e}")
 
 
-def log_launch_split(name: str, fn, kernel_names) -> None:
-    """The device time of each of ``fn``'s kernels over 3 calls
-    (torch.profiler), by kernel name."""
+def log_launch_split(name: str, fn, kernel_names) -> dict:
+    """The device time of each of ``fn``'s kernels (torch.profiler, by
+    kernel name) over SPLIT_CALLS calls, after as many calls with the
+    profiler warming up: logged a launch, with the launches seen, and a
+    call (the basis of older logs) where the launches seen are a multiple
+    of the calls, with the device kernels of no listed name.
+    The profiler can miss launches, so a profile that missed some is taken
+    again, up to SPLIT_TRIES times. Returns ms a launch by name (None where
+    the profiler saw no launch)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    split = {k: [e for e in evs if k in e.key] for k in kernel_names}
-    log(f"kernel {name} by launch (profiler, 3 calls): " + ", ".join(
-        f"{k} {sum(e.device_time_total for e in hits) / 3e3:.3f} ms"
-        for k, hits in split.items()))
+    seen = {}
+
+    def keep(prof):
+        seen["evs"] = prof.key_averages()
+
+    def a_call(t, n):
+        return (f"{t / SPLIT_CALLS / 1e3:.3f} ms a call"
+                if n and n % SPLIT_CALLS == 0 else "launches missed")
+
+    for _ in range(SPLIT_TRIES):
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
+                schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(2):
+                for _ in range(SPLIT_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [e for e in seen["evs"] if e.device_type == DeviceType.CUDA]
+        split = {k: [e for e in evs if k in e.key] for k in kernel_names}
+        split = {k: (sum(e.device_time_total for e in hits),
+                     sum(e.count for e in hits))
+                 for k, hits in split.items()}
+        if all(n and n % SPLIT_CALLS == 0 for _, n in split.values()):
+            break
+    log(f"kernel {name} by launch (profiler, {SPLIT_CALLS} calls): "
+        + ", ".join(f"{k} {t / max(n, 1) / 1e3:.3f} ms x{n} ({a_call(t, n)})"
+                    for k, (t, n) in split.items())
+        + "; other device kernels: " + ", ".join(
+            f"{e.key[:40]} x{e.count}" for e in evs
+            if not any(k in e.key for k in kernel_names)))
+    return {k: t / n / 1e3 if n else None for k, (t, n) in split.items()}
 
 
 def swin001_inputs(sw, lq_s: np.ndarray, big: np.ndarray) -> dict:
@@ -1812,14 +1851,73 @@ def train_batch(rng, b: int, lr: int, q_side: int) -> dict:
                     **dev))
 
 
-def check_swin_bwd(swin, batch: dict) -> dict:
+def check_swin_wgrad(x, dy, pk, ws: int, shift: int, hid: int) -> dict:
+    """Row 12's weight-gradient kernel alone, on the pairs that the window
+    kernel writes for the block at x (C = x's last width, hid hidden
+    units): its chunk partials summed against ``swin_block_wgrad_plain`` on
+    the same pairs (≤ WGRAD_TOL), the same bits on two launches; CUDA-event
+    times of the kernel, its plain version and four ``torch.matmul(a.t(),
+    b)`` calls (the library yardstick, never called by the port); its own
+    bound: the function's bytes and FLOPs at the real widths (each pair's
+    real columns of the B·H·W tokens read once, the real weight gradients
+    written once), the design's extra traffic (padded columns and rows,
+    the chunk partials) logged beside it. Returns its row of the kernels
+    line."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+
+    b, h, w, c = x.shape
+    real = {sb.CP: c, 3 * sb.CP: 3 * c, sb.HIDP: hid}
+    with torch.inference_mode():
+        pairs = sb.launch_swin_bwd_window(x, dy, pk, ws, shift)[1]
+        part = sb.swin_block_wgrad(pairs)
+        same = torch.equal(part, sb.swin_block_wgrad(pairs))
+        ref = sb.swin_block_wgrad_plain(pairs)
+        abs_err, err = errors(part.sum(0), ref)
+        t = pairs[0].shape[0]
+        ld = sum(real[r] * real[cl] for _, (r, cl) in sb._MATRICES)
+        flops = 2 * b * h * w * ld
+        nbytes = (2 * b * h * w * sum(real[wd] for _, wd in sb._PAIRS)
+                  + 4 * ld)
+        design_bytes = sum(p.numel() * 2 for p in pairs) + part.numel() * 4
+        del part, ref
+        ms = time_ms(lambda: sb.swin_block_wgrad(pairs))
+        plain_ms = time_ms(lambda: sb.swin_block_wgrad_plain(pairs), reps=3,
+                           warm=1)
+        lib_ms = time_ms(lambda: [torch.matmul(a.t(), g) for a, g in
+                                  zip(pairs[0::2], pairs[1::2])])
+    bms, by = bound_ms(flops, nbytes)
+    name = f"swin_block_wgrad@{b}x{h}x{w}"
+    log(f"kernel {name}: T={t}, {sb.WGRAD_SPLITS} chunks, "
+        f"max|d|={abs_err:.3e} max|d|/max|ref|={err:.3e}, reproducible "
+        f"{same}; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms "
+        f"(4 x torch.matmul)={lib_ms:.4f}; bound {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP: {bms:.4f} ms ({by}); the design moves "
+        f"{design_bytes / 1e6:.1f} MB (padded pairs, chunk partials): "
+        f"{design_bytes / PEAK_BYTES * 1e3:.4f} ms")
+    if not (err <= WGRAD_TOL and same):
+        raise AssertionError(f"{name}: error {err:.3e} > {WGRAD_TOL} or "
+                             f"reproducible {same}")
+    return dict(name=name, route="cuda",
+                source="ciaosr_torch/csrc/swin_block_bwd_sm90.cu",
+                replaces="ciaosr_tpu/ops/pallas/swin_block.py:220 "
+                         "(_block_bwd_kernel's _mm_at sums, :220, :224, "
+                         ":232, :276-278)",
+                launches=0, max_abs_err=abs_err, max_rel_err=err,
+                tol_rel=WGRAD_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, tflops=tflops(flops, ms),
+                reproducible=True)
+
+
+def check_swin_bwd(swin, batch: dict) -> tuple[dict, dict]:
     """Row 12 on the training batch's first-group tokens (TRAIN_B, 64, 64,
     180): the first, unshifted block and the second, shifted one on the
     first's output, with a seeded dy and the same bf16 packed weights in
     both versions; the kernel against the f32 plain version (autograd
     through the plain block): dx - dy ≤ BWD_TOL_DX and each packed
     gradient ≤ BWD_TOL_PARAM (max|Δ|/max|ref|), the sums reproducible run
-    to run. CUDA-event times of both; ``ms`` is the shifted block's."""
+    to run. CUDA-event times of both; ``ms`` is the shifted block's. Then
+    the weight-gradient kernel alone on the shifted block's pairs
+    (``check_swin_wgrad``). Returns row 12's row and that kernel's."""
     from ciaosr_torch.ops.kernels import swin_block as sb
 
     net, dt = swin.generator, torch.bfloat16
@@ -1852,6 +1950,14 @@ def check_swin_bwd(swin, batch: dict) -> dict:
     log(f"kernel swin_bwd_sm90 (row 12's window kernel) bound: "
         f"{win_bytes / 1e6:.1f} MB, {2 * fwd / 1e9:.2f} GFLOP: {wbms:.4f} ms "
         f"({wby})")
+    # the sum kernel alone (swin_gsum_kernel): the window partials and the
+    # chunk partials in, the summed row out
+    lw = sum(size for _, size in sb._VECTORS) + heads * n_ * n_
+    ld = sum(r * cl for _, (r, cl) in sb._MATRICES)
+    sum_bytes = 4 * (nwin * lw + sb.WGRAD_SPLITS * ld + lw + ld)
+    sbms, _ = bound_ms(0, sum_bytes)
+    log(f"kernel swin_gsum_kernel (row 12's sum) bound: "
+        f"{sum_bytes / 1e6:.1f} MB: {sbms:.4f} ms (bytes)")
     row = dict(name=f"swin_block_bwd@{b}x{h}x{w}", route="cuda",
                source="ciaosr_torch/csrc/swin_block_bwd_sm90.cu",
                replaces="ciaosr_tpu/ops/pallas/swin_block.py:290 "
@@ -1859,7 +1965,8 @@ def check_swin_bwd(swin, batch: dict) -> dict:
                launches=0, max_abs_err=0.0, max_rel_err=0.0,
                max_rel_err_dx=0.0, tol_rel=BWD_TOL_PARAM,
                tol_rel_dx=BWD_TOL_DX, bound_ms=bms, bound_by=by,
-               window_bound_ms=wbms, library_ms=None)
+               window_bound_ms=wbms, gsum_bound_ms=sbms,
+               library_ms=None)
     for tok, blk, sh, tag in ((tok1, blk1, shift, ""),
                               (tok0, blk0, 0, "_noshift")):
         pk = blk.packed(ws, dt)
@@ -1892,32 +1999,15 @@ def check_swin_bwd(swin, batch: dict) -> dict:
     row["reproducible"] = True
     row["tflops"] = tflops(3 * fwd, row["ms"])
     # the shifted block's backward by kernel: device time of each launch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     pk1 = blk1.packed(ws, dt)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            sb.swin_block_bwd(tok1, dy, pk1, ws, shift)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    split = {}
-    for name in ("swin_bwd_sm90", "swin_wgrad_kernel", "swin_gsum_kernel"):
-        hits = [e for e in evs if name in e.key]
-        split[name] = (sum(e.device_time_total for e in hits),
-                       sum(e.count for e in hits))
-    log(f"kernel {row['name']} by launch (profiler, shifted, 3 calls): "
-        + ", ".join(f"{k} {t / max(n, 1) / 1e3:.3f} ms x{n}"
-                    for k, (t, n) in split.items())
-        + "; other device kernels: " + ", ".join(
-            f"{e.key[:40]} x{e.count}" for e in evs
-            if not any(k in e.key for k in split)))
-    row["split_ms"] = {k: t / max(n, 1) / 1e3 for k, (t, n) in split.items()}
-    return row
+    row["split_ms"] = log_launch_split(
+        f"{row['name']} (shifted)",
+        lambda: sb.swin_block_bwd(tok1, dy, pk1, ws, shift), BWD_KERNEL_NAMES)
+    return row, check_swin_wgrad(tok1, dy, pk1, ws, shift, hid)
 
 
 def train_path(drive, kind: str, smi: str, fwd_row: dict,
-               bwd_row: dict) -> None:
+               bwd_row: dict, wgrad_row: dict) -> None:
     """TRAIN_STEPS steps of make_train_step on the full 002 generator at
     the 002 batch, with exact launch counts per step; the warm step time,
     samples/s, a stage split and the peak memory; then one step's
@@ -1966,6 +2056,7 @@ def train_path(drive, kind: str, smi: str, fwd_row: dict,
     bwd_row["launches"] = launches["swin_block_bwd"]
     bwd_row["launches_wgrad"] = launches["swin_block_wgrad"]
     bwd_row["launches_gsum"] = launches["swin_block_gsum"]
+    wgrad_row["launches"] = launches["swin_block_wgrad"]
     if not torch.isfinite(losses).all():
         raise AssertionError(f"train path: losses {losses.tolist()}")
     unchanged = [k for k, p in gen.named_parameters()
@@ -2571,9 +2662,9 @@ def main() -> int:
     batch = train_batch(np.random.default_rng(4), TRAIN_B, TRAIN_LR,
                         TRAIN_QSIDE)
     fwd_row = swin_block_row(swin, batch["lq"])
-    bwd_row = check_swin_bwd(swin, batch)
+    bwd_row, wgrad_row = check_swin_bwd(swin, batch)
     del batch
-    train_path(drive, kind, smi, fwd_row, bwd_row)
+    train_path(drive, kind, smi, fwd_row, bwd_row, wgrad_row)
     log(f"kernel {fwd_row['name']}: max|d|={fwd_row['max_abs_err']:.3e} "
         f"max|d|/max|ref|={fwd_row['max_rel_err']:.3e} "
         f"ms={fwd_row['ms']:.4f} ms_noshift={fwd_row['ms_noshift']:.4f} "
@@ -2589,6 +2680,12 @@ def main() -> int:
         f"bound_ms={bwd_row['bound_ms']:.4f} ({bwd_row['bound_by']}) "
         f"launches={bwd_row['launches']} tflops={bwd_row['tflops']:.1f}")
     rows.append(bwd_row)
+    log(f"kernel {wgrad_row['name']}: ms={wgrad_row['ms']:.4f} "
+        f"bound_ms={wgrad_row['bound_ms']:.4f} ({wgrad_row['bound_by']}) "
+        f"library_ms={wgrad_row['library_ms']:.4f} "
+        f"launches={wgrad_row['launches']} "
+        f"tflops={wgrad_row['tflops']:.1f}")
+    rows.append(wgrad_row)
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

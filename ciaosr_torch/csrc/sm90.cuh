@@ -336,6 +336,33 @@ __device__ __forceinline__ void wgmma_m64n96k16(
       : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB));
 }
 
+// d (64 x 192) += A (64 x 16) B (16 x 192); TNSPB as above; TNSPA as
+// wgmma_m64n64k16's (K-major A unless given)
+template <int TNSPB, int TNSPA = 0>
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %100, %99;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
+        SM90_F8(40), SM90_F8(48), SM90_F8(56), SM90_F8(64), SM90_F8(72),
+        SM90_F8(80), SM90_F8(88)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB), "n"(TNSPA));
+}
+
 // d (64 x 192) += A (64 x 16, four bf16x2 registers a thread, the
 // accumulator's layout) B (16 x 192); TNSPB: 0 K-major B, 1 MN-major B
 template <int TNSPB>

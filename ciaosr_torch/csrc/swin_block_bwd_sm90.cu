@@ -25,10 +25,26 @@
 //      (o, dx1), (yn, dz1), (hdn, dy): (T, width) row-major, NT rows a
 //      window) and one row of f32 per-window partials (LayerNorm gamma and
 //      beta, every bias, and the (heads, N, N) bias-table gradient).
-//  (2) swin_wgrad_kernel: dW = A^T B over the tokens for Wqkv (192 x 576),
-//      Wp (192 x 192), W1 (192 x 384) and W2 (384 x 192), one block per
-//      64 x 64 output tile and token chunk (a fixed number of chunks),
-//      f32 partials.
+//  (2) swin_wgrad_sm90, the weight-gradient kernel: dW = A^T B over the
+//      tokens for Wqkv (192 x 576), Wp (192 x 192), W1 (192 x 384) and W2
+//      (384 x 192), into f32 partials (splits, LD), one row a token chunk.
+//      It replaces the TPU kernel's resident sums dw2 += hdn^T dy, dw1 +=
+//      yn^T dz1, dwp += attn^T dx1 and dwq, dwk, dwv += xn^T [dq, dk, dv]
+//      (_block_bwd_kernel's _mm_at). Bound by bytes: at the 002 batch (T =
+//      24576 tokens, C = 180, 360 hidden units) the function reads 106 MB
+//      of real pair columns and writes 1.0 MB of weight gradients (32 us
+//      at 3.35 TB/s), for 12.7 GFLOP (13 us at the bf16 dense peak); this
+//      design moves 113 MB of padded pairs and 9.4 MB of chunk partials at
+//      8 chunks, and multiplies 14.5 GFLOP. Design: a CTA per 192 x 192
+//      output tile (8 tiles) and token chunk, so that each pair is read
+//      about 1.3 times (L2 serves the re-reads: a chunk's tiles run side by
+//      side); one producer thread streams 64 tokens of the tile's A and B
+//      columns a stage, by TMA in 64 x 64 boxes (the 128-byte swizzle),
+//      through a 4-stage ring of 48 KB; three consumer warpgroups, one per
+//      64 output rows, run wgmma m64n192k16 with both operands MN-major
+//      (the pairs are token-major: A is read transposed), keep the 64 x 192
+//      sum in registers and store it once. A chunk sums its tokens in a
+//      fixed order.
 //  (3) swin_gsum_kernel: sums the window partials and the chunk partials in
 //      a fixed order. No atomics anywhere, and each element of dx, of a pair
 //      and of a partial is written by one thread, so the gradients are the
@@ -82,15 +98,12 @@ namespace {
 
 using namespace sm90;
 
-typedef wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major> FragAt;
-
 constexpr int CP = 192;     // packed residual width
 constexpr int HD = 32;      // head slot
 constexpr int MAX_HEADS = CP / HD;
 constexpr int HIDP = 384;   // packed MLP hidden width
 constexpr int QKV = 3 * CP;
 constexpr int NT = 64;      // tokens a window, at most (one m64 tile)
-constexpr int THREADS = 256;   // swin_wgrad_kernel's block
 constexpr int QKV_ROWS = 3 * HD;   // wqkv_hm rows a head
 constexpr int HCH = 64;            // MLP hidden columns a chunk
 constexpr int NCH = HIDP / HCH;
@@ -1416,46 +1429,117 @@ int map_matrix(CUtensorMap* m, const void* p, int rows, int cols,
                      box);
 }
 
-// dW = A^T B over the tokens for the four products, one block per 64 x 64
-// output tile and token chunk (blockIdx.y); f32 partials (chunks, LD).
+// ------------------------------------------------ the weight-gradient kernel
+// dW = A^T B over the tokens for the four products (pair 2p is A, pair
+// 2p + 1 is B), a CTA per 192 x 192 output tile (WG_TILES of them) and token
+// chunk (blockIdx.y): one producer thread streams, 64 tokens a stage, the
+// tile's A and B columns as 64 x 64 TMA boxes through a WG_STAGES ring;
+// consumer warpgroup w takes the tile's output rows [64w, 64w + 64) as a
+// 64 x 192 f32 accumulator, both operands MN-major (the pairs are
+// token-major), and writes it to the chunk's partial row.
+constexpr int WG_TILE = 192;
+constexpr int WG_TILES = 8;    // Wqkv 1 x 3, Wp 1 x 1, W1 1 x 2, W2 2 x 1
+constexpr int WG_CONSUMERS = WG_TILE / 64;
+constexpr int WG_THREADS = WG_CONSUMERS * 128 + 32;   // + a producer warp
+constexpr int WG_STAGES = 4;
+constexpr int WG_HALF = (WG_TILE / 64) * SLAB;   // 64 tokens x 192: 24 KB
+constexpr int WG_STAGE = 2 * WG_HALF;            // A's, then B's
+constexpr int WG_SMEM = 1024 + WG_STAGES * WG_STAGE + 2 * WG_STAGES * 8;
+static_assert(WG_STAGE % 1024 == 0, "stages start on swizzle atoms");
+
+struct WMaps {
+  CUtensorMap pair[8];   // (T, width) bf16, boxes of 64 columns x 64 tokens
+};
+
 struct WParams {
-  const bf16* a[4];
-  const bf16* b[4];
-  int m[4], n[4], off[4], tile0[5];
-  float* part;
+  float* part;   // (splits, LD) f32
   int LD, T, chunk;
 };
 
-__global__ void __launch_bounds__(THREADS) swin_wgrad_kernel(WParams P) {
+__global__ void __launch_bounds__(WG_THREADS, 1)
+swin_wgrad_sm90(const __grid_constant__ WMaps maps, const WParams P) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE);
+  uint64_t* empty = full + WG_STAGES;
+  // the tile: product p, its tile row tm and column tn
   const int t = blockIdx.x;
-  int p = 0;
-  while (p < 3 && t >= P.tile0[p + 1]) ++p;
-  const int M = P.m[p], N = P.n[p], local = t - P.tile0[p];
-  const int tm = local / (N / 64), tn = local % (N / 64);
-  const int warp = threadIdx.x >> 5;
-  const int ti = warp / 2, tj0 = (warp % 2) * 2;
+  const int p = t < 3 ? 0 : (t < 4 ? 1 : (t < 6 ? 2 : 3));
+  const int N = p == 0 ? QKV : (p == 2 ? HIDP : CP);
+  const int off = p == 0 ? 0
+                  : p == 1 ? CP * QKV
+                  : p == 2 ? CP * QKV + CP * CP
+                           : CP * QKV + CP * CP + CP * HIDP;
+  const int local = t - (p == 0 ? 0 : (p == 1 ? 3 : (p == 2 ? 4 : 6)));
+  const int tm = local / (N / WG_TILE), tn = local % (N / WG_TILE);
+  // the chunk's tokens: whole stages (T and the chunk are multiples of 64)
   const int k0 = blockIdx.y * P.chunk;
-  const int k1 = min(P.T, k0 + P.chunk);
-  const bf16* A = P.a[p] + tm * 64 + 16 * ti;
-  const bf16* B = P.b[p] + tn * 64 + 16 * tj0;
-  FragC acc[2];
-  wm::fill_fragment(acc[0], 0.f);
-  wm::fill_fragment(acc[1], 0.f);
-  for (int k = k0; k < k1; k += 16) {
-    FragAt fa;
-    wm::load_matrix_sync(fa, A + (size_t)k * M, M);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragB fb;
-      wm::load_matrix_sync(fb, B + (size_t)k * N + 16 * j, N);
-      wm::mma_sync(acc[j], fa, fb, acc[j]);
+  const int steps = k0 < P.T ? (min(P.T, k0 + P.chunk) - k0) / KC : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMERS * 4);   // one arrival a warp
     }
+    fence_barrier_init();
   }
-  float* out = P.part + (size_t)blockIdx.y * P.LD + P.off[p] +
-               (size_t)(tm * 64 + 16 * ti) * N + tn * 64 + 16 * tj0;
+  __syncthreads();
+
+  if (warp == WG_CONSUMERS * 4) {   // the producer
+    if (lane == 0) {
+      const CUtensorMap* a = &maps.pair[2 * p];
+      const CUtensorMap* b = &maps.pair[2 * p + 1];
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % WG_STAGES;
+        if (i >= WG_STAGES) mbar_wait(&empty[s], (i / WG_STAGES - 1) & 1);
+        unsigned char* dst = smem + s * WG_STAGE;
+        mbar_expect_tx(&full[s], WG_STAGE);
+        for (int j = 0; j < WG_TILE / 64; ++j) {
+          tma_load_2d(dst + j * SLAB, a, &full[s], tm * WG_TILE + 64 * j,
+                      k0 + KC * i);
+          tma_load_2d(dst + WG_HALF + j * SLAB, b, &full[s],
+                      tn * WG_TILE + 64 * j, k0 + KC * i);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows [64 wg, 64 wg + 64) of the tile; each stage's group
+  // is waited one stage later, then the stage is released
+  const int wg = warp >> 2;
+  float acc[96];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wm::store_matrix_sync(out + 16 * j, acc[j], N, wm::mem_row_major);
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % WG_STAGES;
+    mbar_wait(&full[s], (i / WG_STAGES) & 1);
+    const unsigned char* st = smem + s * WG_STAGE;
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int k = 0; k < KC / 16; ++k)
+      wgmma_m64n192k16<1, 1>(acc, mdesc(st + wg * SLAB + 2048 * k),
+                             mdesc(st + WG_HALF + 2048 * k), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % WG_STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  // d[4j + 2h + e]: row 16 (warp % 4) + lane / 4 + 8h, column 8j + 2 (lane
+  // % 4) + e of the warpgroup's 64 x 192
+  float* out = P.part + (size_t)blockIdx.y * P.LD + off +
+               (size_t)(tm * WG_TILE + 64 * wg + 16 * (warp & 3) +
+                        (lane >> 2)) * N +
+               tn * WG_TILE + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < WG_TILE / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(out + (size_t)8 * h * N + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
 }
 
 // out[e] = the sum over windows of the window partials (e < lw), then the
@@ -1546,30 +1630,27 @@ extern "C" int swin_block_bwd(void* const* ptrs, int B, int H, int W, int C,
   return (int)cudaGetLastError();
 }
 
-// ptrs: xn, dqkv, o, dx1, yn, dz1, hdn, dyb (T rows each), part (splits, LD)
+// ptrs: xn, dqkv, o, dx1, yn, dz1, hdn, dyb (T rows each, T a multiple of
+// NT), part (splits, LD)
 extern "C" int swin_block_wgrad(void* const* ptrs, int T, int splits,
                                 void* stream) {
-  if (T < 16 || T % 16 || splits < 1) return (int)cudaErrorInvalidValue;
-  WParams P;
-  const int m[4] = {CP, CP, CP, HIDP}, n[4] = {QKV, CP, HIDP, CP};
-  int off = 0, tiles = 0;
-  for (int p = 0; p < 4; ++p) {
-    P.a[p] = (const bf16*)ptrs[2 * p];
-    P.b[p] = (const bf16*)ptrs[2 * p + 1];
-    P.m[p] = m[p];
-    P.n[p] = n[p];
-    P.off[p] = off;
-    P.tile0[p] = tiles;
-    off += m[p] * n[p];
-    tiles += (m[p] / 64) * (n[p] / 64);
+  static cudaError_t attr = allow_smem(swin_wgrad_sm90, WG_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  if (T < NT || T % NT || splits < 1 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int width[8] = {CP, QKV, CP, CP, CP, HIDP, HIDP, CP};
+  WMaps m;
+  for (int k = 0; k < 8; ++k) {
+    const int err = map_matrix(&m.pair[k], ptrs[k], T, width[k], KC);
+    if (err) return err;
   }
-  P.tile0[4] = tiles;
+  WParams P;
   P.part = (float*)ptrs[8];
-  P.LD = off;
+  P.LD = CP * QKV + CP * CP + CP * HIDP + HIDP * CP;
   P.T = T;
-  P.chunk = ((T + splits - 1) / splits + 15) / 16 * 16;
-  swin_wgrad_kernel<<<dim3(tiles, splits), THREADS, 0,
-                      (cudaStream_t)stream>>>(P);
+  P.chunk = ((T + splits - 1) / splits + KC - 1) / KC * KC;
+  swin_wgrad_sm90<<<dim3(WG_TILES, splits), WG_THREADS, WG_SMEM,
+                    (cudaStream_t)stream>>>(m, P);
   return (int)cudaGetLastError();
 }
 

@@ -181,22 +181,33 @@ def pack_swin_block(block, ws: int, dtype: torch.dtype) -> dict:
     }
 
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w with both operands rounded to w's dtype, summed in f32."""
-    return a.to(w.dtype).float() @ w.float()
+def _mm(a: torch.Tensor, w: torch.Tensor, taps: dict | None = None,
+        key: str = "") -> torch.Tensor:
+    """a @ w with both operands rounded to w's dtype, summed in f32. With
+    ``taps``, taps[key] becomes [the rounded a, the product's gradient],
+    the gradient filled in by a hook when autograd reaches the product."""
+    a = a.to(w.dtype).float()
+    out = a @ w.float()
+    if taps is not None:
+        taps[key] = [a.detach(), None]
+        out.register_hook(lambda g: taps[key].__setitem__(1, g))
+    return out
 
 
-def swin_block_plain(x: torch.Tensor, pk: dict, ws: int,
-                     shift: int) -> torch.Tensor:
+def swin_block_plain(x: torch.Tensor, pk: dict, ws: int, shift: int,
+                     taps: dict | None = None) -> torch.Tensor:
     """The block on the rolled f32 token map x (B, H, W, C) with packed
-    weights ``pk``; (B, H, W, C) f32. H and W are multiples of ws."""
+    weights ``pk``; (B, H, W, C) f32. H and W are multiples of ws. With
+    ``taps`` (a dict, under autograd), each weight product's operand and
+    output gradient are recorded under the weight's key (``_mm``)."""
     b, h, w, c = x.shape
     heads = pk["bias"].shape[0]
     n = ws * ws
     scale = float(c // heads) ** -0.5
     dt = pk["wqkv"].dtype
     xp = F.pad(x.float(), (0, CP - c))
-    qkv = _mm(layer_norm(xp, pk["g1"], pk["b1"], c), pk["wqkv"])
+    qkv = _mm(layer_norm(xp, pk["g1"], pk["b1"], c), pk["wqkv"], taps,
+              "wqkv")
     q = qkv[..., :CP] * scale + pk["bqkv"][:CP]
     k = qkv[..., CP:2 * CP] + pk["bqkv"][CP:2 * CP]
     v = qkv[..., 2 * CP:] + pk["bqkv"][2 * CP:]
@@ -215,10 +226,11 @@ def swin_block_plain(x: torch.Tensor, pk: dict, ws: int,
     p = torch.softmax(logits, -1).to(dt).float()
     o = (p @ heads_of(v)).transpose(1, 2)                 # (B·nW, N, heads, HD)
     o = F.pad(o, (0, 0, 0, CP // HD - heads)).reshape(-1, n, CP)
-    x1 = xp + _mm(window_reverse(o, ws, h, w), pk["wp"]) + pk["bp"]
-    hdn = gelu(_mm(layer_norm(x1, pk["g2"], pk["b2"], c), pk["w1"])
-               + pk["b1m"])
-    y = x1 + _mm(hdn, pk["w2"]) + pk["b2m"]
+    proj = _mm(window_reverse(o, ws, h, w), pk["wp"], taps, "wp")
+    x1 = xp + proj + pk["bp"]
+    hdn = gelu(_mm(layer_norm(x1, pk["g2"], pk["b2"], c), pk["w1"], taps,
+                   "w1") + pk["b1m"])
+    y = x1 + _mm(hdn, pk["w2"], taps, "w2") + pk["b2m"]
     return y[..., :c].contiguous()
 
 
@@ -302,7 +314,11 @@ def launch_swin_block(x: torch.Tensor, pk: dict, ws: int, shift: int,
 # Row 12 (csrc/swin_block_bwd_sm90.cu). The kernel returns one flat f32 buffer:
 # the per-window sums (these vectors, then the (heads, N, N) bias
 # gradient), then the weight gradients (these matrices, row-major).
-WGRAD_SPLITS = 8   # token chunks of the weight-gradient products
+# token chunks of the weight-gradient products (a CTA per output tile and
+# chunk: 8 x 8): at the 002 batch the fewest chunk partials for the sum,
+# and the weight-gradient kernel no slower than at 12-32 chunks on an H100
+# (tools/swin_wgrad_probe.py, which sets other counts here)
+WGRAD_SPLITS = 8
 _VECTORS = (("g1", CP), ("b1", CP), ("bqkv", 3 * CP), ("bp", CP),
             ("g2", CP), ("b2", CP), ("b1m", HIDP), ("b2m", CP))
 _MATRICES = (("wqkv", (CP, 3 * CP)), ("wp", (CP, CP)), ("w1", (CP, HIDP)),
@@ -326,6 +342,75 @@ def swin_block_bwd_plain(x: torch.Tensor, dy: torch.Tensor, pk: dict,
     return grads[0], dict(zip(_TENSORS, grads[1:]))
 
 
+def swin_block_pairs_plain(x: torch.Tensor, dy: torch.Tensor, pk: dict,
+                           ws: int, shift: int) -> list[torch.Tensor]:
+    """The eight per-token operand pairs of the weight gradients that row
+    12's window kernel writes, in ``_PAIRS`` order, by autograd hooks on
+    ``swin_block_plain``'s weight products (x, dy as in
+    ``swin_block_bwd_plain``; ``pk`` in its own dtype): xn, dqkv = [dq·scale
+    | dk | dv] (the gradient of xn @ wqkv), o, dx1, yn, dz1 (before GELU),
+    hdn and dy, each (B·nW·NT, width) f32 in window order, NT rows a window,
+    rows past ws² zero. Operands are rounded as the products round them;
+    the kernel writes every pair in bf16."""
+    taps: dict = {}
+    with torch.enable_grad():   # clones: the packs may be inference tensors
+        xl = x.detach().float().clone().requires_grad_()
+        leaves = {k: v.detach().clone() for k, v in pk.items()}
+        y = swin_block_plain(xl, leaves, ws, shift, taps)
+        torch.autograd.grad(y, xl, dy.float())
+    n = ws * ws
+
+    def rows(t):   # (B, H, W, width) map → (B·nW·NT, width)
+        t = F.pad(window_partition(t, ws), (0, 0, 0, NT - n))
+        return t.reshape(-1, t.shape[-1]).contiguous()
+
+    return [rows(t) for k, _ in _MATRICES for t in taps[k]]
+
+
+def swin_block_wgrad_plain(pairs: list[torch.Tensor]) -> torch.Tensor:
+    """The weight-gradient products of row 12 over all tokens, (LD,) f32:
+    Wqkv, Wp, W1, W2 = aᵀ b of each (a, b) pair in ``_PAIRS`` order, summed
+    in f32, flattened row-major one after another (the layout of a row of
+    the kernel's partials)."""
+    return torch.cat([(a.float().t() @ b.float()).reshape(-1)
+                      for a, b in zip(pairs[0::2], pairs[1::2])])
+
+
+def swin_block_wgrad(pairs: list[torch.Tensor]) -> torch.Tensor:
+    """Row 12's weight-gradient kernel (``swin_wgrad_sm90``) on CUDA
+    tensors: the bf16 pairs (T, width), T a multiple of NT, in ``_PAIRS``
+    order → f32 partials (WGRAD_SPLITS, LD), row i the products over the
+    i-th chunk of tokens (rows past the last token: 0). On CPU tensors the
+    plain version as one chunk, (1, LD)."""
+    if pairs[0].device.type == "cpu":
+        return swin_block_wgrad_plain(pairs)[None]
+    t, splits = pairs[0].shape[0], WGRAD_SPLITS
+    if (len(pairs) != len(_PAIRS) or t < NT or t % NT
+            or not 1 <= splits < 65536):
+        raise ValueError(f"swin_block_wgrad takes {len(_PAIRS)} pairs of T "
+                         f"rows, T a positive multiple of {NT}, and 1 .. "
+                         f"65535 splits; got {len(pairs)} pairs, T = {t}, "
+                         f"{splits} splits")
+    for (name, width), p in zip(_PAIRS, pairs):
+        _build.check_tensor(p, (t, width), name)
+        if p.device != pairs[0].device:
+            raise ValueError(f"{name} is on {p.device}, xn on "
+                             f"{pairs[0].device}")
+    ld = sum(r * cl for _, (r, cl) in _MATRICES)
+    part = torch.empty(splits, ld, device=pairs[0].device)
+    args = [*pairs, part]
+    ptrs = (ctypes.c_void_p * len(args))(*(a.data_ptr() for a in args))
+    fn = _build.load("swin_block_bwd_sm90").swin_block_wgrad
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), t, splits,
+             _build.stream_ptr(part.device))
+    kernels.LAUNCHES["swin_block_wgrad"] += 1
+    _build.check(err, "swin_block_wgrad")
+    return part
+
+
 def _split_grads(flat: torch.Tensor, heads: int, n: int) -> dict:
     out, at = {}, 0
     for k, size in _VECTORS:
@@ -339,6 +424,37 @@ def _split_grads(flat: torch.Tensor, heads: int, n: int) -> dict:
     return out
 
 
+def launch_swin_bwd_window(x: torch.Tensor, dy: torch.Tensor, pk: dict,
+                           ws: int, shift: int):
+    """One launch of row 12's window kernel (``swin_bwd_sm90``) on CUDA
+    tensors: dx (f32), the eight bf16 pairs (``_PAIRS``, NT rows a window)
+    and the f32 per-window partial rows (nW, lw)."""
+    b, h, w, c = x.shape
+    heads = _check_call(x, pk, ws, shift, "swin_block_bwd")
+    _build.check_tensor(dy, (b, h, w, c), "dy", torch.float32)
+    _build.check_tensor(pk["wqkv_hm"], (CP // HD * 3 * HD, CP), "wqkv_hm")
+    n = ws * ws
+    nwin = b * (h // ws) * (w // ws)
+    lw = sum(size for _, size in _VECTORS) + heads * n * n
+    dev = x.device
+    dx = torch.empty_like(x)
+    pairs = [torch.empty(nwin * NT, width, device=dev, dtype=torch.bfloat16)
+             for _, width in _PAIRS]
+    part = torch.empty(nwin, lw, device=dev)
+    # the window kernel streams wqkv in its head-major copy, as row 11
+    args = [x, dy, *(pk[k] for k in _FWD_TENSORS), dx, *pairs, part]
+    ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
+    fn = _build.load("swin_block_bwd_sm90").swin_block_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, heads, ws,
+             shift, float(c // heads) ** -0.5, _build.stream_ptr(dev))
+    kernels.LAUNCHES["swin_block_bwd"] += 1
+    _build.check(err, "swin_block_bwd")
+    return dx, pairs, part
+
+
 def swin_block_bwd(x: torch.Tensor, dy: torch.Tensor, pk: dict, ws: int,
                    shift: int) -> tuple[torch.Tensor, dict]:
     """Row 12 on CUDA tensors, the plain version on CPU tensors: the
@@ -348,57 +464,21 @@ def swin_block_bwd(x: torch.Tensor, dy: torch.Tensor, pk: dict, ws: int,
     a fixed order (reproducible run to run)."""
     if x.device.type == "cpu":
         return swin_block_bwd_plain(x, dy, pk, ws, shift)
-    b, h, w, c = x.shape
-    heads = _check_call(x, pk, ws, shift, "swin_block_bwd")
-    _build.check_tensor(dy, (b, h, w, c), "dy", torch.float32)
-    _build.check_tensor(pk["wqkv_hm"], (CP // HD * 3 * HD, CP), "wqkv_hm")
-    n = ws * ws
-    nwin = b * (h // ws) * (w // ws)
-    lw = sum(size for _, size in _VECTORS) + heads * n * n
-    ld = sum(r * cl for _, (r, cl) in _MATRICES)
-    dev = x.device
-    dx = torch.empty_like(x)
-    pairs = [torch.empty(nwin * NT, width, device=dev, dtype=torch.bfloat16)
-             for _, width in _PAIRS]
-    part = torch.empty(nwin, lw, device=dev)
-    wpart = torch.empty(WGRAD_SPLITS, ld, device=dev)
-    flat = torch.empty(lw + ld, device=dev)
-    lib = _build.load("swin_block_bwd_sm90")
-    stream = _build.stream_ptr(dev)
-
-    # the window kernel streams wqkv in its head-major copy, as row 11
-    args = [x, dy, *(pk[k] for k in _FWD_TENSORS), dx, *pairs, part]
-    ptrs = (ctypes.c_void_p * len(args))(*(t.data_ptr() for t in args))
-    fn = lib.swin_block_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    err = fn(ctypes.cast(ptrs, ctypes.c_void_p), b, h, w, c, heads, ws,
-             shift, float(c // heads) ** -0.5, stream)
-    kernels.LAUNCHES["swin_block_bwd"] += 1
-    _build.check(err, "swin_block_bwd")
-
-    wargs = [*pairs, wpart]
-    wptrs = (ctypes.c_void_p * len(wargs))(*(t.data_ptr() for t in wargs))
-    fn = lib.swin_block_wgrad
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    err = fn(ctypes.cast(wptrs, ctypes.c_void_p), nwin * NT, WGRAD_SPLITS,
-             stream)
-    kernels.LAUNCHES["swin_block_wgrad"] += 1
-    _build.check(err, "swin_block_wgrad")
-
-    fn = lib.swin_block_gsum
+    dx, pairs, part = launch_swin_bwd_window(x, dy, pk, ws, shift)
+    wpart = swin_block_wgrad(pairs)
+    nwin, lw = part.shape
+    ns, ld = wpart.shape
+    flat = torch.empty(lw + ld, device=x.device)
+    fn = _build.load("swin_block_bwd_sm90").swin_block_gsum
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
-    err = fn(_build.ptr(part), nwin, lw, _build.ptr(wpart), WGRAD_SPLITS, ld,
-             _build.ptr(flat), stream)
+    err = fn(_build.ptr(part), nwin, lw, _build.ptr(wpart), ns, ld,
+             _build.ptr(flat), _build.stream_ptr(x.device))
     kernels.LAUNCHES["swin_block_gsum"] += 1
     _build.check(err, "swin_block_gsum")
-    return dx, _split_grads(flat, heads, n)
+    return dx, _split_grads(flat, pk["bias"].shape[0], ws * ws)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,8 @@ grids smaller than or off its tiles and at spread logits, the same bits
 from call to call and from either entry point, and row 7 also on seeded
 banks at the edges of its tiles and of its online softmax; the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
-≤ 2e-2), K1-K3 at SwinIR-CiaoSR's 180 channels without CSA, and the
+≤ 2e-2; its weight-gradient kernel alone ≤ 1e-3 against its plain
+version, padded partials exactly 0), K1-K3 at SwinIR-CiaoSR's 180 channels without CSA, and the
 one-tap instances of K1, K2, K3 (row 9) and row 10 (feat_unfold=False,
 (C, DC) = (64, 64)) on an EDSR generator, every other one-tap width
 raising. Needs a
@@ -799,6 +800,90 @@ def test_swin_block_bwd_rejects(swin_case):
     x9 = torch.zeros(1, 18, 18, 180, device="cuda")     # ws² = 81 > 64
     with pytest.raises(ValueError, match="window"):
         sb.swin_block_bwd(x9, x9, pk, 9, 0)
+
+
+def _wgrad_pairs(t, n, seed):
+    """Seeded bf16 pairs of t tokens on the card, NT rows a window of
+    which the first n are tokens (the rest zero)."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    rng = np.random.default_rng(seed)
+    live = (np.arange(t) % sb.NT < n)[:, None]
+    return [torch.as_tensor(np.where(live, rng.standard_normal(
+        (t, width)), 0.0).astype(np.float32), device="cuda").to(
+        torch.bfloat16) for _, width in sb._PAIRS]
+
+
+# T = 64 (one window of 36 tokens: one chunk holds every token), 512 and
+# the 002 training batch's 24576 (384 windows)
+@pytest.mark.parametrize("t,n", [(64, 36), (512, 64), (24576, 64)],
+                         ids=["T64_window_6", "T512", "T24576"])
+def test_swin_block_wgrad(t, n):
+    """Row 12's weight-gradient kernel against its plain version on the
+    same bf16 pairs, summed over the chunks: both sum bf16 products in f32,
+    in another order, so max|Δ|/max|ref| ≤ 1e-3; the same bits twice; one
+    launch a call; chunks past the last token are 0."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    pairs = _wgrad_pairs(t, n, t + n)
+    n0 = kernels.LAUNCHES["swin_block_wgrad"]
+    part = sb.swin_block_wgrad(pairs)
+    assert kernels.LAUNCHES["swin_block_wgrad"] - n0 == 1
+    ld = sum(r * c for _, (r, c) in sb._MATRICES)
+    assert part.shape == (sb.WGRAD_SPLITS, ld) and part.dtype == torch.float32
+    ref = sb.swin_block_wgrad_plain(pairs)
+    assert _rel(part.sum(0), ref) <= 1e-3
+    assert torch.equal(part, sb.swin_block_wgrad(pairs))
+    chunk = -(-t // sb.WGRAD_SPLITS // sb.NT) * sb.NT
+    assert not part[-(-t // chunk):].any()
+
+
+def _padded_partials(part, c, heads, hid):
+    """The entries of each chunk's partial row that must be 0 for a block
+    of c channels, heads heads and hid hidden columns: padded channels,
+    empty or padded head-slot columns, padded hidden columns."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    hd = c // heads
+    live = torch.zeros(3 * sb.CP, dtype=torch.bool, device=part.device)
+    for p in range(3):
+        for h in range(heads):
+            at = p * sb.CP + sb.HD * h
+            live[at:at + hd] = True
+    mats, at = {}, 0
+    for k, (r, cl) in sb._MATRICES:
+        mats[k] = part[:, at:at + r * cl].view(-1, r, cl)
+        at += r * cl
+    return {"wqkv rows": mats["wqkv"][:, c:],
+            "wqkv cols": mats["wqkv"][:, :, ~live],
+            "wp rows": mats["wp"][:, ~live[:sb.CP]],
+            "wp cols": mats["wp"][:, :, c:],
+            "w1 rows": mats["w1"][:, c:], "w1 cols": mats["w1"][:, :, hid:],
+            "w2 rows": mats["w2"][:, hid:], "w2 cols": mats["w2"][:, :, c:]}
+
+
+@pytest.mark.parametrize("source", ["window_kernel", "pairs_plain"])
+def test_swin_block_wgrad_padded_zero(source):
+    """On the pairs of a narrow shifted block (C = 90, 3 heads of 30,
+    hidden 180 on a 2 × 16 × 16 map) that the window kernel wrote, or that
+    swin_block_pairs_plain gives (rounded to bf16), every chunk's partial of
+    a padded channel, an empty or padded head-slot column or a padded
+    hidden column is exactly 0, and the live entries are not all 0."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    c = 90
+    blk = _block(c, 3, 8, 4, c)
+    ws, shift = blk.geometry(16, 16)
+    rng = np.random.default_rng(c + 1)
+    x, dy = (torch.as_tensor(rng.standard_normal((2, 16, 16, c)).astype(
+        np.float32), device="cuda") for _ in range(2))
+    pk = blk.packed(ws, torch.bfloat16)
+    if source == "window_kernel":
+        pairs = sb.launch_swin_bwd_window(x, dy, pk, ws, shift)[1]
+    else:
+        pairs = [p.to(torch.bfloat16) for p in sb.swin_block_pairs_plain(
+            x, dy, pk, ws, shift)]
+    part = sb.swin_block_wgrad(pairs)
+    for k, v in _padded_partials(part, c, 3, 2 * c).items():
+        assert v.numel() and not v.any(), k
+    assert part[:, :c * 3 * sb.CP].any()
 
 
 def test_swin_training_step_runs_row_12(swin_case):
