@@ -9,8 +9,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      ×2.5 on a 192 tile: 25 phases of 96²; its integer mode once more at
      the odd-width request's shapes; the CSA kernels of rows 5-8 at the
      geometries of the CSA paths below), max|Δ|/max|ref| ≤ 1e-2 (the
-     decode kernel's rows, both modes, also the same bits on two
-     launches), and times both with CUDA events (median of several runs
+     decode kernel's rows, both modes, and K2's also the same bits on two
+     launches; K2's wt and ck each), and times both with CUDA events
+     (median of several runs
      after warm-up),
      next to the roofline bound and, where one PyTorch call computes the
      same function, that call's time;
@@ -42,7 +43,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      at ×4; then config 001 swinir (SwinIR-CiaoSR with CSA: Cr = 90,
      C = 180, zero-padded to the kernels' 96 and 192; bf16, seeded random
      weights, full width and depth): K4 and row 7 at (Cr, C) = (96, 192),
-     K1 and K3 at (C, DC) = (192, 192) (K3 also at the 70² request's odd
+     K1, K2 and K3 at (C, DC) = (192, 192) (K3 also at the 70² request's odd
      width; its rational mode, row 10, at ×2.5 on the 192² tile and on
      72²), and rows 6 and 5 on the 192×512 and 48×1024 full images (the
      wide pair over row blocks of at most 2 GiB of scores; row 6 also at 1
@@ -368,7 +369,7 @@ def f32(x):
 
 def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
                library, reps: int = 5, crop=None,
-               same_bits: bool = False) -> dict:
+               same_bits: bool = False, each: bool = False) -> dict:
     """One row of the kernels line: the kernel (bf16) against its plain
     version (f32, same values), max|Δ|/max|ref| ≤ REL_TOL, with CUDA-event
     times of both (the plain version: median of 3, its reference call
@@ -376,26 +377,39 @@ def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
     the bound from ``flops`` and ``nbytes``, and ``library``'s time where
     one PyTorch call computes the same function. ``crop`` takes a kernel
     on zero-padded maps to the plain version's real widths; ``same_bits``
-    also holds a second launch to the first one's bits."""
+    also holds a second launch to the first one's bits (every output);
+    ``each`` holds every output of a tuple to REL_TOL on its own
+    (``max_rel_err_each``)."""
     with torch.inference_mode():
         got = kern()
-        same = torch.equal(got, kern()) if same_bits else None
+        same = None
+        if same_bits:
+            again = kern()
+            pairs = zip(got, again) if isinstance(got, tuple) else [
+                (got, again)]
+            same = all(torch.equal(a, b) for a, b in pairs)
+            del again, pairs
         torch.cuda.synchronize()
         ref = plain()
-        abs_err, err = errors(got if crop is None else crop(got), ref)
+        got = got if crop is None else crop(got)
+        abs_err, err = errors(got, ref)
+        errs = [errors(g, r)[1] for g, r in zip(got, ref)] if each else []
         del got, ref
         ms = time_ms(kern, reps=reps, warm=min(2, reps - 2))
         plain_ms = time_ms(plain, reps=3, warm=0)
         lib_ms = time_ms(library, reps=reps) if library else None
     bms, by = bound_ms(flops, nbytes)
-    if not err <= REL_TOL:
-        raise AssertionError(f"{name}: error {err:.3e} > {REL_TOL}")
+    if not max([err] + errs) <= REL_TOL:
+        raise AssertionError(f"{name}: error {max([err] + errs):.3e} > "
+                             f"{REL_TOL}")
     if same is False:
         raise AssertionError(f"{name}: two launches gave different bits")
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                launches=0, max_abs_err=abs_err, max_rel_err=err,
                tol_rel=REL_TOL, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                bound_by=by, library_ms=lib_ms, tflops=tflops(flops, ms))
+    if each:
+        row["max_rel_err_each"] = errs
     if same_bits:
         row["reproducible"] = True
     return row
@@ -454,14 +468,9 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
         2 * m * (9 * c * 2 * hid + csa.shape[-1] * hid),
         m * 2 * c * 2 + (2 * 9 * c + c) * hid * 2 + m * 2 * hid * 2,
         lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=1))
-    run("wt_hoist", "ciaosr_torch/csrc/wt_hoist.cu",
-        "ciaosr_tpu/ops/pallas/decoder_kernel.py:762 (_wt_hoist_planes)",
-        lambda: dk.wt_hoist(feature, pk["wkout"], pk["bkout"]),
-        lambda: dk.wt_hoist_plain(feature.float(), pk["wkout"].float(),
-                                  pk["bkout"]),
-        2 * 9 * m * 9 * c * (hid + 1),
-        m * c * 2 + 9 * c * hid * 2 + 9 * c * 4 + 9 * m * (hid * 2 + 4),
-        None)
+    rows.append(wt_row("wt_hoist", feature, pk, feature.float(), f32(pk),
+                       "ciaosr_tpu/ops/pallas/decoder_kernel.py:762 "
+                       "(_wt_hoist_planes)"))
 
     rows.append(decode_row("grid_decode", DECODE_REPLACES[False], int_maps,
                            tabs, False, ss))
@@ -482,6 +491,27 @@ def check_kernels(restorer, lq_tile: torch.Tensor,
              + p_ * c * 2 + 4 * p_ * c * 4),
         None)
     return rows
+
+
+def wt_row(name, feature, pk, feat_real, pk_real, replaces) -> dict:
+    """K2 on ``feature`` (zero-padded to a compiled width) and its packed
+    W_kout, b_kout against its plain version (f32) on ``feat_real`` and
+    ``pk_real`` at the real width: wt and ck each ≤ REL_TOL, the same bits
+    on two launches; the bound counts the function's work at the real
+    width (no PyTorch call computes it: no library time)."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    hid = 256
+    b, h, w, c = feat_real.shape
+    m, dk_ = b * h * w, pk_real["wkout"].shape[0]
+    return kernel_row(
+        name, "ciaosr_torch/csrc/wt_hoist_sm90.cu", replaces,
+        lambda: dk.wt_hoist(feature, pk["wkout"], pk["bkout"]),
+        lambda: dk.wt_hoist_plain(feat_real, pk_real["wkout"],
+                                  pk_real["bkout"]),
+        2 * 9 * m * dk_ * (hid + 1),
+        m * c * 2 + dk_ * hid * 2 + dk_ * 4 + 9 * m * (hid * 2 + 4), None,
+        same_bits=True, each=True)
 
 
 # the TPU functions of the decode kernel's modes
@@ -748,7 +778,7 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
                  sw1_ms: dict | None = None, edsr=None, u1=None,
                  u1_ms: dict | None = None) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
-    redesigned for Hopper (K1 and K3's integer mode at both widths, K3 at
+    redesigned for Hopper (K1, K2 and K3's integer mode at both widths, K3 at
     row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
     and unshifted on a SwinIR tile's tokens, shifted on a training batch's),
     of K3's rational mode at both widths, of rows 5 and 8, of row 12 (the
@@ -756,7 +786,7 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     profiler), and of the tiles that run K1 and K3 or row
     10 (a flagship 192 tile at x4 and x2.5, a SwinIR 256 tile at x4), and
     of config 001
-    swinir's instances (K4 and K1 on its 192² tile, row 7 at 72², K3 on
+    swinir's instances (K4, K1 and K2 on its 192² tile, row 7 at 72², K3 on
     both and at 70², row 10 at x2.5 on the 192² tile and 72², rows 6 and 5
     on the 192 x 512 and 48 x 1024 full images), at the main path's
     shapes: one line, printed the same way by
@@ -786,11 +816,15 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
         _, csa, _, _, _, _, pk = net._kernel_maps(feature, (0.5, 0.5))
         times["f3p_build"] = time_ms(lambda: dk.f3p_build(
             feature, csa, pk["wk0"], pk["wvu"], pk["wvc"]), reps=20)
+        times["wt_hoist"] = time_ms(lambda: dk.wt_hoist(
+            feature, pk["wkout"], pk["bkout"]), reps=20)
         sfeat = swin.generator.gen_feature(swin.normalize(swin_tile))
         feat_p, _, _, _, _, _, spk = swin.generator._kernel_maps(
             sfeat, (0.5, 0.5))
         times["f3p_build@C180"] = time_ms(lambda: dk.f3p_build(
             feat_p, None, spk["wk0"], spk["wvu"], spk["wvc"]), reps=20)
+        times["wt_hoist@C180"] = time_ms(lambda: dk.wt_hoist(
+            feat_p, spk["wkout"], spk["bkout"]), reps=20)
 
         def decode_times(suffix, gen, feat, rational):
             """K3 at x4 on feat's maps, and with ``rational`` its rational
@@ -927,6 +961,8 @@ def time_swin001_kernels(times: dict, sw1, lq_s: np.ndarray,
         feat_p, csa_p, _, _, _, _, pk1 = t192["maps"]
         times["f3p_build@C180+csa"] = time_ms(lambda: dk.f3p_build(
             feat_p, csa_p, pk1["wk0"], pk1["wvu"], pk1["wvc"]), reps=20)
+        times["wt_hoist@C180+csa"] = time_ms(lambda: dk.wt_hoist(
+            feat_p, pk1["wkout"], pk1["bkout"]), reps=20)
         odd = SET5_X4_ODD[0]
         for name, hw in (("grid_decode@C180+csa", (SWIN_001_TILE,) * 2),
                          ("grid_decode@C180+csa@{}x{}".format(*odd), odd)):
@@ -1070,14 +1106,11 @@ def check_swin_kernels(swin, lq_tile: torch.Tensor,
         2 * m * dk_ * 2 * hid,
         m * c * 2 + 2 * dk_ * hid * 2 + m * 2 * hid * 2,
         lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=1)))
-    rows.append(kernel_row(
-        "wt_hoist@C180", "ciaosr_torch/csrc/wt_hoist.cu",
-        src + "762 (_wt_hoist_planes)",
-        lambda: dk.wt_hoist(feat_p, pk["wkout"], pk["bkout"]),
-        lambda: dk.wt_hoist_plain(feat_p.float(), pk["wkout"].float(),
-                                  pk["bkout"]),
-        2 * 9 * m * dk_ * (hid + 1),
-        m * c * 2 + dk_ * hid * 2 + dk_ * 4 + 9 * m * (hid * 2 + 4), None))
+    rows.append(wt_row(
+        "wt_hoist@C180", feat_p, pk, feat_p[..., :c].float(),
+        f32(dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, c,
+                            (0.5, 0.5), torch.bfloat16)),
+        src + "762 (_wt_hoist_planes)"))
 
     def decode_row(name, source, replaces, kern, plain, mp, tb, n_phase,
                    m_out):
@@ -1291,7 +1324,7 @@ def swin001_inputs(sw, lq_s: np.ndarray, big: np.ndarray) -> dict:
 def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
     """Config 001 swinir's kernel instances on its path's tensors: K4 on
     the 192² tile's CSA maps and row 7 on the 72² request's banks (at
-    (Cr, C) = (96, 192)), K1 and K3 at (C, DC) = (192, 192) on the 192²
+    (Cr, C) = (96, 192)), K1, K2 and K3 at (C, DC) = (192, 192) on the 192²
     tile, K3 once more at the 70² request's odd width, row 10 at ×2.5 on
     the 192² tile and on 72², row 6 on the 192 × 512 and row 5 on the
     48 × 1024 full image's CSA maps (the wide pair over row blocks; row 6
@@ -1372,6 +1405,8 @@ def check_swin001_kernels(sw, inputs: dict) -> list[dict]:
         2 * m * (9 * c * 2 * hid + c * hid),
         m * 2 * c * 2 + (2 * 9 * c + c) * hid * 2 + m * 2 * hid * 2,
         lambda: torch.nn.functional.conv2d(x_lib, w_lib, padding=1)))
+    rows.append(wt_row("wt_hoist@C180+csa", feat_p, pk, feat_r, pk_r,
+                       at + "decoder_kernel.py:762 (_wt_hoist_planes)"))
 
     def decode_row(name, hw):
         feat_p, csa_p, gk, gv, wt, ck, pk = inputs[hw]["maps"]
@@ -1637,14 +1672,8 @@ def check_u1_kernels(u1, lq: np.ndarray) -> list[dict]:
         2 * m * (c * 2 * hid + dc * hid),
         m * (c + dc) * 2 + (2 * c + dc) * hid * 2 + m * 2 * hid * 2,
         lambda: torch.matmul(x_lib, w_lib))]
-    rows.append(kernel_row(
-        "wt_hoist@u1", "ciaosr_torch/csrc/wt_hoist.cu",
-        at + "762 (_wt_hoist_planes, dk = C)",
-        lambda: dk.wt_hoist(feature, pk["wkout"], pk["bkout"]),
-        lambda: dk.wt_hoist_plain(feature.float(), pk["wkout"].float(),
-                                  pk["bkout"]),
-        2 * 9 * m * c * (hid + 1),
-        m * c * 2 + c * hid * 2 + c * 4 + 9 * m * (hid * 2 + 4), None))
+    rows.append(wt_row("wt_hoist@u1", feature, pk, feature.float(), f32(pk),
+                       at + "762 (_wt_hoist_planes, dk = C)"))
     rows.append(decode_row("grid_decode@u1", DECODE_REPLACES[False],
                            *inputs["int"], False, ss))
     rows.append(decode_row("grid_decode@u1@{}x{}".format(*ODD),
@@ -2597,6 +2626,9 @@ def main() -> int:
         "f3p_build@C180+csa": sum(sl["f3p_build"]
                                   for sl in (l_set5, l_odd, l_x4))
         + total("f3p_build"),
+        "wt_hoist@C180+csa": sum(sl["wt_hoist"]
+                                 for sl in (l_set5, l_odd, l_x4))
+        + total("wt_hoist"),
         "grid_decode@C180+csa": l_set5["grid_decode"] + l_x4["grid_decode"]
         + total("grid_decode", False),
         "grid_decode@C180+csa@{}x{}".format(*SET5_X4_ODD[0]):

@@ -1,10 +1,11 @@
-// Shared helpers for the port's Hopper kernels (sm_90a).
-//
-// Every kernel here takes bf16 operands, multiplies them on the tensor
-// cores through nvcuda::wmma 16x16x16 bf16 fragments and accumulates in
-// f32. Row-major matrices everywhere; a fragment pointer must be 32-byte
-// aligned, so shared-memory row strides below are chosen so that every
-// 16-row fragment start lands on a 32-byte boundary.
+// Shared helpers for the port's Hopper kernels (sm_90a): bf16 types and
+// conversions, small index and vector helpers, the dynamic shared-memory
+// cap, and the nvcuda::wmma 16x16x16 bf16 fragment types that the kernels
+// still on their first design use (row 5's csa_stencil.cu and row 8's
+// csa_attention.cu, through csa_tiles.cuh); the others are on wgmma and
+// TMA (sm90.cuh). Row-major matrices everywhere; a wmma fragment pointer
+// must be 32-byte aligned, so shared-memory row strides there are chosen
+// so that every 16-row fragment start lands on a 32-byte boundary.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,11 +27,6 @@ __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
 // round an f32 value through bf16 and back (a cast to bf16 storage)
 __device__ __forceinline__ float bfround(float v) { return bf2f(f2bf(v)); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -43,27 +39,6 @@ __device__ __forceinline__ void st8(bf16* p, uint4 v) {
   *reinterpret_cast<uint4*>(p) = v;
 }
 __device__ __forceinline__ uint4 zero8() { return make_uint4(0, 0, 0, 0); }
-
-// Store one 16x16 f32 accumulator as bf16 rows of a row-major global
-// matrix (row stride ld elements). scratch: 256 floats private to the
-// warp. Rows at or past n_rows are skipped.
-__device__ __forceinline__ void store_frag_bf16(const FragC& acc,
-                                                float* scratch, bf16* dst,
-                                                int ld, int row0, int n_rows,
-                                                int col0) {
-  wm::store_matrix_sync(scratch, acc, 16, wm::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  if (row0 + r < n_rows) {
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = f2bf(scratch[r * 16 + c + i]);
-    st8(dst + (size_t)(row0 + r) * ld + col0 + c,
-        *reinterpret_cast<uint4*>(v));
-  }
-  __syncwarp();
-}
 
 // Raise the dynamic shared-memory cap of a kernel once per process.
 template <typename K>

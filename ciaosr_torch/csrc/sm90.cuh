@@ -185,6 +185,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   return d;
 }
 
+// Descriptor of a tile without swizzle at p (16-byte aligned): 8 x 16-byte
+// core matrices, rows 16 bytes apart; lbo / sbo: the byte offsets between
+// core matrices along K and along M or N.
+__device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFFu) >> 4;
+  d |= (uint64_t)((lbo >> 4) & 0x3FFFu) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFFu) << 32;
+  return d;  // layout type 0: no swizzle
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -361,6 +372,49 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da,
         SM90_F8(40), SM90_F8(48), SM90_F8(56), SM90_F8(64), SM90_F8(72),
         SM90_F8(80), SM90_F8(88)
       : "l"(da), "l"(db), "r"(scale_d), "n"(TNSPB), "n"(TNSPA));
+}
+
+// d (64 x 8) += A (64 x 16, four bf16x2 registers a thread, the
+// accumulator's layout) B (16 x 8, K-major)
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256) += A (64 x 16, four bf16x2 registers a thread, the
+// accumulator's layout) B (16 x 256); TNSPB: 0 K-major B, 1 MN-major B
+template <int TNSPB>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      : SM90_F32(0), SM90_F32(32), SM90_F32(64), SM90_F32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TNSPB));
 }
 
 // d (64 x 192) += A (64 x 16, four bf16x2 registers a thread, the

@@ -3,7 +3,8 @@ tables.
 
 Counterparts in ciaosr_tpu/ops/pallas/decoder_kernel.py:
   f3p_build   ← _build_f3p (K1, csrc/f3p_build.cu)
-  wt_hoist    ← _wt_hoist_planes (K2, csrc/wt_hoist.cu)
+  wt_hoist    ← _wt_hoist_planes (K2, csrc/wt_hoist_sm90.cu: wgmma and
+                TMA)
   grid_decode ← _grid_decode_halo, integer mode (K3,
                 csrc/grid_decode_sm90.cu: wgmma and TMA)
   grid_decode_rational ← grid_decode_fused_rational, the rational mode of
@@ -392,7 +393,7 @@ def wt_hoist(feature, wkout, bkout):
     wt = torch.empty(9, b, h, w, HID, device=feature.device,
                      dtype=torch.bfloat16)
     ck = torch.empty(9, b, h, w, device=feature.device, dtype=torch.float32)
-    fn = _build.load("wt_hoist").wt_hoist
+    fn = _build.load("wt_hoist_sm90").wt_hoist
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]

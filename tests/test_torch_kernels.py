@@ -120,14 +120,62 @@ def test_f3p_build(case, b, h, w, c, dc):
     assert _rel(got, dk.f3p_build_plain(*_f32(args))) <= REL_TOL
 
 
+def _wt_inputs(rng, b, h, w, c, taps, real):
+    """Seeded K2 inputs at width c (bf16 feature and W_kout, f32 b_kout
+    of bf16 values), zero at the channels from ``real`` on, as the path's
+    padding leaves them; and the same values at the ``real`` width (f32)."""
+    feat = _bf16(rng, b, h, w, c)
+    feat[..., real:] = 0
+    wk = _bf16(rng, taps, c, 256, scale=0.05)
+    wk[:, real:] = 0
+    bk = _bf16(rng, taps, c).float()
+    bk[:, real:] = 0
+    return ((feat, wk.reshape(taps * c, 256), bk.reshape(-1)),
+            (feat[..., :real].float(),
+             wk[:, :real].reshape(taps * real, 256).float(),
+             bk[:, :real].reshape(-1)))
+
+
+# K2 at its three instances: (C, taps) = (64, 9), the flagship; (192, 9),
+# SwinIR-CiaoSR's 180 channels zero-padded, held against the plain
+# version at the 180 real channels; (64, 1), without the unfold. Shapes
+# off the kernel's 16 x 8 patch grid (at (64, 9) and 21 x 37 the
+# network's own maps), B = 2 and maps one pixel high or wide (both edge
+# clamps of an axis at every pixel); wt and ck each ≤ 1e-2, the same bits
+# from a second launch, one launch a call
+@pytest.mark.parametrize("hw", [(2, 21, 37), (2, 13, 29), (1, 60, 47),
+                                (1, 57, 57), (1, 72, 72), (2, 1, 40),
+                                (1, 33, 1)],
+                         ids=["21x37_B2", "13x29_B2", "60x47", "57x57",
+                              "72x72", "1x40_B2", "33x1"])
+@pytest.mark.parametrize("c,real,taps", [(64, 64, 9), (192, 180, 9),
+                                         (64, 64, 1)],
+                         ids=["C64", "C180pad192", "C64_1tap"])
 @torch.inference_mode()
-def test_wt_hoist(case):
+def test_wt_hoist(case, c, real, taps, hw):
+    from ciaosr_torch.ops import kernels
     net, feat, _, dk = case
-    pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
-                         (0.5, 0.5), torch.bfloat16)
-    got = dk.wt_hoist(feat, pk["wkout"], pk["bkout"])
-    ref = dk.wt_hoist_plain(feat.float(), pk["wkout"].float(), pk["bkout"])
-    assert _rel(got, ref) <= REL_TOL
+    b, h, w = hw
+    if (c, taps) == (64, 9) and hw == feat.shape[:3]:   # the net's maps
+        pk = dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 64,
+                             (0.5, 0.5), torch.bfloat16)
+        args = (feat, pk["wkout"], pk["bkout"])
+        plain = _f32(args)
+    else:
+        args, plain = _wt_inputs(np.random.default_rng(h * w + c + taps),
+                                 b, h, w, c, taps, real)
+    n0 = kernels.LAUNCHES["wt_hoist"]
+    wt, ck = dk.wt_hoist(*args)
+    assert kernels.LAUNCHES["wt_hoist"] == n0 + 1
+    bsz, hh, ww = args[0].shape[:3]
+    assert wt.shape == (9, bsz, hh, ww, 256) and wt.dtype == torch.bfloat16
+    assert ck.shape == (9, bsz, hh, ww) and ck.dtype == torch.float32
+    ref_wt, ref_ck = dk.wt_hoist_plain(*plain)
+    assert _rel(wt, ref_wt) <= REL_TOL
+    assert _rel(ck, ref_ck) <= REL_TOL
+    wt2, ck2 = dk.wt_hoist(*args)
+    assert kernels.LAUNCHES["wt_hoist"] == n0 + 2
+    assert torch.equal(wt, wt2) and torch.equal(ck, ck2)
 
 
 # K3 at s = 2, 3, 4 with 1, 4 and 9 shifts (9: two groups of 4 and one
