@@ -9,8 +9,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      ×2.5 on a 192 tile: 25 phases of 96²; its integer mode once more at
      the odd-width request's shapes; the CSA kernels of rows 5-8 at the
      geometries of the CSA paths below), max|Δ|/max|ref| ≤ 1e-2 (the
-     decode kernel's rows, both modes, and K2's also the same bits on two
-     launches; K2's wt and ck each), and times both with CUDA events
+     decode kernel's rows, both modes, K2's and row 8's also the same bits
+     on two launches; K2's wt and ck each; row 5 the same bits as K4;
+     row 8's paste alone ≤ 1e-6), and times both with CUDA events
      (median of several runs
      after warm-up),
      next to the roofline bound and, where one PyTorch call computes the
@@ -83,12 +84,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      classical L1 objective): the Swin block (row 11, ``swin_block@
      6x64x64``) and its backward (row 12), shifted and unshifted, on the
      batch's tokens, held against their f32 plain versions (row 12: against
-     autograd) and checked reproducible; 5 steps of ``make_train_step``
-     with exact launch counts (rows 11 and 12 and its two reduction kernels
-     36 times a step, nothing else), finite losses and every parameter
-     with a gradient changed; the warm step time, samples/s, a stage split
-     and the peak memory; one step's gradients, kernel route against the
-     plain f32 route, on a small batch;
+     autograd) and checked reproducible, row 12's sum kernel also timed
+     against ``pw.sum(0)`` and ``pd.sum(0)`` on its partials; 5 steps of
+     ``make_train_step`` with exact launch counts (rows 11 and 12 and its
+     two reduction kernels 36 times a step, nothing else), finite losses
+     and every parameter with a gradient changed; the warm step time,
+     samples/s, a stage split and the peak memory; one step's gradients,
+     kernel route against the plain f32 route, on a small batch;
   8. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
@@ -151,7 +153,8 @@ CSA_FULL = (("windowed", (192, 512), "csa_fused"),
             ("resident", (40, 1024), "csa_fused"),
             ("stencil", (48, 1024), "csa_stencil"))
 CSA_KERNELS = ("csa_stencil_fused", "csa_stencil", "csa_fused",
-               "csa_attention", "csa_attention_overlap_add")
+               "csa_attention", "csa_attention_overlap_add",
+               "plane_overlap_add")
 TEST_CFG = dict(metrics=["PSNR", "SSIM"], crop_border=4, scale=4, tile=TILE,
                 tile_overlap=32, convert_to="y")
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -298,6 +301,9 @@ BWD_TOL_DX, BWD_TOL_PARAM = 1e-2, 2e-2
 # row 12's weight-gradient kernel alone against its plain version on the
 # same bf16 pairs: both sum bf16 products in f32, in another order
 WGRAD_TOL = 1e-3
+# row 8's paste against its plain version: both add the same f32 values in
+# the same order
+PASTE_TOL = 1e-6
 # one step's gradients, kernel route (bf16) against the plain f32 route:
 # each parameter tensor's ||Δ||/||ref|| within the JAX package's bound for
 # its fused block's gradients, or within TRAIN_ROUTE_FACTOR times the
@@ -597,11 +603,12 @@ def check_csa_kernels(restorer, images) -> list[dict]:
         # bytes of the maps in and the pasted f32 map out
         map_bytes = b * (p_ * match.shape[-1] * 2 + l_ * dk * 2 + p_ * c * 2
                          + 4 * p_ * c * 4)
-        src = "ciaosr_torch/csrc/csa_attention.cu"
         at = "ciaosr_tpu/ops/pallas/csa_attention.py:"
         if name == "csa_stencil":
+            # K4's function from K4's inputs, on K4's kernels
             rows.append(kernel_row(
-                f"csa_stencil@{hp}x{wp}", "ciaosr_torch/csrc/csa_stencil.cu",
+                f"csa_stencil@{hp}x{wp}",
+                "ciaosr_torch/csrc/csa_stencil_sm90.cu",
                 at + "687 (csa_stencil)",
                 lambda: st.csa_stencil(*maps, cs, 2),
                 lambda: st.csa_stencil_plain(*maps32, cs, 2),
@@ -623,30 +630,68 @@ def check_csa_kernels(restorer, images) -> list[dict]:
                                               device=v.device)].contiguous()
             bank_bytes = b * (p_ * dk + l_ * dk + l_ * dv) * 2
             rows.append(kernel_row(
-                f"csa_attention@{hp}x{wp}", src, at + "65 (csa_attention)",
+                f"csa_attention@{hp}x{wp}", "ciaosr_torch/csrc/csa_flash.cu",
+                at + "65 (csa_attention)",
                 lambda: ca.csa_attention(q, keys, v, cs),
                 lambda: ca.csa_attention_plain(q.float(), keys.float(),
                                                v.float(), cs),
                 2 * b * p_ * l_ * (dk + dv), bank_bytes + b * p_ * dv * 4,
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, keys, v, scale=cs), reps))
+            # row 8: row 7's kernel on v_pm, then the paste
             rows.append(kernel_row(
-                f"csa_attention_overlap_add@{hp}x{wp}", src,
+                f"csa_attention_overlap_add@{hp}x{wp}",
+                "ciaosr_torch/csrc/csa_flash.cu + "
+                "ciaosr_torch/csrc/csa_paste.cu",
                 at + "194 (csa_attention_overlap_add)",
                 lambda: ca.csa_attention_overlap_add(q, keys, v_pm, cs, hp,
                                                      wp, 2),
                 lambda: ca.csa_attention_overlap_add_plain(
                     q.float(), keys.float(), v_pm.float(), cs, hp, wp, 2),
                 2 * b * p_ * l_ * (dk + dv),
-                bank_bytes + b * 4 * p_ * c * 4, None, reps))
+                bank_bytes + b * 4 * p_ * c * 4, None, reps,
+                same_bits=True))
+            check_paste(q, keys, v_pm, cs, hp, wp)
     return rows
 
 
+def check_paste(q, keys, v_pm, cs: float, hp: int, wp: int) -> None:
+    """Row 8's paste alone (csrc/csa_paste.cu) on the plane-major kernels
+    that row 7's kernel writes from these banks: against its plain
+    version (≤ PASTE_TOL, the same bits twice), its CUDA-event time and
+    its byte bound (the k_pm values that land on the grid, read once:
+    B·(3Hp − 2)(3Wp − 2)·s²C f32; the output written once), on a line of
+    its own."""
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+
+    with torch.inference_mode():
+        k_pm = ca.csa_attention(q, keys, v_pm, cs)
+        got = ca.plane_overlap_add(k_pm, hp, wp, 2)
+        same = torch.equal(got, ca.plane_overlap_add(k_pm, hp, wp, 2))
+        abs_err, err = errors(got, ca.plane_overlap_add_plain(k_pm, hp, wp,
+                                                               2))
+        nbytes = 4 * k_pm.shape[0] * (3 * hp - 2) * (3 * wp - 2) * (
+            k_pm.shape[-1] // 9) + 4 * got.numel()
+        del got
+        ms = time_ms(lambda: ca.plane_overlap_add(k_pm, hp, wp, 2), reps=20)
+    bms, _ = bound_ms(0, nbytes)
+    log(f"kernel plane_overlap_add@{hp}x{wp} (row 8's paste, "
+        f"csrc/csa_paste.cu): max|d|={abs_err:.3e} max|d|/max|ref|="
+        f"{err:.3e} reproducible {same}; ms={ms:.4f}; bound "
+        f"{nbytes / 1e6:.1f} MB: {bms:.4f} ms (bytes), "
+        f"{bms / ms:.2f} of it")
+    if not (err <= PASTE_TOL and same):
+        raise AssertionError(f"plane_overlap_add@{hp}x{wp}: error "
+                             f"{err:.3e} > {PASTE_TOL} or reproducible "
+                             f"{same}")
+
+
 def compare_csa_forms(restorer, img) -> None:
-    """K4, row 5, row 6 and the streaming route (row 7 + the plain
-    overlap-add) on the same inputs at one geometry, where all four run:
-    each one's time (CUDA events, median of 3 after one warm-up) and its
-    output held against K4's."""
+    """K4 (row 5 launches the same kernels: the same bits, asserted), row
+    6 and the streaming route (row 7 + the plain overlap-add) on the same
+    inputs at one geometry, where all three run: each one's time (CUDA
+    events, median of 3 after one warm-up) and its output held against
+    K4's."""
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
     from ciaosr_torch.ops.neighborhood import overlap_add
@@ -656,14 +701,17 @@ def compare_csa_forms(restorer, img) -> None:
     _, hp, wp, c = maps[2].shape
     with torch.inference_mode():
         forms = {
-            "csa_stencil_fused (K4)": lambda: st.csa_stencil_fused(
-                *maps, cs, 2),
-            "csa_stencil (row 5)": lambda: st.csa_stencil(*maps, cs, 2),
+            "csa_stencil_fused (K4) = csa_stencil (row 5)":
+                lambda: st.csa_stencil_fused(*maps, cs, 2),
             "csa_fused (row 6)": lambda: ca.csa_fused(*maps, cs, 2),
             "csa_attention (row 7) + overlap_add": lambda: overlap_add(
                 ca.csa_attention(q, maps[1], v, cs), hp, wp, 2, c),
         }
-        ref = forms["csa_stencil_fused (K4)"]()
+        ref = st.csa_stencil_fused(*maps, cs, 2)
+        if not torch.equal(st.csa_stencil(*maps, cs, 2), ref):
+            raise AssertionError(f"csa_stencil (row 5) and K4 differ in "
+                                 f"bits at {hp}x{wp}")
+        log(f"csa form at {hp}x{wp}: csa_stencil (row 5) gives K4's bits")
         for name, fn in forms.items():
             _, err = errors(fn(), ref)
             ms = time_ms(fn, reps=3, warm=1)
@@ -864,6 +912,11 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
         times[f"csa_attention_overlap_add@{s5}"] = time_ms(
             lambda: ca.csa_attention_overlap_add(q, keys, v_pm, cs, hp, wp,
                                                  2), reps=20)
+        if hasattr(ca, "plane_overlap_add"):   # a parent tree may lack it
+            k_pm = ca.csa_attention(q, keys, v_pm, cs)
+            times[f"plane_overlap_add@{s5}"] = time_ms(
+                lambda: ca.plane_overlap_add(k_pm, hp, wp, 2), reps=20)
+            del k_pm
         k4_maps = net.cs_attn.stencil_inputs(feature, 2, torch.bfloat16)
         times["csa_stencil_fused"] = time_ms(
             lambda: st.csa_stencil_fused(*k4_maps, cs, 2))
@@ -2029,6 +2082,22 @@ def check_swin_bwd(swin, batch: dict) -> tuple[dict, dict]:
     row["tflops"] = tflops(3 * fwd, row["ms"])
     # the shifted block's backward by kernel: device time of each launch
     pk1 = blk1.packed(ws, dt)
+    # the sum kernel alone on the partials it reads, against the library's
+    # two column sums of the same tensors (never called by the port)
+    with torch.inference_mode():
+        _, pairs, pw = sb.launch_swin_bwd_window(tok1, dy, pk1, ws, shift)
+        pd = sb.swin_block_wgrad(pairs)
+        del pairs
+        g_abs, g_rel = errors(sb.swin_block_gsum(pw, pd),
+                              torch.cat([pw.sum(0), pd.sum(0)]))
+        row["gsum_ms"] = time_ms(lambda: sb.swin_block_gsum(pw, pd))
+        row["gsum_library_ms"] = time_ms(lambda: (pw.sum(0), pd.sum(0)))
+    log(f"kernel swin_gsum_kernel (row 12's sum) on pw {tuple(pw.shape)}, "
+        f"pd {tuple(pd.shape)}: ms={row['gsum_ms']:.4f} library_ms "
+        f"(pw.sum(0), pd.sum(0))={row['gsum_library_ms']:.4f} bound_ms="
+        f"{sbms:.4f} (bytes); max|d|={g_abs:.3e} max|d|/max|ref|="
+        f"{g_rel:.3e} against the library's sums")
+    del pw, pd
     row["split_ms"] = log_launch_split(
         f"{row['name']} (shifted)",
         lambda: sb.swin_block_bwd(tok1, dy, pk1, ws, shift), BWD_KERNEL_NAMES)

@@ -3,17 +3,16 @@
 //
 // Replaces ciaosr_tpu/ops/pallas/csa_attention.py::csa_attention
 // (_attn_kernel): q (B, P, 288), k (B, L, 288), v (B, L, 2304) bf16 ->
-// out (B, P, 2304) f32, any P and L. (Row 8 computes the same attention
-// inside the overlap-add epilogue, on the two-pass kernel of
-// csa_attention.cu; row 6 computes its function in the stencil form, with
-// K4, in csa_stencil_sm90.cu.)
+// out (B, P, 2304) f32, any P and L. (Row 8 is this kernel on the
+// plane-major value bank, whose output csa_paste.cu pastes; row 6 computes
+// its function in the stencil form, with K4, in csa_stencil_sm90.cu.)
 //
 // Bound on the H100: 2PL(288 + 2304) FLOPs, 34.8 GFLOP at 72 x 72 (P =
 // 5184, L = 1296): 35 us at the bf16 dense peak; the 47.8 MB f32 output
 // takes 14 us.
 //
 // Design. A 64-row f32 accumulator 2304 wide (590 KB) fits no SM, and the
-// old kernel recomputed the scores for each of the nine 256-column tap
+// first design recomputed the scores for each of the nine 256-column tap
 // planes after a separate stats pass. Here one block owns 64 queries and
 // a third of the columns (768: three tap planes) of one batch, so 243
 // blocks at 72 x 72 in a single launch. Its three warpgroups each hold one
@@ -31,7 +30,7 @@
 // write p in bf16 into a shared 64 x 48 tile, rescale their accumulators
 // and multiply p by their plane of the value tile (wgmma m64n256k16, V
 // read MN-major as it lies in the bank). Tensor work: 2PL(3 * 288 + 2304)
-// = 2PL * 3168 against the two-pass kernel's 2PL * 5184. The epilogue
+// = 2PL * 3168 against the first design's 2PL * 5184. The epilogue
 // stages the f32 tile in shared memory and stores it by TMA.
 // Rows past P and keys past L arrive as TMA's zeros; keys past L are
 // masked to p = 0.

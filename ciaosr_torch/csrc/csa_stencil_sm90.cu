@@ -1,12 +1,12 @@
 // The middle of cross-scale attention (average=True) in the stencil form,
-// on wgmma and TMA: the one kernel pair behind K4 csa_stencil_fused and
-// row 6 csa_fused, and at config 001 swinir's widths (the wide instance,
-// below) behind row 5 csa_stencil too.
+// on wgmma and TMA: the one kernel pair behind K4 csa_stencil_fused, row 5
+// csa_stencil and row 6 csa_fused, at the flagship widths and at config
+// 001 swinir's (the wide instance, below).
 //
 // Replaces, in ciaosr_tpu/ops/pallas/csa_attention.py:
 //   csa_stencil_fused (_csa_stencil_fused_kernel)
 //   csa_fused (_csa_full_kernel, _csa_windowed_kernel)
-//   csa_stencil (_csa_scores_kernel, _csa_stencil_pv_kernel), wide only
+//   csa_stencil (_csa_scores_kernel, _csa_stencil_pv_kernel)
 // All compute one function of the same inputs. With q_i the 3x3
 // zero-padded match neighbourhood of query pixel i (9Cr = 288, tap-major),
 // k_l the normalized 3x3 key patch l of the s-downsampled match map and
@@ -939,7 +939,7 @@ int map_phases_wide(CUtensorMap* m, const void* embed, int B, int Hp,
 
 }  // namespace
 
-// K4 and row 6: match (B, Hp, Wp, 32), keys (B, Hp/2 * Wp/2, 288), embed
+// K4, row 5 and row 6: match (B, Hp, Wp, 32), keys (B, Hp/2 * Wp/2, 288), embed
 // (B, Hp, Wp, 64) bf16 -> out (B, 2Hp, 2Wp, 64) f32 (every element
 // written); m_buf, l_buf: (B, Hp*Wp) f32 scratch
 extern "C" int csa_stencil_sm90(const void* match, const void* keys,

@@ -3,8 +3,8 @@ wrappers and plain versions.
 
 Counterparts of ciaosr_tpu/ops/pallas/csa_attention.py::csa_attention
 (row 7, the one-launch kernel of csrc/csa_flash.cu),
-::csa_attention_overlap_add (row 8, the two-pass kernel of
-csrc/csa_attention.cu) and ::csa_fused (row 6). With q_i the 3×3 match
+::csa_attention_overlap_add (row 8: row 7's kernel, then the paste of
+csrc/csa_paste.cu) and ::csa_fused (row 6). With q_i the 3×3 match
 neighbourhood of query pixel i (9Cr), k_l the normalized key patches and
 v_l the (3s)×(3s) stride-s patches of the embedding:
 
@@ -12,7 +12,12 @@ v_l the (3s)×(3s) stride-s patches of the embedding:
   banks, (B, P, 9Cr) × (B, L, 9Cr) × (B, L, (3s)²C) → (B, P, (3s)²C);
 - ``csa_attention_overlap_add(q, k, v_pm, scale, hp, wp, s)``: the same
   over a plane-major bank (``plane_major_perm``), pasted by the
-  (3s, 3s) stride-s overlap-add → (B, s·Hp, s·Wp, C);
+  (3s, 3s) stride-s overlap-add → (B, s·Hp, s·Wp, C). On the card, row
+  7's kernel on v_pm (a column permutation of V permutes only the output
+  columns) writes the plane-major kernels k_pm (B, P, (3s)²C) f32, and
+  ``plane_overlap_add`` pastes them: each output element is written once,
+  its nine sources added in a fixed order, so two calls give the same
+  bits;
 - ``csa_fused(match, keys, embed, scale, s)``: the banks assembled from the
   match map and the embedding, then as row 8. This is the stencil form's
   function of the stencil form's inputs, so on the card it launches K4's
@@ -32,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels import _build
@@ -67,6 +73,28 @@ def csa_attention_overlap_add_plain(q: torch.Tensor, k: torch.Tensor,
     return overlap_add(k_tm, hp, wp, s, c)
 
 
+def plane_overlap_add_plain(k_pm: torch.Tensor, hp: int, wp: int,
+                            s: int) -> torch.Tensor:
+    """Row 8's paste on plane-major kernels k_pm (B, Hp·Wp, 9s²C), in f32:
+    output block (y, x) sums, over the taps (t, r) in the order (0, 0) ..
+    (2, 2), plane (t, r) of query pixel (y − t + 1, x − r + 1), sources off
+    the grid dropped → (B, s·Hp, s·Wp, C). ``overlap_add`` of the
+    tap-major columns, added in csrc/csa_paste.cu's order."""
+    b = k_pm.shape[0]
+    sc = k_pm.shape[-1] // 9
+    planes = F.pad(k_pm.float().reshape(b, hp, wp, 9, sc),
+                   (0, 0, 0, 0, 1, 1, 1, 1))
+    out = torch.zeros(b, hp, wp, sc, dtype=torch.float32,
+                      device=k_pm.device)
+    for t in range(3):
+        for r in range(3):
+            out = out + planes[:, 2 - t:2 - t + hp, 2 - r:2 - r + wp,
+                               3 * t + r]
+    c = sc // (s * s)
+    return out.reshape(b, hp, wp, s, s, c).permute(0, 1, 3, 2, 4, 5).reshape(
+        b, s * hp, s * wp, c)
+
+
 def csa_fused_plain(match: torch.Tensor, keys: torch.Tensor,
                     embed: torch.Tensor, scale: float,
                     s: int) -> torch.Tensor:
@@ -78,21 +106,16 @@ def csa_fused_plain(match: torch.Tensor, keys: torch.Tensor,
     return overlap_add(csa_attention_plain(q, keys, v, scale), hp, wp, s, c)
 
 
-def _launch(name: str, tensors, ints, scale: float, dev,
-            lib: str = "csa_attention") -> None:
-    fn = getattr(_build.load(lib), name)
+def _call(name: str, fn, tensors, ints, floats, dev) -> None:
+    """Call the kernel entry point ``fn`` with ``tensors``' pointers, then
+    ``ints``, ``floats`` and the current stream; raise on the error it
+    returns, naming ``name``."""
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(
-        ints) + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(*(_build.ptr(t) for t in tensors), *ints, float(scale),
-             _build.stream_ptr(dev))
-    kernels.LAUNCHES[name] += 1
-    _build.check(err, name)
-
-
-def _stats(b: int, p: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    m_buf = torch.empty(b, p, device=dev, dtype=torch.float32)
-    return m_buf, torch.empty_like(m_buf)
+        ints) + [ctypes.c_float] * len(floats) + [ctypes.c_void_p]
+    _build.check(fn(*(_build.ptr(t) for t in tensors), *ints,
+                    *(float(f) for f in floats), _build.stream_ptr(dev)),
+                 name)
 
 
 def _check_banks(name: str, q, k, v,
@@ -119,27 +142,57 @@ def csa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, p, l_ = _check_banks("csa_attention", q, k, v)
     dk, dv = q.shape[-1], v.shape[-1]
     out = torch.empty(b, p, dv, device=q.device, dtype=torch.float32)
-    _launch("csa_attention", (q, k, v, out), (b, p, l_, dk, dv), scale,
-            q.device, "csa_flash")
+    _call("csa_attention", _build.load("csa_flash").csa_attention,
+          (q, k, v, out), (b, p, l_, dk, dv), (scale,), q.device)
+    kernels.LAUNCHES["csa_attention"] += 1
+    return out
+
+
+def _paste(name: str, k_pm: torch.Tensor, hp: int, wp: int,
+           s: int) -> torch.Tensor:
+    """csrc/csa_paste.cu on k_pm (B, Hp·Wp, 2304) f32; uncounted."""
+    b = k_pm.shape[0]
+    if s != S:
+        raise ValueError(f"{name} is built for s={S}; got s={s}")
+    _build.check_tensor(k_pm, (b, hp * wp, BANKS[0][1]), "k_pm",
+                        torch.float32)
+    out = torch.empty(b, s * hp, s * wp, C, device=k_pm.device,
+                      dtype=torch.float32)
+    _call(name, _build.load("csa_paste").plane_overlap_add, (k_pm, out),
+          (b, hp, wp), (), k_pm.device)
+    return out
+
+
+def plane_overlap_add(k_pm: torch.Tensor, hp: int, wp: int,
+                      s: int) -> torch.Tensor:
+    """Row 8's paste alone on CUDA tensors (counted under its own name;
+    row 8 counts its two launches as one call), the plain version on CPU
+    tensors."""
+    if k_pm.device.type == "cpu":
+        return plane_overlap_add_plain(k_pm, hp, wp, s)
+    out = _paste("plane_overlap_add", k_pm, hp, wp, s)
+    kernels.LAUNCHES["plane_overlap_add"] += 1
     return out
 
 
 def csa_attention_overlap_add(q: torch.Tensor, k: torch.Tensor,
                               v_pm: torch.Tensor, scale: float, hp: int,
                               wp: int, s: int) -> torch.Tensor:
-    """Row 8 on CUDA tensors, the plain version on CPU tensors."""
+    """Row 8 on CUDA tensors (row 7's kernel into a k_pm scratch, then the
+    paste; one count a call), the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return csa_attention_overlap_add_plain(q, k, v_pm, scale, hp, wp, s)
-    b, p, l_ = _check_banks("csa_attention_overlap_add", q, k, v_pm,
-                            BANKS[:1])
+    name = "csa_attention_overlap_add"
+    b, p, l_ = _check_banks(name, q, k, v_pm, BANKS[:1])
     if s != S or p != hp * wp:
-        raise ValueError(f"csa_attention_overlap_add needs s={S} and "
-                         f"P = Hp·Wp; got s={s}, P={p}, Hp×Wp={hp}×{wp}")
-    out = torch.zeros(b, s * hp, s * wp, C, device=q.device,
-                      dtype=torch.float32)
-    _launch("csa_attention_overlap_add",
-            (q, k, v_pm, *_stats(b, p, q.device), out), (b, hp, wp, l_),
-            scale, q.device)
+        raise ValueError(f"{name} needs s={S} and P = Hp·Wp; got s={s}, "
+                         f"P={p}, Hp×Wp={hp}×{wp}")
+    dk, dv = BANKS[0]
+    k_pm = torch.empty(b, p, dv, device=q.device, dtype=torch.float32)
+    _call(name, _build.load("csa_flash").csa_attention, (q, k, v_pm, k_pm),
+          (b, p, l_, dk, dv), (scale,), q.device)
+    out = _paste(name, k_pm, hp, wp, s)
+    kernels.LAUNCHES[name] += 1
     return out
 
 

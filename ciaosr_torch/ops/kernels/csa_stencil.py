@@ -3,25 +3,23 @@ wrappers and plain version.
 
 K4 ``csa_stencil_fused`` is the counterpart of
 ciaosr_tpu/ops/pallas/csa_attention.py::csa_stencil_fused, row 5
-``csa_stencil`` that of ::csa_stencil. They compute the same function:
-K4 (csrc/csa_stencil_sm90.cu, which row 6 ``csa_fused`` launches too)
-recomputes the attention's stencil halo on ``wgmma``, row 5
-(csrc/csa_stencil.cu) writes the normalized attention Ā (B, P, L) to
-device memory and reads it back. Contract: match
-(B, Hp, Wp, Cr), keys (B, L, 9Cr) L2-normalized 3×3 key patches of the
-s-downsampled match map (L = Hp/s · Wp/s), embed (B, Hp, Wp, C). Returns
-(B, s·Hp, s·Wp, C) f32, before the down conv and the /6.
+``csa_stencil`` that of ::csa_stencil. They compute the same function
+from the same inputs, so both (and row 6 ``csa_fused``) launch the kernels
+of csrc/csa_stencil_sm90.cu, each counted under its own name. Contract:
+match (B, Hp, Wp, Cr), keys (B, L, 9Cr) L2-normalized 3×3 key patches of
+the s-downsampled match map (L = Hp/s · Wp/s), embed (B, Hp, Wp, C).
+Returns (B, s·Hp, s·Wp, C) f32, before the down conv and the /6.
 
 Widths. The kernels are compiled for the (Cr, C) pairs of ``INSTANCES``
 at s = 2: the flagship's (32, 64) and (96, 192), which config 001
 swinir's (90, 180) reaches zero-padded (``padded_widths``; the model pads,
-``models/csa.py``). At the flagship pair K4 and row 6 run
-csa_stencil_sm90's one-pass kernels and row 5 its own csa_stencil.cu. At
-the wide pair all three launch csa_stencil_sm90's two-kernel form, which
-is row 5's TPU design: the attention (raw scores, with each row's max
-and sum) through device memory, then the stencil product. Its scores
-take 4PL bytes, so it runs over blocks of output rows whose scores fit a
-budget (``wide_blocks``, 2 GiB by default: a 192² tile is one block).
+``models/csa.py``). At the flagship pair they run csa_stencil_sm90's
+stats and PV kernels, which recompute the attention's stencil halo on
+``wgmma``. At the wide pair they run its two-kernel form, which is row
+5's TPU design: the attention (raw scores, with each row's max and sum)
+through device memory, then the stencil product. Its scores take 4PL
+bytes, so it runs over blocks of output rows whose scores fit a budget
+(``wide_blocks``, 2 GiB by default: a 192² tile is one block).
 """
 
 from __future__ import annotations
@@ -93,7 +91,7 @@ def csa_stencil_fused_plain(match: torch.Tensor, keys: torch.Tensor,
     return torch.cat(outs, 1)
 
 
-# row 5 computes the same function as K4; only the kernels differ
+# row 5 computes the same function as K4
 csa_stencil_plain = csa_stencil_fused_plain
 
 
@@ -184,11 +182,11 @@ def launch_stencil_sm90(name: str, match: torch.Tensor, keys: torch.Tensor,
                        embed: torch.Tensor, scale: float, s: int,
                        budget: int = SCORES_BUDGET) -> torch.Tensor:
     """The stencil-form kernels of csrc/csa_stencil_sm90.cu on CUDA
-    tensors, each launch counted under ``name``: K4, row 5 (wide pair
-    only) and row 6 compute the same function from the same inputs and
-    launch them. At the flagship pair, one launch; at the wide pair one
-    launch a block of ``wide_blocks(..., budget)``, whose raw scores go
-    through device memory (one buffer of the largest block's, reused)."""
+    tensors, each launch counted under ``name``: K4, row 5 and row 6
+    compute the same function from the same inputs and launch them. At
+    the flagship pair, one launch; at the wide pair one launch a block of
+    ``wide_blocks(..., budget)``, whose raw scores go through device
+    memory (one buffer of the largest block's, reused)."""
     b, hp, wp = check_inputs(name, match, keys, embed, s)
     c = embed.shape[-1]
     dev = match.device
@@ -230,29 +228,8 @@ def csa_stencil_fused(match: torch.Tensor, keys: torch.Tensor,
 
 def csa_stencil(match: torch.Tensor, keys: torch.Tensor,
                 embed: torch.Tensor, scale: float, s: int) -> torch.Tensor:
-    """Row 5 on CUDA tensors, the plain version on CPU tensors. At the
-    flagship pair csrc/csa_stencil.cu (Ā through device memory:
-    B·P·⌈L/64⌉·64 bf16 scratch); at the wide pair the two-kernel form of
-    csrc/csa_stencil_sm90.cu over row blocks (``launch_stencil_sm90``)."""
+    """Row 5 on CUDA tensors (K4's kernels: the same function of the same
+    inputs, ``launch_stencil_sm90``), the plain version on CPU tensors."""
     if match.device.type == "cpu":
         return csa_stencil_plain(match, keys, embed, scale, s)
-    if embed.shape[-1] != C:
-        return launch_stencil_sm90("csa_stencil", match, keys, embed, scale,
-                                   s)
-    b, hp, wp = check_inputs("csa_stencil", match, keys, embed, s)
-    dev = match.device
-    lda = -(-keys.shape[1] // 64) * 64
-    m_buf = torch.empty(b, hp * wp, device=dev, dtype=torch.float32)
-    l_buf = torch.empty_like(m_buf)
-    abar = torch.empty(b, hp * wp, lda, device=dev, dtype=torch.bfloat16)
-    out = torch.empty(b, s * hp, s * wp, C, device=dev, dtype=torch.float32)
-    fn = _build.load("csa_stencil").csa_stencil
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    err = fn(*(_build.ptr(t) for t in (match, keys, embed, m_buf, l_buf,
-                                       abar, out)),
-             b, hp, wp, lda, float(scale), _build.stream_ptr(dev))
-    kernels.LAUNCHES["csa_stencil"] += 1
-    _build.check(err, "csa_stencil")
-    return out
+    return launch_stencil_sm90("csa_stencil", match, keys, embed, scale, s)

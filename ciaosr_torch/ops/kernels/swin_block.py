@@ -465,20 +465,32 @@ def swin_block_bwd(x: torch.Tensor, dy: torch.Tensor, pk: dict, ws: int,
     if x.device.type == "cpu":
         return swin_block_bwd_plain(x, dy, pk, ws, shift)
     dx, pairs, part = launch_swin_bwd_window(x, dy, pk, ws, shift)
-    wpart = swin_block_wgrad(pairs)
-    nwin, lw = part.shape
-    ns, ld = wpart.shape
-    flat = torch.empty(lw + ld, device=x.device)
+    flat = swin_block_gsum(part, swin_block_wgrad(pairs))
+    return dx, _split_grads(flat, pk["bias"].shape[0], ws * ws)
+
+
+def swin_block_gsum(part: torch.Tensor, wpart: torch.Tensor) -> torch.Tensor:
+    """Row 12's sum kernel (``swin_gsum_kernel``) on CUDA tensors: the
+    window kernel's partial rows part (nW, lw) and the weight-gradient
+    kernel's chunk partials wpart (splits, ld), f32 → their column sums in
+    a fixed order, (lw + ld,) f32. On CPU tensors the same sums by
+    ``Tensor.sum``."""
+    if part.device.type == "cpu":
+        return torch.cat([part.sum(0), wpart.sum(0)])
+    (nwin, lw), (ns, ld) = part.shape, wpart.shape
+    _build.check_tensor(part, (nwin, lw), "part", torch.float32)
+    _build.check_tensor(wpart, (ns, ld), "wpart", torch.float32)
+    flat = torch.empty(lw + ld, device=part.device)
     fn = _build.load("swin_block_bwd_sm90").swin_block_gsum
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     err = fn(_build.ptr(part), nwin, lw, _build.ptr(wpart), ns, ld,
-             _build.ptr(flat), _build.stream_ptr(x.device))
+             _build.ptr(flat), _build.stream_ptr(part.device))
     kernels.LAUNCHES["swin_block_gsum"] += 1
     _build.check(err, "swin_block_gsum")
-    return dx, _split_grads(flat, pk["bias"].shape[0], ws * ws)
+    return flat
 
 
 @functools.lru_cache(maxsize=None)

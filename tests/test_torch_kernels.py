@@ -10,10 +10,12 @@ mode (an index mode of the same Hopper kernel), at ×2.5, ×7/3, ×1.5,
 the 32-pixel blocks and off the LR pixel count by a factor of 6), with
 the same bits from call to call at (64, 64) and (192, 192); the CSA
 kernels (K4, rows 5-8) at
-ragged, non-square geometries, K4 and row 6 (one kernel) also on key
-grids smaller than or off its tiles and at spread logits, the same bits
-from call to call and from either entry point, and row 7 also on seeded
-banks at the edges of its tiles and of its online softmax; the Swin block
+ragged, non-square geometries, K4 and rows 5 and 6 (one kernel pair) also
+on key grids smaller than or off its tiles and at spread logits, the same
+bits from call to call and from every entry point, row 7 also on seeded
+banks at the edges of its tiles and of its online softmax, row 8 (row 7's
+kernel and the paste) the same bits twice, and the paste alone at ≤ 1e-6
+of its plain version; the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
 ≤ 2e-2; its weight-gradient kernel alone ≤ 1e-3 against its plain
 version, padded partials exactly 0), K1-K3 at SwinIR-CiaoSR's 180 channels without CSA, and the
@@ -341,7 +343,8 @@ CSA_HW = [(21, 37), (16, 32), (9, 70)]
 @pytest.mark.parametrize("hw", CSA_HW)
 @torch.inference_mode()
 def test_csa_stencil_forms(case, hw, name):
-    """K4 and row 5 (Ā through device memory): the same function."""
+    """K4 and row 5: the same function, on the same kernels
+    (csrc/csa_stencil_sm90.cu), so the same bits."""
     from ciaosr_torch.ops import kernels
     from ciaosr_torch.ops.kernels import csa_stencil as st
     match, keys, embed = _csa_inputs(case, hw)
@@ -352,6 +355,8 @@ def test_csa_stencil_forms(case, hw, name):
                                        embed.float(), 10.0, 2)
     assert got.shape == ref.shape
     assert _rel(got, ref) <= REL_TOL
+    assert torch.equal(got, st.csa_stencil_fused(match, keys, embed, 10.0,
+                                                 2))
 
 
 @pytest.mark.parametrize("hw", CSA_HW)
@@ -370,12 +375,13 @@ def test_csa_fused(case, hw):
     assert _rel(got, ref) <= REL_TOL
 
 
-# K4 and row 6 launch one stencil-form kernel (csrc/csa_stencil_sm90.cu),
-# whose tiles are 8 × 8 queries and 8 × 8 keys: a key grid smaller than
-# one key tile (8×8 → 4×4 keys, L = 16; 6×10 → 3×5), query and key grids
-# off the tiles (20×44 → 10×22 keys), and spread logits (scale 100) on
-# the 22×38 geometry. Each call counts one launch under its own key; two
-# calls give the same bits, and so do the two entry points.
+# K4 and rows 5 and 6 launch one stencil-form kernel pair
+# (csrc/csa_stencil_sm90.cu), whose tiles are 8 × 8 queries and 8 × 8
+# keys: a key grid smaller than one key tile (8×8 → 4×4 keys, L = 16;
+# 6×10 → 3×5), query and key grids off the tiles (20×44 → 10×22 keys),
+# and spread logits (scale 100) on the 22×38 geometry. Each call counts
+# one launch under its own key; two calls give the same bits, and so do
+# the three entry points.
 @pytest.mark.parametrize("hw,scale", [((8, 8), 10.0), ((6, 10), 10.0),
                                       ((20, 44), 10.0), ((21, 37), 100.0)],
                          ids=["L16", "L15", "off_tiles", "scale100"])
@@ -397,6 +403,9 @@ def test_csa_stencil_kernel_edges(case, hw, scale):
     again = st.csa_stencil_fused(match, keys, embed, scale, 2)
     assert torch.equal(got4, again)
     assert torch.equal(got4, got6)
+    n5 = kernels.LAUNCHES["csa_stencil"]
+    assert torch.equal(got4, st.csa_stencil(match, keys, embed, scale, 2))
+    assert kernels.LAUNCHES["csa_stencil"] == n5 + 1
     assert _rel(got4, st.csa_stencil_fused_plain(*maps32, scale, 2)) \
         <= REL_TOL
     assert _rel(got6, ca.csa_fused_plain(*maps32, scale, 2)) <= REL_TOL
@@ -407,7 +416,10 @@ def test_csa_stencil_kernel_edges(case, hw, scale):
 def test_csa_attention_banks(case, hw):
     """Rows 7 (tap-major bank, k_maps out) and 8 (plane-major bank, pasted
     out) on the banks of extract_patches_same; the geometries are not
-    square, so a swapped plane order would show."""
+    square, so a swapped plane order would show. Row 8 (row 7's kernel and
+    the paste) counts one launch a call under its own key only, and gives
+    the same bits twice."""
+    from ciaosr_torch.ops import kernels
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.neighborhood import (extract_patches_same,
                                                plane_major_perm)
@@ -421,13 +433,44 @@ def test_csa_attention_banks(case, hw):
     ref7 = ca.csa_attention_plain(q.float(), keys.float(), v.float(), 10.0)
     assert got7.shape == ref7.shape == (2, hp * wp, 2304)
     assert _rel(got7, ref7) <= REL_TOL
+    n0 = dict(kernels.LAUNCHES)
     got8 = ca.csa_attention_overlap_add(q, keys, v_pm, 10.0, hp, wp, 2)
+    assert {k: v - n0[k] for k, v in kernels.LAUNCHES.items()
+            if v != n0[k]} == {"csa_attention_overlap_add": 1}
+    assert torch.equal(got8, ca.csa_attention_overlap_add(
+        q, keys, v_pm, 10.0, hp, wp, 2))
+    assert kernels.LAUNCHES["csa_attention_overlap_add"] == n0[
+        "csa_attention_overlap_add"] + 2
     ref8 = ca.csa_attention_overlap_add_plain(q.float(), keys.float(),
                                               v_pm.float(), 10.0, hp, wp, 2)
+    assert got8.shape == ref8.shape == (2, 2 * hp, 2 * wp, 64)
     assert _rel(got8, ref8) <= REL_TOL
     # the same function as row 6 on the maps the banks came from
     assert _rel(got8, ca.csa_fused_plain(match.float(), keys.float(),
                                          embed.float(), 10.0, 2)) <= REL_TOL
+
+
+# row 8's paste (csrc/csa_paste.cu) alone on seeded f32 kernels, B = 2:
+# maps one pixel high or wide (only the middle tap row or column lands),
+# small odd maps, the Set5 tile's 72² and 48 × 64. It adds in the plain
+# version's order, so the two agree to f32 rounding or better.
+@pytest.mark.parametrize("hp,wp", [(1, 1), (1, 7), (5, 1), (3, 5), (13, 29),
+                                   (72, 72), (48, 64)])
+@torch.inference_mode()
+def test_plane_overlap_add(hp, wp):
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    k_pm = torch.as_tensor(np.random.default_rng(hp * wp).standard_normal(
+        (2, hp * wp, 2304), dtype=np.float32), device="cuda")
+    n0 = kernels.LAUNCHES["plane_overlap_add"]
+    got = ca.plane_overlap_add(k_pm, hp, wp, 2)
+    assert kernels.LAUNCHES["plane_overlap_add"] == n0 + 1
+    ref = ca.plane_overlap_add_plain(k_pm, hp, wp, 2)
+    assert got.shape == ref.shape == (2, 2 * hp, 2 * wp, 64)
+    assert _rel(got, ref) <= 1e-6
+    assert torch.equal(got, ca.plane_overlap_add(k_pm, hp, wp, 2))
+    with pytest.raises(ValueError, match="float32"):
+        ca.plane_overlap_add(k_pm.to(torch.bfloat16), hp, wp, 2)
 
 
 # row 7 on seeded banks: fewer than 64 queries and 48 keys (the kernel's
@@ -883,6 +926,27 @@ def test_swin_block_wgrad(t, n):
     assert torch.equal(part, sb.swin_block_wgrad(pairs))
     chunk = -(-t // sb.WGRAD_SPLITS // sb.NT) * sb.NT
     assert not part[-(-t // chunk):].any()
+
+
+@pytest.mark.parametrize("nwin,lw,ns,ld", [(1, 5, 1, 3), (384, 24960, 8,
+                                                         259200)],
+                         ids=["tiny", "train_batch"])
+def test_swin_block_gsum(nwin, lw, ns, ld):
+    """Row 12's sum kernel alone on seeded partials (one row each, and the
+    002 training batch's sizes): the column sums within f32 rounding of
+    ``Tensor.sum``, the same bits twice, one launch a call."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import swin_block as sb
+    rng = np.random.default_rng(nwin)
+    part, wpart = (torch.as_tensor(rng.standard_normal(
+        shape, dtype=np.float32), device="cuda") for shape in ((nwin, lw),
+                                                               (ns, ld)))
+    n0 = kernels.LAUNCHES["swin_block_gsum"]
+    got = sb.swin_block_gsum(part, wpart)
+    assert kernels.LAUNCHES["swin_block_gsum"] == n0 + 1
+    assert got.shape == (lw + ld,)
+    assert _rel(got, torch.cat([part.sum(0), wpart.sum(0)])) <= 1e-5
+    assert torch.equal(got, sb.swin_block_gsum(part, wpart))
 
 
 def _padded_partials(part, c, heads, hid):
