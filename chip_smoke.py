@@ -91,7 +91,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      and every parameter with a gradient changed; the warm step time,
      samples/s, a stage split and the peak memory; one step's gradients,
      kernel route against the plain f32 route, on a small batch;
-  8. prints the script's total time, the kernels line (each row with its
+  8. phase "cli", the eval entry points as a user runs them: a
+     Set5-shaped folder (seeded smooth GTmod12 pictures of Set5's shapes,
+     LRbicx4 by the port's MATLAB bicubic, PNGs by the port's codec) in a
+     temporary working directory and, for each shipped 001 config (rdn,
+     edsr, swinir; f32 params, its own test_cfg), a ``.pth`` of a seeded
+     generator (mmcv meta dict, EMA copy and discriminator beside it):
+     ``ciaosr_torch.tools.test``'s ``main`` with exact launches, its PSNR
+     and SSIM equal (≤ 1e-6) to the same restorer's (the .pth loaded
+     strictly) on the same samples, whose outputs hold to the plain f32
+     route; the flagship's command again as a shell command; and
+     ``ciaosr_torch.tools.inference`` on the 57×86 LR image at ×4 (tiled)
+     and ×2.5, each PNG within one level of ``forward_test``. Its launches
+     add to the kernel rows (``launches_cli``);
+  9. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
@@ -108,9 +121,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from fractions import Fraction
 from pathlib import Path
@@ -118,21 +133,38 @@ from pathlib import Path
 import numpy as np
 import torch
 
+try:
+    from ciaosr_torch.config import Config
+except ImportError as e:
+    sys.exit(f"chip_smoke: cannot import the port ({e}); run from the "
+             "repository root")
+
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 REL_TOL = 1e-2
 BATCH = 10  # calls a timing sample spans where one call is under 1 ms
 
-FLAGSHIP = dict(
-    type="LocalImplicitSRRDN",
-    encoder=dict(type="RDN", in_channels=3, out_channels=3, mid_channels=64,
-                 num_blocks=16, upscale_factor=4, num_layers=8,
-                 channel_growth=64),
-    imnet_q=dict(type="MLPRefiner", out_dim=3, hidden_list=[256] * 4),
-    imnet_k=dict(type="MLPRefiner", out_dim=64, hidden_list=[256] * 4),
-    imnet_v=dict(type="MLPRefiner", out_dim=64, hidden_list=[256] * 4),
-    feat_unfold=True, eval_bsize=30000, dtype="bf16", use_kernels=True)
+# the generators of the shipped configs, read by the port's Config.fromfile,
+# on the kernel route in bf16
+KERNEL_ROUTE = dict(dtype="bf16", use_kernels=True)
+
+
+def config_path(prefix: str) -> str:
+    """The one file configs/{prefix}*.py of this checkout."""
+    (path,) = (Path(__file__).resolve().parent / "configs").glob(
+        prefix + "*.py")
+    return str(path)
+
+
+def config_generator(prefix: str) -> dict:
+    """The ``generator`` dict of configs/{prefix}*.py on the kernel route."""
+    return dict(Config.fromfile(config_path(prefix)).model["generator"],
+                **KERNEL_ROUTE)
+
+
+# config 001 rdn: RDN-CiaoSR, C = 64, 16 RDBs, imnet [256]x4, CSA at scale 2
+FLAGSHIP = config_generator("001_localimplicitsr_rdn_")
 # the main path's request: an IMG × IMG image in TILE × TILE LR tiles
 IMG, TILE, OVERLAP = 256, 192, 32
 # LR shapes of the smaller requests (H, W). Each CSA geometry is one
@@ -158,46 +190,15 @@ CSA_KERNELS = ("csa_stencil_fused", "csa_stencil", "csa_fused",
 TEST_CFG = dict(metrics=["PSNR", "SSIM"], crop_border=4, scale=4, tile=TILE,
                 tile_overlap=32, convert_to="y")
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
-# the generator of configs/002_real_{gan,wogan}_localimplicitsr_swinir_*
-# (their 'generator' dicts, copied): SwinIR-CiaoSR without CSA; bf16
-# compute, the kernel route. Its published eval: x4, tile 256, overlap 32.
-SWIN_002 = dict(
-    type="LocalImplicitSRSWINIR", window_size=8,
-    encoder=dict(type="SwinIR", upscale=4, in_chans=3, img_size=48,
-                 window_size=8, compress_ratio=3, squeeze_factor=30,
-                 conv_scale=0.01, overlap_ratio=0.5, img_range=1.0,
-                 depths=[6, 6, 6, 6, 6, 6], embed_dim=180,
-                 num_heads=[6, 6, 6, 6, 6, 6], mlp_ratio=2,
-                 upsampler="pixelshuffle", resi_connection="1conv"),
-    imnet_q=dict(type="MLPRefiner", in_dim=4, out_dim=3,
-                 hidden_list=[256, 256, 256, 256]),
-    imnet_k=dict(type="MLPRefiner", in_dim=64, out_dim=64,
-                 hidden_list=[256, 256, 256, 256]),
-    imnet_v=dict(type="MLPRefiner", in_dim=64, out_dim=64,
-                 hidden_list=[256, 256, 256, 256]),
-    feat_unfold=True, eval_bsize=30000, local_ensemble_coord=True,
-    non_local_attn=False, dtype="bf16", use_kernels=True)
+# the generator of configs/002_real_{gan,wogan}_localimplicitsr_swinir_*:
+# SwinIR-CiaoSR without CSA. Its published eval: x4, tile 256, overlap 32.
+SWIN_002 = config_generator("002_real_wogan_localimplicitsr_swinir_")
 SWIN_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=256,
                      tile_overlap=32)
-# the generator of configs/001_localimplicitsr_swinir_* (its 'generator'
-# dict, copied): SwinIR-CiaoSR with CSA (Cr = 90, C = 180: the kernels run
-# it zero-padded to 96 and 192); bf16 compute, the kernel route. Its
-# published eval (the config's test_cfg): x4, tile 192, overlap 32.
-SWIN_001 = dict(
-    type="LocalImplicitSRSWINIR", window_size=8,
-    encoder=dict(type="SwinIR", upscale=4, in_chans=3, img_size=48,
-                 window_size=8, compress_ratio=3, squeeze_factor=30,
-                 conv_scale=0.01, overlap_ratio=0.5, img_range=1.0,
-                 depths=[6, 6, 6, 6, 6, 6], embed_dim=180,
-                 num_heads=[6, 6, 6, 6, 6, 6], mlp_ratio=2,
-                 upsampler="pixelshuffle", resi_connection="1conv"),
-    imnet_q=dict(type="MLPRefiner", in_dim=4, out_dim=3,
-                 hidden_list=[256, 256, 256, 256]),
-    imnet_k=dict(type="MLPRefiner", in_dim=64, out_dim=64,
-                 hidden_list=[256, 256, 256, 256]),
-    imnet_v=dict(type="MLPRefiner", in_dim=64, out_dim=64,
-                 hidden_list=[256, 256, 256, 256]),
-    feat_unfold=True, eval_bsize=30000, dtype="bf16", use_kernels=True)
+# the generator of configs/001_localimplicitsr_swinir_*: SwinIR-CiaoSR
+# with CSA (Cr = 90, C = 180: the kernels run it zero-padded to 96 and
+# 192). Its published eval (the config's test_cfg): x4, tile 192, overlap 32.
+SWIN_001 = config_generator("001_localimplicitsr_swinir_")
 SWIN_001_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=192,
                          tile_overlap=32)
 # its requests: a SWIN_001_IMG² image (4 tiles of 192), and the five Set5
@@ -240,22 +241,11 @@ CSA_MODE_KERNEL = {"stencil_fused": "csa_stencil_fused",
 # SWIN_ODD image (one tile; the encoder pads it to a window multiple), and
 # the route checks' SWIN_SMALL and SWIN_ODD images
 SWIN_IMG, SWIN_TILE, SWIN_SMALL, SWIN_ODD = 384, 256, (48, 48), (70, 70)
-# the generator of configs/001_localimplicitsr_edsr_* (its 'generator'
-# dict, copied): EDSR-CiaoSR at C = 64, 16 residual blocks, imnet
-# [256]x4, CSA at scale 2, which the flagship's compiled kernels take as
-# they are; bf16 compute, the kernel route. Its test_cfg: x4 with tile
+# the generator of configs/001_localimplicitsr_edsr_*: EDSR-CiaoSR at
+# C = 64, 16 residual blocks, imnet [256]x4, CSA at scale 2, which the
+# flagship's compiled kernels take as they are. Its test_cfg: x4 with tile
 # 192, overlap 32 (val_scale <= 4), no tile above (a full-image predict).
-EDSR_001 = dict(
-    type="LocalImplicitSREDSR",
-    encoder=dict(type="EDSR", in_channels=3, out_channels=3, mid_channels=64,
-                 num_blocks=16, res_scale=1.0),
-    imnet_q=dict(type="MLPRefiner", in_dim=4, out_dim=3,
-                 hidden_list=[256, 256, 256, 256]),
-    imnet_k=dict(type="MLPRefiner", in_dim=64, out_dim=64,
-                 hidden_list=[256, 256, 256, 256]),
-    imnet_v=dict(type="MLPRefiner", in_dim=64, out_dim=64,
-                 hidden_list=[256, 256, 256, 256]),
-    feat_unfold=True, eval_bsize=30000, dtype="bf16", use_kernels=True)
+EDSR_001 = config_generator("001_localimplicitsr_edsr_")
 EDSR_TEST_CFG = dict(metrics=[], crop_border=4, scale=4, tile=192,
                      tile_overlap=32)
 EDSR_X6_TEST_CFG = dict(metrics=[], crop_border=6, scale=6)
@@ -2252,6 +2242,284 @@ def train_path(drive, kind: str, smi: str, fwd_row: dict,
         raise AssertionError(f"train route check: {bad}")
 
 
+# ---- the eval entry points (phase "cli"): the shipped 001 configs through
+# python3 -m ciaosr_torch.tools.test on a Set5-shaped folder and a .pth
+# Set5's GTmod12 shapes (baby, bird, butterfly, head, woman); their ×4 LR
+# images are the SET5_X4_EVEN and SET5_X4_ODD shapes
+CLI_SET5 = (("baby", (512, 512)), ("bird", (288, 288)),
+            ("butterfly", (256, 256)), ("head", (280, 280)),
+            ("woman", (228, 344)))
+CLI_CONFIGS = ("rdn", "edsr", "swinir")
+# inference on the woman LR image: ×4 with --tile 64 (wider than the tile,
+# so tiled: three 57² tiles, the test_cfg's tiling) and ×2.5 (a full-image
+# predict at round(57·2.5) × round(86·2.5))
+CLI_INFER = (("4", ["--tile", "64"]), ("2.5", []))
+# a written PNG against the restorer's output: uint8 levels
+CLI_PNG_TOL = 1
+
+
+def smooth_picture(rng, h: int, w: int) -> np.ndarray:
+    """A seeded smooth uint8 RGB picture: four low-frequency waves."""
+    y, x = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.zeros((h, w, 3))
+    for _ in range(4):
+        fy, fx, ph = rng.uniform(0.5, 4, 2).tolist() + [rng.uniform(0, 6)]
+        img += rng.uniform(0.2, 1, 3) * np.sin(2 * np.pi * (fy * y + fx * x)
+                                               + ph)[..., None]
+    img = (img - img.min()) / (img.max() - img.min())
+    return np.round(img * 255).astype(np.uint8)
+
+
+def write_set5(root: Path) -> None:
+    """data/Classical/Set5/{GTmod12,LRbicx4} under ``root``, as the 001
+    configs' test split reads them: seeded smooth GT pictures of Set5's
+    shapes and their MATLAB-bicubic ×1/4 (the port's imresize_np), rounded
+    to uint8, written by the port's PNG codec."""
+    from ciaosr_torch.core.resize import imresize_np
+    from ciaosr_torch.data.imageio import write_png
+
+    rng = np.random.default_rng(5)
+    base = root / "data" / "Classical" / "Set5"
+    for sub in ("GTmod12", "LRbicx4"):
+        (base / sub).mkdir(parents=True)
+    for name, (h, w) in CLI_SET5:
+        gt = smooth_picture(rng, h, w)
+        lq = imresize_np(gt.astype(np.float32) / 255.0, scale=0.25)
+        write_png(str(base / "GTmod12" / f"{name}.png"), gt)
+        write_png(str(base / "LRbicx4" / f"{name}.png"),
+                  np.clip(np.round(lq * 255.0), 0, 255).astype(np.uint8))
+
+
+def write_checkpoint(path: Path, gen_cfg: dict, seed: int) -> None:
+    """An mmcv-style restorer checkpoint of a seeded f32 generator
+    (``generator.``), with an EMA copy and a discriminator beside it."""
+    from ciaosr_torch.models.builder import build_generator
+
+    gsd = build_generator(gen_cfg, device="cpu", seed=seed).state_dict()
+    sd = {f"generator.{k}": v for k, v in gsd.items()}
+    sd.update({f"generator_ema.{k}": v + 0.5 for k, v in gsd.items()})
+    sd["discriminator.conv_0.weight"] = torch.zeros(64, 3, 3, 3)
+    sd["discriminator.conv_0.bias"] = torch.zeros(64)
+    torch.save({"meta": {"seed": seed}, "state_dict": sd}, str(path))
+
+
+def cli_row(kernel: str, c: int, tile_w: int) -> str | None:
+    """The kernel row that holds ``kernel``'s launches on a tile of width
+    ``tile_w`` by a generator of C = ``c`` channels (None for the Swin
+    block: its rows hold the 002 generator's tiles)."""
+    if kernel == "swin_block":
+        return None
+    odd = kernel == "grid_decode" and tile_w % 8
+    if c <= 64:
+        row = {"csa_attention": "csa_attention@{}x{}".format(*SET5[0])}.get(
+            kernel, kernel)
+        return row + ("@{}x{}".format(*ODD) if odd else "")
+    row = kernel + ("@C180" if kernel.startswith("csa") else "@C180+csa")
+    return row + ("@{}x{}".format(*SET5_X4_ODD[0]) if odd else "")
+
+
+def cli_expected(images, scale, tile, c: int, n_blocks: int,
+                 rows: dict) -> dict:
+    """``expected_launches`` of requests on ``images``, summed, each
+    image's also added into ``rows`` (kernel row → launches)."""
+    from ciaosr_torch.models.restorers import tile_layout
+
+    want: dict = {}
+    for hw in images:
+        one = expected_launches([hw], scale, tile, c, n_blocks)
+        tile_w = tile_layout(*hw, scale, tile)[0] if tile else hw[1]
+        for k, n in one.items():
+            want[k] = want.get(k, 0) + n
+            row = cli_row(k, c, tile_w)
+            if row:
+                rows[row] = rows.get(row, 0) + n
+    return want
+
+
+def cli_phase(drive, kind: str, smi: str) -> dict:
+    """Phase "cli": for each shipped 001 config (f32 params, its own
+    test_cfg), ``ciaosr_torch.tools.test``'s ``main`` in this process on a
+    Set5-shaped folder in a temporary working directory (the configs'
+    data/ paths are relative) and a ``.pth`` of a seeded generator, with
+    exactly the launches ``expected_launches`` counts for its five images;
+    its PSNR and SSIM equal (≤ 1e-6) those of the same restorer's outputs
+    on the same samples (the .pth loaded strictly), which agree with the
+    plain f32 route at max|d|/max|ref| ≤ REL_TOL. The flagship's command
+    also runs as a subprocess; ``ciaosr_torch.tools.inference`` upscales
+    the woman LR image (×4 tiled, ×2.5), each PNG within CLI_PNG_TOL of
+    ``forward_test``. Returns each kernel row's launches."""
+    from ciaosr_torch.convert.load import load_torch_checkpoint
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.data.imageio import imread
+    from ciaosr_torch.models.builder import build_model
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import test as cli_test
+
+    rows: dict = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_set5(root)
+        log(f"cli: Set5-shaped folder written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        os.chdir(root)
+        try:
+            for seed, name in enumerate(CLI_CONFIGS):
+                path = config_path(f"001_localimplicitsr_{name}_")
+                cfg = Config.fromfile(path)
+                gen = cfg.model["generator"]
+                ckpt = root / f"{name}.pth"
+                write_checkpoint(ckpt, gen, seed)
+                enc = gen["encoder"]
+                c = enc.get("mid_channels") or enc["embed_dim"]
+                n_blocks = sum(enc.get("depths", ()))
+                test_cfg = cfg.test_cfg
+                lrs = [imread(f"data/Classical/Set5/LRbicx4/{n}.png").shape[:2]
+                       for n, _ in CLI_SET5]
+                want = cli_expected(lrs, test_cfg["scale"], test_cfg["tile"],
+                                    c, n_blocks, rows)
+                out_json = root / f"{name}.json"
+                metrics, launches, secs = drive(
+                    f"cli {name} tools.test (want {want})",
+                    lambda: cli_test.main([path, str(ckpt), "--out",
+                                           str(out_json)]),
+                    list(want), [k for k in kernels.LAUNCHES
+                                 if k not in want])
+                got = {k: launches[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"cli {name}: launches {got}, "
+                                         f"want {want}")
+                with open(out_json) as f:
+                    if json.load(f) != metrics:
+                        raise AssertionError(f"cli {name}: --out differs "
+                                             "from main's result")
+
+                # the same restorer, loaded strictly, on the same samples
+                model = dict(cfg.model)
+                del model["type"]
+                sd = load_torch_checkpoint(str(ckpt), cfg.model, strict=True)
+                res = build_model(cfg.model, test_cfg=test_cfg)
+                res.generator.load_state_dict(sd, strict=True)
+                ref = CiaoSRRestorer(**dict(model, generator=dict(
+                    gen, use_kernels=False)), test_cfg=test_cfg,
+                    device="cuda")
+                ref.generator.load_state_dict(sd, strict=True)
+                del sd
+                dataset = build_dataset(cfg.data["test"])
+                recs, worst = [], 0.0
+                for i in range(len(dataset)):
+                    s = dataset[i]
+                    meta = s["meta"]
+                    out = res.forward_test(s["lq"],
+                                           target_shape=meta["target_size"],
+                                           scale=meta["scale"])
+                    recs.append(res.evaluate(out, s["gt"]))
+                    a, r = errors(torch.as_tensor(out), torch.as_tensor(
+                        ref.forward_test(s["lq"], scale=meta["scale"])))
+                    worst = max(worst, r)
+                mine = {k: float(np.mean([rec[k] for rec in recs]))
+                        for k in test_cfg["metrics"]}
+                diff = {k: abs(mine[k] - metrics[k]) for k in mine}
+                hr_px = sum(h * w for _, (h, w) in CLI_SET5)
+                log(f"cli {name} ({kind}; {smi}): {metrics['n_images']} "
+                    f"images, PSNR {metrics['PSNR']:.6f} dB, SSIM "
+                    f"{metrics['SSIM']:.6f}; request {secs:.3f} s wall "
+                    f"(evaluator {metrics['elapsed_s']:.3f} s, "
+                    f"{hr_px / 1e6 / metrics['elapsed_s']:.3f} MP/s); "
+                    f"|CLI - own| {diff}; kernel route (bf16) vs plain "
+                    f"route (f32) worst max|d|/max|ref|={worst:.3e}")
+                if metrics["n_images"] != len(CLI_SET5) or not all(
+                        d <= 1e-6 for d in diff.values()):
+                    raise AssertionError(f"cli {name}: metrics {metrics} vs "
+                                         f"the phase's own {mine}")
+                if not worst <= REL_TOL:
+                    raise AssertionError(f"cli {name}: kernel route "
+                                         f"disagrees: {worst:.3e}")
+                if name == "rdn":
+                    cli_shell(path, ckpt, root, metrics)
+                    cli_infer(drive, path, ckpt, res, ref, c, rows)
+                del res, ref
+        finally:
+            os.chdir(cwd)
+    return rows
+
+
+def cli_shell(path: str, ckpt: Path, root: Path, metrics: dict) -> None:
+    """``python3 -m ciaosr_torch.tools.test`` as a shell command (PYTHONPATH
+    at the repository root): its metrics equal the in-process run's."""
+    out = root / "shell.json"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "ciaosr_torch.tools.test", path, str(ckpt),
+         "--out", str(out)], cwd=root, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent)))
+    if run.returncode != 0:
+        raise AssertionError(f"cli shell run failed ({run.returncode}):\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    with open(out) as f:
+        shell = json.load(f)
+    diff = {k: abs(shell[k] - metrics[k]) for k in ("PSNR", "SSIM")}
+    log(f"cli rdn as a shell command: {time.perf_counter() - t0:.2f} s "
+        f"(a new process), PSNR {shell['PSNR']:.6f}, SSIM "
+        f"{shell['SSIM']:.6f}, |shell - in-process| {diff}")
+    if not all(d <= 1e-6 for d in diff.values()):
+        raise AssertionError(f"cli shell run: {shell} vs {metrics}")
+
+
+def cli_infer(drive, path: str, ckpt: Path, res, ref, c: int,
+              rows: dict) -> None:
+    """``ciaosr_torch.tools.inference`` on the woman LR image at each scale
+    of CLI_INFER, with exactly the launches expected_launches counts: the
+    written PNG has the target size and is within CLI_PNG_TOL levels of
+    ``res.forward_test`` on the decoded input (×2.5 through a test_cfg
+    without a tile: the full-image predict), which agrees with ``ref``'s
+    (the plain f32 route) at max|d|/max|ref| ≤ REL_TOL."""
+    from ciaosr_torch.data.imageio import imread, read_png
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import inference as cli_inference
+
+    src = f"data/Classical/Set5/LRbicx4/{CLI_SET5[-1][0]}.png"
+    lq = imread(src).astype(np.float32) / 255.0
+    hw = lq.shape[:2]
+    untiled = {k: v for k, v in res.test_cfg.items() if k != "tile"}
+    full, ref_full = copy.copy(res), copy.copy(ref)
+    full.test_cfg = ref_full.test_cfg = untiled
+    for scale, extra in CLI_INFER:
+        s = float(scale)
+        # the CLI tiles an integer scale where the image exceeds --tile
+        tile = int(extra[1]) if extra and max(hw) > int(extra[1]) else None
+        want = cli_expected([hw], Fraction(scale), tile, c, 0, rows)
+        out = f"sr_x{scale}.png"
+        written, launches, secs = drive(
+            f"cli inference x{scale} (want {want})",
+            lambda: cli_inference.main([path, str(ckpt), "--img", src,
+                                        "--scale", scale, "--out", out]
+                                       + extra),
+            list(want), [k for k in kernels.LAUNCHES if k not in want])
+        got = {k: launches[k] for k in want}
+        if got != want or written != [out]:
+            raise AssertionError(f"cli inference x{scale}: launches {got}, "
+                                 f"want {want}; wrote {written}")
+        png = read_png(out).astype(np.int32)
+        sr = (res if tile else full).forward_test(lq, scale=s)
+        sr8 = np.clip(sr * 255.0 + 0.5, 0, 255).astype(np.int32)
+        shape = (round(hw[0] * s), round(hw[1] * s), 3)
+        dev = int(np.abs(png - sr8).max()) if png.shape == shape else None
+        a, r = errors(torch.as_tensor(sr), torch.as_tensor(
+            (ref if tile else ref_full).forward_test(lq, scale=s)))
+        log(f"cli inference x{scale} {hw[0]}x{hw[1]} -> {png.shape}: "
+            f"{secs * 1e3:.1f} ms, max |PNG - forward_test| {dev} levels; "
+            f"kernel route (bf16) vs plain route (f32) max|d|={a:.3e} "
+            f"max|d|/max|ref|={r:.3e}")
+        if dev is None or dev > CLI_PNG_TOL or not r <= REL_TOL:
+            raise AssertionError(f"cli inference x{scale}: PNG {png.shape}, "
+                                 f"want {shape}, {dev} levels off; route "
+                                 f"error {r:.3e}")
+
+
 def main() -> int:
     """``--full-image``: build, then only time_full_images;
     ``--kernel-times``: build, then only time_kernels (neither prints a
@@ -2787,6 +3055,22 @@ def main() -> int:
         f"launches={wgrad_row['launches']} "
         f"tflops={wgrad_row['tflops']:.1f}")
     rows.append(wgrad_row)
+
+    mark("the train path")
+
+    # ---- the eval entry points on the shipped 001 configs
+    cli_launches = cli_phase(drive, kind, smi)
+    unrowed = set(cli_launches) - {r["name"] for r in rows}
+    if unrowed:
+        raise AssertionError(f"the cli phase launched {unrowed}, which no "
+                             "kernel row holds")
+    for r in rows:
+        if r["name"] in cli_launches:
+            r["launches_cli"] = cli_launches[r["name"]]
+            r["launches"] += r["launches_cli"]
+            log(f"kernel {r['name']}: launches={r['launches']} (cli phase "
+                f"{r['launches_cli']})")
+    mark("the cli phase")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

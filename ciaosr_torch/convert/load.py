@@ -1,0 +1,62 @@
+"""Load reference ``.pth`` checkpoints into the port's generator.
+
+Counterpart of ciaosr_tpu/convert/load.py. The port's modules use the
+reference's key names and layouts, so nothing is converted: the mmcv meta
+dict is unwrapped (``state_dict``), the EMA copy selected on request, the
+``generator.`` prefix stripped (a raw SwinIR-family checkpoint, whose
+keys the reference rewrites with ``'^' → 'generator.'``, is taken as it
+is), and the keys audited (convert/audit.py) against the generator the
+config builds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ciaosr_torch.convert.audit import audit
+
+
+def strip_prefix(state_dict: dict, prefix: str = "generator.") -> dict:
+    """Drop a module prefix; without it the keys are used as they are
+    (the reference's ``revise_keys=(r'^', 'generator.')``)."""
+    if any(k.startswith(prefix) for k in state_dict):
+        return {k[len(prefix):]: v for k, v in state_dict.items()
+                if k.startswith(prefix)}
+    return dict(state_dict)
+
+
+def generator_shapes(gen_cfg: dict) -> dict:
+    """Key → shape of the ``state_dict()`` of the generator ``gen_cfg``
+    builds (on the meta device: no storage, no init)."""
+    from ciaosr_torch.models.builder import make_generator
+
+    with torch.device("meta"):
+        net = make_generator(gen_cfg)
+    return {k: tuple(v.shape) for k, v in net.state_dict().items()}
+
+
+def load_torch_checkpoint(path: str, model_cfg: dict, *, ema: bool = False,
+                          strict: bool = False, log=None) -> dict:
+    """The state_dict of ``model_cfg['generator']`` from a ``.pth`` file,
+    for ``generator.load_state_dict(..., strict=True)``. ``ema=True`` takes
+    the EMA copy RealCiaoSR saves beside the live generator (the weights
+    its inference uses); ``strict=True`` makes an unexplained key an
+    error (convert/audit.py)."""
+    # mmcv checkpoints carry a meta dict of plain objects beside the
+    # tensors, which weights_only (the default since PyTorch 2.6) refuses
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
+
+    if ema:
+        pfx = "generator_ema."
+        if not any(k.startswith(pfx) for k in sd):
+            raise KeyError(
+                "ema=True but the checkpoint has no generator_ema.* keys "
+                "(not a RealCiaoSR GAN checkpoint?)")
+        sd = {k[len(pfx):]: v for k, v in sd.items() if k.startswith(pfx)}
+
+    prefix = "generator." if any(k.startswith("generator.") for k in sd) \
+        else None
+    return audit(strip_prefix(sd), generator_shapes(model_cfg["generator"]),
+                 original_keys=list(sd), prefix=prefix, strict=strict,
+                 log=log)

@@ -11,7 +11,8 @@ overwrites them): imnet_k 580 → 576, imnet_v 644 → 640, imnet_q 640 → 3
 at C = 64 with CSA (68 → 64, 132 → 128, 128 → 3 with
 ``feat_unfold=False``). The 002
 configs' decoder knobs with baked-in semantics are accepted and checked
-as in the JAX package. Weights are random, drawn from an explicit seed
+as in the JAX package. ``build_model`` builds a restorer from a config's
+``model`` dict (``build_model`` at ciaosr_tpu/models/builder.py). Weights are random, drawn from an explicit seed
 with PyTorch's default Linear/Conv2d init (U(±1/√fan_in)) and PReLU 0.25;
 the SwinIR trunk then takes the reference's own init (trunc-normal(0.02)
 Linear weights and bias tables, zero Linear biases, LayerNorms 1 / 0).
@@ -96,10 +97,10 @@ def init_weights_(module: nn.Module, seed: int) -> None:
         module.encoder.init_trunk_(g)
 
 
-def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
-    """Build the generator on ``device`` (default: the CUDA device; raises
-    without one unless ``device="cpu"``) with seeded random weights."""
-    dev = resolve_device(device)
+def make_generator(cfg: dict) -> CiaoSRNet:
+    """The generator's modules as ``cfg`` gives them, with PyTorch's own
+    initial weights, on the default device (``torch.device("meta")`` as a
+    context gives its parameter shapes without storage)."""
     cfg = copy.deepcopy(dict(cfg))
     gname = cfg.pop("type")
     if gname not in _ENCODERS:
@@ -136,5 +137,42 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
     )
     if cfg:
         raise KeyError(f"unknown generator config keys: {sorted(cfg)}")
+    return net
+
+
+def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
+    """Build the generator on ``device`` (default: the CUDA device; raises
+    without one unless ``device="cpu"``) with seeded random weights."""
+    dev = resolve_device(device)
+    net = make_generator(cfg)
     init_weights_(net, seed)
     return net.to(dev).eval()
+
+
+# restorer types of the JAX package that the port does not have yet, and
+# the ROADMAP queue 1 item that brings each
+_NOT_PORTED = {"RealCiaoSR": "ROADMAP queue 1 item 7 (the GAN stack)",
+               "BasicRestorer": "ROADMAP queue 1 item 5 (BasicRestorer "
+                                "and models/basic_sr.py)"}
+
+
+def build_model(cfg: dict, train_cfg=None, test_cfg=None, *, device=None,
+                seed: int = 0):
+    """A restorer from a config's ``model`` dict on ``device`` (default:
+    the CUDA device; raises without one unless ``device="cpu"``), with
+    seeded random weights. On a CUDA device the generator takes the
+    kernel route (``use_kernels=True``), whatever the config says."""
+    import ciaosr_torch.models.restorers  # noqa: F401  (registers CiaoSR)
+    from ciaosr_torch.config.registry import MODELS
+
+    cfg = copy.deepcopy(dict(cfg))
+    mtype = cfg.pop("type")
+    if mtype in _NOT_PORTED:
+        raise NotImplementedError(f"model type {mtype!r} is not ported "
+                                  f"yet: {_NOT_PORTED[mtype]}")
+    cls = MODELS.get(mtype) if isinstance(mtype, str) else mtype
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        cfg["generator"] = dict(cfg["generator"], use_kernels=True)
+    return cls(train_cfg=train_cfg, test_cfg=test_cfg, device=dev,
+               seed=seed, **cfg)

@@ -14,6 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ciaosr_torch.config.registry import MODELS
 from ciaosr_torch.core.color import tensor2img
 from ciaosr_torch.core.coords import make_coord_cell
 from ciaosr_torch.core.metrics import psnr, ssim
@@ -58,6 +59,7 @@ def tile_layout(h: int, w: int, scale, tile: int,
     return tile, hs, ws
 
 
+@MODELS.register(name="CiaoSR")
 class CiaoSRRestorer:
     """Classical CiaoSR restorer. Runs on ``device`` (default: the
     CUDA device; raises without one unless ``device="cpu"``)."""

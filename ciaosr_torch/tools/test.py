@@ -1,0 +1,114 @@
+"""Evaluation CLI, the port's twin of tools/test.py:
+
+    python3 -m ciaosr_torch.tools.test CONFIG CHECKPOINT [--out M.json]
+        [--save-path DIR] [--split {test,val}] [--device cpu]
+
+CHECKPOINT is a reference ``.pth`` / ``.pt`` file (the mmcv meta dict, a
+full restorer checkpoint or a raw SwinIR-family one), ``None`` (the
+config's ``test_checkpoint_path``) or ``random`` (seeded random weights,
+a smoke run). The model runs on the CUDA device through the port's
+kernels unless ``--device cpu`` asks for the plain PyTorch path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+
+import numpy as np
+import torch
+
+from ciaosr_torch.config.config import Config
+from ciaosr_torch.convert.load import load_torch_checkpoint
+from ciaosr_torch.data.datasets import build_dataset
+from ciaosr_torch.eval.evaluator import evaluate_dataset
+from ciaosr_torch.models.builder import build_model
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="ciaosr_torch test")
+    p.add_argument("config")
+    p.add_argument("checkpoint", help=".pth/.pt file, 'None' (config "
+                   "test_checkpoint_path), or 'random' (smoke)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--deterministic", action="store_true",
+                   help="seed Python, numpy and torch (0 without --seed) "
+                        "and make cuDNN pick deterministic algorithms")
+    p.add_argument("--out", help="write metrics JSON here")
+    p.add_argument("--save-path", help="save predicted PNGs here")
+    p.add_argument("--launcher", default="none", choices=["none"],
+                   help="one process; several GPUs are not ported yet")
+    p.add_argument("--gpu-collect", action="store_true",
+                   help="accepted for reference-CLI parity; one process "
+                        "gathers nothing")
+    p.add_argument("--local_rank", type=int, default=0,
+                   help="accepted for reference-CLI parity; unused")
+    p.add_argument("--tmpdir", help="accepted for reference-CLI parity; "
+                   "unused")
+    p.add_argument("--split", default="test", choices=["test", "val"])
+    p.add_argument("--shard-tiles", action="store_true",
+                   help="not ported: raises (ROADMAP queue 1 item 8(b))")
+    p.add_argument("--pallas", action="store_true",
+                   help="accepted for parity with the JAX CLI and changes "
+                        "nothing: on a CUDA device the port always runs "
+                        "its kernels")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA device; 'cpu' "
+                        "runs the plain PyTorch path)")
+    return p.parse_args(argv)
+
+
+def load_weights(restorer, checkpoint: str, cfg) -> None:
+    """Put ``checkpoint``'s weights into ``restorer``'s generator, as the
+    JAX CLI resolves it: 'None' means the config's
+    ``test_checkpoint_path``, 'random' keeps the seeded random weights,
+    a ``.pth`` / ``.pt`` file is loaded (convert/load.py)."""
+    ckpt = cfg.get("test_checkpoint_path") if checkpoint == "None" \
+        else checkpoint
+    if ckpt == "random":
+        print("[warn] evaluating RANDOM weights (smoke mode)", flush=True)
+        return
+    if not str(ckpt).endswith((".pth", ".pt")):
+        raise ValueError(
+            f"checkpoint {ckpt!r}: the port loads .pth/.pt files; an orbax "
+            "directory is the JAX package's training format, and the "
+            "port's own checkpoints come with ROADMAP queue 1 item 6(b)")
+    sd = load_torch_checkpoint(ckpt, cfg.model)
+    restorer.generator.load_state_dict(sd, strict=True)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    if args.shard_tiles:
+        raise NotImplementedError("--shard-tiles: several GPUs are not "
+                                  "ported yet (ROADMAP queue 1 item 8(b))")
+    cfg = Config.fromfile(args.config)
+    seed = args.seed or 0
+    if args.seed is not None or args.deterministic:
+        random.seed(seed)
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    dataset = build_dataset(cfg.data[args.split])
+    model = build_model(cfg.model, test_cfg=cfg.test_cfg,
+                        device=args.device, seed=seed)
+    load_weights(model, args.checkpoint, cfg)
+    results = evaluate_dataset(model, dataset, save_path=args.save_path)
+    print("Eval results:")
+    for k, v in results.items():
+        print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=2)
+    return results
+
+
+if __name__ == "__main__":
+    main()
