@@ -104,13 +104,35 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      ``ciaosr_torch.tools.inference`` on the 57×86 LR image at ×4 (tiled)
      and ×2.5, each PNG within one level of ``forward_test``. Its launches
      add to the kernel rows (``launches_cli``);
-  9. prints the script's total time, the kernels line (each row with its
+  9. phase "train_cli", classical training through
+     ``ciaosr_torch.tools.train`` on seeded DIV2K- and Set5-shaped
+     folders in a temporary working directory, the shipped 001 configs
+     (f32 params) unchanged but for one derived copy of 001 rdn's with
+     checkpoints and evals every 2 iterations and a log line every one:
+     001 rdn trains 4 iterations (evals at 2 and 4 with exact launches,
+     checkpoints at 2 and 4), then again to 6, auto-resumed at 4 with the
+     step, lr and Adam state saved, and ``ciaosr_torch.tools.test`` on the
+     work_dir gives the PSNR and SSIM (≤ 1e-6) of a restorer loaded from
+     the newest checkpoint; 001 swinir trains 3 iterations at its batch of
+     10 × 48² (rows 11 and 12 first held against their plain versions at
+     those tokens, shifted and unshifted, and timed: rows
+     ``swin_block@10x48x48``, ``swin_block_bwd@10x48x48``,
+     ``swin_block_wgrad@10x48x48``), with exactly 36 × 3 launches of rows
+     11 and 12 and both reduction kernels and no other; 001 edsr trains 2
+     iterations, no kernel; finite losses and every parameter with a
+     gradient changed; per config the warm time an iteration, samples/s,
+     the peak memory, the loader's share of the loop and the loader alone
+     (batches/s); one step's gradients of 001 swinir's generator, kernel
+     route against the plain f32 route. Its launches add to the kernel
+     rows (``launches_train_cli``);
+ 10. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
 ``python3 chip_smoke.py --full-image`` builds the kernels and only times
 the full-image requests; ``--kernel-times`` builds them and only prints
-the ``time_kernels`` line (neither prints a result line). Copied into
+the ``time_kernels`` line; ``--train-cli`` builds them and only runs
+phase "train_cli" (none prints a result line). Copied into
 another checkout (e.g. the parent commit from ``git archive``), either
 times that tree the same way, in the same call.
 Any failure exits non-zero. Without CUDA, or without the repository's
@@ -2194,12 +2216,22 @@ def train_path(drive, kind: str, smi: str, fwd_row: dict,
 
     # one step's gradients: the kernel route (bf16) and the plain bf16
     # route (JAX's XLA route, no kernel) against the plain f32 route
+    grad_route_check("train route check", {
+        "kernel": SWIN_002, "plain bf16": dict(SWIN_002, use_kernels=False),
+        "plain f32": dict(SWIN_002, dtype=None, use_kernels=False)})
+
+
+def grad_route_check(label: str, routes: dict) -> None:
+    """One step's gradients on a small batch (B = 1, 16² LR, 256 queries)
+    of the generators ``routes`` names ("kernel", "plain bf16", "plain
+    f32"; the same seeded weights): each parameter tensor of the kernel
+    route within max(TRAIN_ROUTE_TOL, TRAIN_ROUTE_FACTOR × the plain bf16
+    route's own distance) of the plain f32 route, ||Δ||/||ref||."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+
     small = train_batch(np.random.default_rng(5), 1, 16, 16)
     grads = {}
-    for name, cfg in (("kernel", SWIN_002),
-                      ("plain bf16", dict(SWIN_002, use_kernels=False)),
-                      ("plain f32", dict(SWIN_002, dtype=None,
-                                         use_kernels=False))):
+    for name, cfg in routes.items():
         r = CiaoSRRestorer(cfg, rgb_mean=RGB_MEAN, device="cuda", seed=0)
         loss, _ = r.train_forward(small["lq"], small["gt"], small["coord"],
                                   small["cell"])
@@ -2226,7 +2258,7 @@ def train_path(drive, kind: str, smi: str, fwd_row: dict,
         return max(((e_k[k][i], k) for k in keys))
 
     enc = set(e_k) - dec
-    log(f"train route check (B=1, 16^2 LR, 256 queries): loss "
+    log(f"{label} (B=1, 16^2 LR, 256 queries): loss "
         + ", ".join(f"{n} {v[0]:.6f}" for n, v in grads.items())
         + "; kernel route vs f32 ||d||/||ref||: encoder worst "
         "{:.3e} ({}, plain bf16 {:.3e}), decoder worst {:.3e} ({}, plain "
@@ -2239,7 +2271,7 @@ def train_path(drive, kind: str, smi: str, fwd_row: dict,
     bad = {k: (v[0], limit[k]) for k, v in e_k.items()
            if not v[0] <= limit[k]}
     if bad:
-        raise AssertionError(f"train route check: {bad}")
+        raise AssertionError(f"{label}: {bad}")
 
 
 # ---- the eval entry points (phase "cli"): the shipped 001 configs through
@@ -2520,13 +2552,473 @@ def cli_infer(drive, path: str, ckpt: Path, res, ref, c: int,
                                  f"error {r:.3e}")
 
 
+# ---- classical training through the train CLI (phase "train_cli"): the
+# shipped 001 configs through python3 -m ciaosr_torch.tools.train on a
+# DIV2K-shaped folder (seeded smooth pictures, each at least 192², so that
+# a ×4 patch of 48 fits) and the Set5-shaped folder of phase "cli"
+TRAIN_HR = ((256, 256), (240, 300), (300, 240), (228, 344))
+# the one derived config: 001 rdn with checkpoints and evals every 2
+# iterations and a log line every iteration
+TRAIN_CLI_OVERRIDES = """
+# train_cli: hooks every few iterations
+checkpoint_config = dict(interval=2, save_optimizer=True, by_epoch=False)
+evaluation = dict(interval=2, save_image=False, gpu_collect=True)
+log_config = dict(interval=1)
+"""
+# iterations: 001 rdn to 4, then resumed to 6; 001 swinir 3; 001 edsr 2
+TRAIN_CLI_RDN, TRAIN_CLI_SWINIR, TRAIN_CLI_EDSR = (4, 6), 3, 2
+# batches the loader alone is timed over, after its first; steps of a
+# trainer timed after its CLI run, after one more
+LOADER_BATCHES, WARM_STEPS = 6, 3
+
+
+def write_div2k(root: Path) -> None:
+    """data/DIV2K/HR under ``root``: seeded smooth pictures of TRAIN_HR's
+    shapes, written by the port's PNG codec."""
+    from ciaosr_torch.data.imageio import write_png
+
+    rng = np.random.default_rng(6)
+    hr = root / "data" / "DIV2K" / "HR"
+    hr.mkdir(parents=True)
+    for i, (h, w) in enumerate(TRAIN_HR):
+        write_png(str(hr / f"{i + 1:04d}.png"), smooth_picture(rng, h, w))
+
+
+class TrainProbe:
+    """Instruments ``ciaosr_torch.train.trainer`` for one or more CLI runs
+    (undone by ``close``): per iteration, the time the loop waited in
+    ``next(loader)`` and the loss, and the time each step ended (after a
+    device sync); the time each run's loop started (``_maybe_resume``) and
+    the state it left; the seconds of each checkpoint save."""
+
+    def __init__(self):
+        from ciaosr_torch.train import trainer as tr
+
+        self.tr = tr
+        self.real = (tr.make_train_step, tr.Trainer._next,
+                     tr.Trainer._maybe_resume, tr.CheckpointManager.save)
+        self.waits, self.ends, self.losses, self.resumed = [], [], [], []
+        self.starts, self.saves = [], []
+        make_step, next_, resume, save = self.real
+        probe = self
+
+        def make(*a):
+            step = make_step(*a)
+
+            def timed(state, batch):
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                probe.ends.append((state.step, time.perf_counter()))
+                probe.losses.append(m["loss_pix"])
+                return state, m
+            return timed
+
+        def waited(trainer, it):
+            t = time.perf_counter()
+            batch = next_(trainer, it)
+            probe.waits.append(time.perf_counter() - t)
+            return batch
+
+        def saved(mgr, *a, **kw):
+            t = time.perf_counter()
+            save(mgr, *a, **kw)
+            probe.saves.append(time.perf_counter() - t)
+
+        def resumed(trainer):
+            probe.starts.append(time.perf_counter())
+            resume(trainer)
+            opt = trainer.optimizer.state_dict()
+            probe.resumed.append((
+                trainer.state.step, trainer.optimizer.param_groups[0]["lr"],
+                {i: {k: v.detach().cpu().clone() for k, v in st.items()}
+                 for i, st in opt["state"].items()}))
+
+        tr.make_train_step = make
+        tr.Trainer._next, tr.Trainer._maybe_resume = waited, resumed
+        tr.CheckpointManager.save = saved
+
+    def close(self):
+        tr = self.tr
+        (tr.make_train_step, tr.Trainer._next, tr.Trainer._maybe_resume,
+         tr.CheckpointManager.save) = self.real
+
+    def loop_stats(self, hooks=()) -> tuple[float, float, int]:
+        """(median ms an iteration, the loader-wait share, samples) over
+        the iterations after the first whose previous step fired no hook
+        (``hooks``: steps followed by an eval or a save): an iteration is
+        one step end to the next, its loader wait included."""
+        ms, waits = [], []
+        for i in range(1, len(self.ends)):
+            prev, t0 = self.ends[i - 1]
+            step, t1 = self.ends[i]
+            if step == prev + 1 and prev not in hooks:
+                ms.append((t1 - t0) * 1e3)
+                waits.append(self.waits[i] * 1e3)
+        return statistics.median(ms), sum(waits) / sum(ms), len(ms)
+
+
+def loader_rate(cfg) -> tuple[float, int, int]:
+    """The train loader alone, as tools.train builds it: (batches/s over
+    LOADER_BATCHES after its first, batch size, workers)."""
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.data.loader import build_dataloader
+
+    b = (cfg.data.get("train_dataloader") or {}).get("samples_per_gpu", 16)
+    workers = cfg.data.get("workers_per_gpu", 4)
+    it = iter(build_dataloader(build_dataset(cfg.data["train"]),
+                               samples_per_gpu=b, workers_per_gpu=workers,
+                               seed=1))
+    try:
+        next(it)
+        t = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(it)
+        return LOADER_BATCHES / (time.perf_counter() - t), b, workers
+    finally:
+        it.close()
+
+
+def changed_parameters(gen, before: dict) -> None:
+    """Every parameter of ``gen`` with a nonzero gradient differs from its
+    value in ``before`` (the seeded initial weights, on the CPU)."""
+    same = [k for k, p in gen.named_parameters()
+            if p.grad is not None and float(p.grad.abs().max()) > 0
+            and torch.equal(p.detach().cpu(), before[k])]
+    if same:
+        raise AssertionError(f"train_cli: parameters with gradients did "
+                             f"not change: {same}")
+
+
+def train_cli_run(drive, probe, label: str, argv: list, want: dict):
+    """``ciaosr_torch.tools.train.main(argv)`` with exactly the launches
+    ``want`` (every other kernel idle), its losses finite. Returns the
+    trainer, the peak memory (GiB) and the wall seconds."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import train as cli_train
+
+    probe.losses.clear()
+    probe.saves.clear()
+    n0 = len(probe.ends)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, launches, secs = drive(
+        f"train_cli {label} (want {want})", lambda: cli_train.main(argv),
+        [k for k, n in want.items() if n], [k for k in kernels.LAUNCHES
+                                            if not want.get(k)])
+    ends = [t for _, t in probe.ends[n0:]]
+    its = [b - a for a, b in zip([probe.starts[-1]] + ends, ends)]
+    log(f"train_cli {label}: set-up before the loop "
+        f"{probe.starts[-1] - t0:.2f} s; iterations (loader wait, hooks "
+        f"and a device sync included) {[round(t * 1e3, 1) for t in its]} "
+        f"ms; checkpoint saves {[round(t, 3) for t in probe.saves]} s")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"train_cli {label}: launches {got}, want "
+                             f"{want}")
+    losses = torch.stack(probe.losses).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"train_cli {label}: losses {losses.tolist()}")
+    log(f"train_cli {label}: {secs:.2f} s, losses "
+        f"{[round(float(v), 6) for v in losses]}")
+    return trainer, peak, secs
+
+
+def warm_steps(trainer, cfg, n: int = WARM_STEPS) -> list:
+    """ms of n more steps of a CLI run's trainer, after one step more, each
+    ended by a device sync, on batches a loader built as tools.train builds
+    it made first and moved to the device as the loop moves them (the
+    loader closed before the first step: while it fills its prefetch
+    queue, its threads take the host from a host-bound step)."""
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.data.loader import build_dataloader
+    from ciaosr_torch.train.trainer import to_device
+
+    loader_cfg = cfg.data.get("train_dataloader") or {}
+    it = iter(build_dataloader(
+        build_dataset(cfg.data["train"]),
+        samples_per_gpu=loader_cfg.get("samples_per_gpu", 16),
+        workers_per_gpu=cfg.data.get("workers_per_gpu", 4), seed=2))
+    try:
+        batches = [next(it) for _ in range(n + 1)]
+    finally:
+        it.close()
+    ms = []
+    for b in batches:
+        batch = to_device(b, trainer.restorer.device)
+        t = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms[1:]
+
+
+def train_cli_report(kind: str, smi: str, name: str, cfg, probe, trainer,
+                     peak: float, hooks=()) -> None:
+    """A config's line: the CLI loop's iterations (those after a step
+    without a hook), the warm step of its trainer, the peak memory and
+    the loader alone."""
+    ms, share, n = probe.loop_stats(hooks)
+    warm = warm_steps(trainer, cfg)
+    step = statistics.median(warm)
+    rate, b, workers = loader_rate(cfg)
+    log(f"e2e ({kind}; {smi}): train_cli 001 {name} as shipped (f32 params, "
+        f"kernel route), batch {b} x 48^2 LR, 2304 queries/sample: the CLI "
+        f"loop {ms:.1f} ms/iteration (median of {n}, loader wait "
+        f"included), loader wait {share:.3f} of it; warm step "
+        f"{step:.1f} ms (median of {len(warm)} more steps of its trainer: "
+        f"{[round(t, 1) for t in warm]}), {b / step * 1e3:.2f} samples/s; "
+        f"peak {peak:.2f} GiB; the loader alone ({workers} threads) "
+        f"{rate:.2f} batches/s ({rate * b:.1f} samples/s)")
+
+
+def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
+    """Phase "train_cli": the shipped 001 configs (f32 params) through
+    ``ciaosr_torch.tools.train``'s ``main`` in a temporary working
+    directory (their data/ paths are relative) on seeded DIV2K- and
+    Set5-shaped folders:
+
+    1. 001 rdn on a derived copy with hooks every 2 iterations: 4
+       iterations (a log line each; evals at 2 and 4 on the five Set5
+       images, with the launches ``cli_expected`` counts for each;
+       checkpoints at 2 and 4), then to 6: auto-resumed at 4 with the
+       step, lr and Adam state saved; ``ciaosr_torch.tools.test`` on the
+       work_dir gives the PSNR and SSIM (≤ 1e-6) of a restorer loaded
+       strictly from the newest checkpoint;
+    2. 001 swinir as shipped: rows 11 and 12 held against their plain
+       versions (row 12 against autograd) at the train batch's tokens,
+       shifted and unshifted, reproducible, and timed; then 3 iterations
+       with exactly 36 × 3 launches of rows 11 and 12 and both reduction
+       kernels, and no other kernel;
+    3. 001 edsr as shipped: 2 iterations, no kernel;
+    4. one step's gradients of 001 swinir's generator, the kernel route
+       (as the CLI trains it: f32 params, the Swin blocks in bf16)
+       against the plain f32 route (``grad_route_check``).
+
+    Each run's losses are finite and every parameter with a gradient
+    changed; per config, the warm time an iteration, samples/s, the peak
+    memory, the loader's share of the loop and the loader alone. Returns
+    each kernel row's launches and the phase's own kernel rows."""
+    from ciaosr_torch.convert.load import load_torch_checkpoint
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.data.imageio import imread
+    from ciaosr_torch.models.builder import build_generator, build_model
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import test as cli_test
+    from ciaosr_torch.train.checkpoint import list_steps, read_checkpoint
+
+    rows: dict = {}
+    new_rows: list = []
+    cwd = os.getcwd()
+    probe = TrainProbe()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_div2k(root)
+        write_set5(root)
+        log(f"train_cli: DIV2K- and Set5-shaped folders written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        os.chdir(root)
+        try:
+            # ---- 001 rdn: hooks, resume, tools.test
+            shipped = config_path("001_localimplicitsr_rdn_")
+            derived = root / "001_rdn_train_cli.py"
+            derived.write_text(Path(shipped).read_text()
+                               + TRAIN_CLI_OVERRIDES)
+            log(f"train_cli rdn: the derived copy {derived.name} of "
+                f"{Path(shipped).name} (checkpoint_config.interval 2, "
+                "evaluation.interval 2, log_config.interval 1)")
+            cfg = Config.fromfile(str(derived))
+            tile = cfg.test_cfg["tile"]
+            val_lrs = [(h // 4, w // 4) for _, (h, w) in CLI_SET5]
+
+            def evals(n):   # the launches of n evals, added into rows
+                want: dict = {}
+                for _ in range(n):
+                    for k, v in cli_expected(val_lrs, 4, tile, 64, 0,
+                                             rows).items():
+                        want[k] = want.get(k, 0) + v
+                return want
+
+            before = build_generator(cfg.model["generator"], device="cpu",
+                                     seed=0).state_dict()
+            first, again = TRAIN_CLI_RDN
+            trainer, peak, _ = train_cli_run(
+                drive, probe, f"rdn to {first}",
+                [str(derived), "--total-iters", str(first)], evals(2))
+            work = Path(trainer.work_dir)
+            changed_parameters(trainer.state.generator, before)
+            with open(work / "train_log.jsonl") as f:
+                recs = [json.loads(line) for line in f]
+            steps = [r["step"] for r in recs if "loss_pix" in r]
+            val = [r["step"] for r in recs if "val_PSNR" in r]
+            ckpts = list_steps(str(work / "checkpoints"))
+            if steps != list(range(1, first + 1)) or val != [2, 4] \
+                    or ckpts != [2, 4]:
+                raise AssertionError(f"train_cli rdn: logged {steps}, evals "
+                                     f"{val}, checkpoints {ckpts}")
+            saved = read_checkpoint(str(work / "checkpoints" /
+                                        f"iter_{first}.pth"))
+            del trainer
+            trainer, peak2, _ = train_cli_run(
+                drive, probe, f"rdn resumed to {again}",
+                [str(derived), "--total-iters", str(again)], evals(1))
+            step0, lr0, opt0 = probe.resumed[-1]
+            same_adam = set(opt0) == set(saved["optimizer"]["state"]) and \
+                all(torch.equal(v, saved["optimizer"]["state"][i][k])
+                    for i, st in opt0.items() for k, v in st.items())
+            saved_lr = saved["optimizer"]["param_groups"][0]["lr"]
+            log(f"train_cli rdn resumed at {step0} (saved {saved['step']}), "
+                f"lr {lr0} (saved {saved_lr}), Adam state of "
+                f"{len(opt0)} tensors equal to the saved: {same_adam}")
+            if not (step0 == saved["step"] == first and lr0 == saved_lr
+                    and same_adam and trainer.state.step == again):
+                raise AssertionError("train_cli rdn: the resume did not "
+                                     "restore the saved state")
+            ckpts = list_steps(str(work / "checkpoints"))
+            if ckpts != [2, 4, 6]:
+                raise AssertionError(f"train_cli rdn: checkpoints {ckpts}")
+            train_cli_report(kind, smi, "rdn", cfg, probe, trainer,
+                             max(peak, peak2), hooks={2, 4, 6})
+            del trainer, saved
+
+            # tools.test on the work_dir, against the newest checkpoint
+            test_lrs = [imread(f"data/Classical/Set5/LRbicx4/{n}.png"
+                               ).shape[:2] for n, _ in CLI_SET5]
+            want = cli_expected(test_lrs, 4, tile, 64, 0, rows)
+            metrics, launches, secs = drive(
+                f"train_cli rdn tools.test on the work_dir (want {want})",
+                lambda: cli_test.main([str(derived), str(work)]),
+                list(want), [k for k in kernels.LAUNCHES if k not in want])
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"train_cli tools.test: launches {got}, "
+                                     f"want {want}")
+            newest = str(work / "checkpoints" / f"iter_{again}.pth")
+            res = build_model(cfg.model, test_cfg=cfg.test_cfg)
+            res.generator.load_state_dict(load_torch_checkpoint(
+                newest, cfg.model, strict=True), strict=True)
+            dataset = build_dataset(cfg.data["test"])
+            recs = []
+            for i in range(len(dataset)):
+                smp = dataset[i]
+                meta = smp["meta"]
+                recs.append(res.evaluate(res.forward_test(
+                    smp["lq"], target_shape=meta["target_size"],
+                    scale=meta["scale"]), smp["gt"]))
+            mine = {k: float(np.mean([r[k] for r in recs]))
+                    for k in cfg.test_cfg["metrics"]}
+            diff = {k: abs(mine[k] - metrics[k]) for k in mine}
+            log(f"train_cli rdn tools.test on the work_dir: {secs:.2f} s, "
+                f"PSNR {metrics['PSNR']:.6f} SSIM {metrics['SSIM']:.6f}; "
+                f"|CLI - a restorer loaded from iter_{again}.pth| {diff}")
+            if not all(d <= 1e-6 for d in diff.values()):
+                raise AssertionError(f"train_cli tools.test: {metrics} vs "
+                                     f"{mine}")
+            del res
+            torch.cuda.empty_cache()
+
+            # ---- 001 swinir: rows 11 and 12 at the train batch's tokens,
+            # then 3 iterations with exact launches
+            path = config_path("001_localimplicitsr_swinir_")
+            cfg = Config.fromfile(path)
+            b = cfg.data["train_dataloader"]["samples_per_gpu"]
+            sw = CiaoSRRestorer(SWIN_001, rgb_mean=RGB_MEAN, device="cuda",
+                                seed=0)
+            lq = torch.rand((b, 48, 48, 3), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(7))
+            t0 = time.perf_counter()
+            fwd_row = swin_block_row(sw, lq)
+            bwd_row, wgrad_row = check_swin_bwd(sw, {"lq": lq})
+            n_blocks = len(swin_blocks(sw.generator))
+            log(f"train_cli swinir: rows 11 and 12 at {b}x48x48 held and "
+                f"timed in {time.perf_counter() - t0:.2f} s")
+            del sw, lq
+            torch.cuda.empty_cache()
+            gen = cfg.model["generator"]
+            before = build_generator(gen, device="cpu", seed=0).state_dict()
+            probe.ends.clear()
+            probe.waits.clear()
+            iters = TRAIN_CLI_SWINIR
+            want = {k: n_blocks * iters for k in ("swin_block",)
+                    + BWD_KERNELS}
+            trainer, peak, _ = train_cli_run(
+                drive, probe, f"swinir {iters} iterations",
+                [path, "--total-iters", str(iters)], want)
+            changed_parameters(trainer.state.generator, before)
+            train_cli_report(kind, smi, "swinir", cfg, probe, trainer,
+                             peak)
+            del trainer
+            torch.cuda.empty_cache()
+            rows[fwd_row["name"]] = want["swin_block"]
+            rows[bwd_row["name"]] = want["swin_block_bwd"]
+            rows[wgrad_row["name"]] = want["swin_block_wgrad"]
+            bwd_row["launches_wgrad"] = want["swin_block_wgrad"]
+            bwd_row["launches_gsum"] = want["swin_block_gsum"]
+            new_rows += [fwd_row, bwd_row, wgrad_row]
+
+            # ---- 001 edsr: no kernel on its training path
+            path = config_path("001_localimplicitsr_edsr_")
+            cfg = Config.fromfile(path)
+            before = build_generator(cfg.model["generator"], device="cpu",
+                                     seed=0).state_dict()
+            probe.ends.clear()
+            probe.waits.clear()
+            trainer, peak, _ = train_cli_run(
+                drive, probe, f"edsr {TRAIN_CLI_EDSR} iterations",
+                [path, "--total-iters", str(TRAIN_CLI_EDSR)], {})
+            changed_parameters(trainer.state.generator, before)
+            train_cli_report(kind, smi, "edsr", cfg, probe, trainer, peak)
+            del trainer
+            torch.cuda.empty_cache()
+        finally:
+            probe.close()
+            os.chdir(cwd)
+
+    # ---- one step's gradients of 001 swinir's generator as the CLI
+    # trains it, against the plain f32 route
+    f32_gen = {k: v for k, v in SWIN_001.items() if k != "dtype"}
+    t0 = time.perf_counter()
+    grad_route_check("train_cli route check (001 swinir)", {
+        "kernel": f32_gen,
+        "plain bf16": dict(SWIN_001, use_kernels=False),
+        "plain f32": dict(f32_gen, use_kernels=False)})
+    log(f"train_cli route check: {time.perf_counter() - t0:.2f} s")
+    return rows, new_rows
+
+
+def drive(name, fn, ran, idle):
+    """fn() as one path: every launch count set to 0 just before it and
+    read just after; each kernel of ``ran`` launched, none of ``idle``.
+    Returns fn's result, the counts and the wall seconds."""
+    from ciaosr_torch.ops import kernels
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"path {name}: {secs * 1e3:.1f} ms, launches {launches}")
+    missing = [k for k in ran if launches[k] <= 0]
+    extra = [k for k in idle if launches[k] != 0]
+    if missing or extra:
+        raise AssertionError(f"path {name}: kernels not launched "
+                             f"{missing}, launched but off the path "
+                             f"{extra}")
+    return out, launches, secs
+
+
 def main() -> int:
     """``--full-image``: build, then only time_full_images;
-    ``--kernel-times``: build, then only time_kernels (neither prints a
-    result line)."""
+    ``--kernel-times``: build, then only time_kernels; ``--train-cli``:
+    build, then only phase train_cli (none prints a result line)."""
     t_start = time.perf_counter()
     flags = sys.argv[1:]
-    if flags not in ([], ["--full-image"], ["--kernel-times"]):
+    if flags not in ([], ["--full-image"], ["--kernel-times"],
+                     ["--train-cli"]):
         print(f"chip_smoke: unknown arguments {flags}", file=sys.stderr)
         return 2
     full_only = flags == ["--full-image"]
@@ -2558,6 +3050,13 @@ def main() -> int:
 
     def mark(phase):   # where the script's own time goes
         log(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f} s")
+
+    if flags == ["--train-cli"]:
+        launches, train_rows = train_cli_phase(drive, kind, smi)
+        log(f"train_cli launches by kernel row: {launches}")
+        log(json.dumps({"kernels": train_rows}))
+        mark("the train_cli phase")
+        return 0
 
     restorer = CiaoSRRestorer(FLAGSHIP, rgb_mean=RGB_MEAN,
                               test_cfg=TEST_CFG, device="cuda", seed=0)
@@ -2599,23 +3098,6 @@ def main() -> int:
 
     # ---- the main paths: requests through the entry points, each path
     # with the launch counters set to 0 just before it and read just after
-    def drive(name, fn, ran, idle):
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        log(f"path {name}: {secs * 1e3:.1f} ms, launches {launches}")
-        missing = [k for k in ran if launches[k] <= 0]
-        extra = [k for k in idle if launches[k] != 0]
-        if missing or extra:
-            raise AssertionError(f"path {name}: kernels not launched "
-                                 f"{missing}, launched but off the path "
-                                 f"{extra}")
-        return out, launches, secs
-
     def check_image(name, out, shape):
         out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
         if out.shape != shape or not np.isfinite(out).all() \
@@ -3071,6 +3553,28 @@ def main() -> int:
             log(f"kernel {r['name']}: launches={r['launches']} (cli phase "
                 f"{r['launches_cli']})")
     mark("the cli phase")
+
+    # ---- classical training through the train CLI on the shipped configs
+    train_launches, train_rows = train_cli_phase(drive, kind, smi)
+    rows += train_rows
+    unrowed = set(train_launches) - {r["name"] for r in rows}
+    if unrowed:
+        raise AssertionError(f"the train_cli phase launched {unrowed}, "
+                             "which no kernel row holds")
+    for r in rows:
+        if r["name"] in train_launches:
+            r["launches_train_cli"] = train_launches[r["name"]]
+            r["launches"] += r["launches_train_cli"]
+            log(f"kernel {r['name']}: launches={r['launches']} (train_cli "
+                f"phase {r['launches_train_cli']})")
+    for r in train_rows:
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "
+            f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
+            f"ms_noshift={r.get('ms_noshift', float('nan')):.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']} "
+            f"launches={r['launches']}")
+    mark("the train_cli phase")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

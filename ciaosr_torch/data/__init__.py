@@ -1,2 +1,2 @@
-"""Host data layer: the PNG codec, the eval pipeline ops and the folder
-datasets (counterpart of ciaosr_tpu/data)."""
+"""Host data layer: the PNG codec, the pipeline ops, the folder datasets
+and the prefetching loader (counterpart of ciaosr_tpu/data)."""

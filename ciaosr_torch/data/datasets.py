@@ -3,6 +3,11 @@
 Counterpart of ciaosr_tpu/data/datasets.py: SRFolderGTDataset (gt only,
 the LQ made by the pipeline), SRFolderDataset (paired lq / gt folders
 matched by stem through ``filename_tmpl``), RepeatDataset.
+
+``dataset[idx]`` is one sample; ``dataset.load(idx, rng)`` is the same
+sample with its pipeline drawing from the numpy Generator ``rng`` (the
+loader hands every sample of a batch that batch's generator). A seeded
+SRFolderGTDataset keeps its own per-sample generator either way.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ def scan_images(folder: str) -> list[str]:
 class SRFolderGTDataset:
     """GT-only folder; LQ synthesized by the pipeline. Sample ``idx``
     draws from ``numpy.random.default_rng((seed, idx))``; without a seed,
-    from one unseeded generator the dataset owns."""
+    from the generator ``load`` is given, else from one unseeded generator
+    the dataset owns."""
 
     def __init__(self, gt_folder: str, pipeline, scale=None, seed=None,
                  **kwargs):
@@ -44,8 +50,13 @@ class SRFolderGTDataset:
         return len(self.paths)
 
     def __getitem__(self, idx):
-        rng = self._rng if self.seed is None \
-            else np.random.default_rng((self.seed, idx))
+        return self.load(idx)
+
+    def load(self, idx, rng: np.random.Generator | None = None):
+        if self.seed is not None:
+            rng = np.random.default_rng((self.seed, idx))
+        elif rng is None:
+            rng = self._rng
         return self.pipeline({"gt_path": self.paths[idx], "_rng": rng})
 
 
@@ -76,9 +87,14 @@ class SRFolderDataset:
         return len(self.pairs)
 
     def __getitem__(self, idx):
+        return self.load(idx)
+
+    def load(self, idx, rng: np.random.Generator | None = None):
         lq_path, gt_path = self.pairs[idx]
         results = {"lq_path": lq_path, "gt_path": gt_path,
                    "scale": self.scale}
+        if rng is not None:
+            results["_rng"] = rng
         return self.pipeline(results)
 
 
@@ -94,6 +110,9 @@ class RepeatDataset:
 
     def __getitem__(self, idx):
         return self.dataset[idx % len(self.dataset)]
+
+    def load(self, idx, rng: np.random.Generator | None = None):
+        return self.dataset.load(idx % len(self.dataset), rng)
 
 
 def build_dataset(cfg: dict):

@@ -1,8 +1,8 @@
-"""Host-side eval pipeline ops (numpy), the mmedit pipeline surface.
+"""Host-side pipeline ops (numpy), the mmedit pipeline surface.
 
-Counterpart of the ops of ciaosr_tpu/data/pipelines.py that the 001
-configs' ``test_pipeline`` and ``valid_pipeline`` name, and ``Compose``.
-Each op is a callable ``op(results: dict) -> dict``; keys follow the
+Counterpart of ciaosr_tpu/data/pipelines.py: the ops of the configs'
+train, valid and test pipelines, the crops and the coordinate variants,
+and ``Compose``. Each op is a callable ``op(results: dict) -> dict``; keys follow the
 reference protocol ('lq', 'gt', 'coord', 'cell', 'scale', '*_path').
 Images are HWC float32 / uint8 numpy arrays. An op that draws a random
 number draws it from ``results['_rng']``, a ``numpy.random.Generator``
@@ -122,6 +122,43 @@ class RandomDownSampling:
         return results
 
 
+@PIPELINES.register(name="Flip")
+class Flip:
+    """Flip ``keys`` along one axis with probability ``flip_ratio`` (one
+    draw for all keys)."""
+
+    def __init__(self, keys, flip_ratio=0.5, direction="horizontal"):
+        if direction not in ("horizontal", "vertical"):
+            raise ValueError(f"direction {direction!r}: horizontal or "
+                             "vertical")
+        self.keys = keys
+        self.flip_ratio = flip_ratio
+        self.axis = 1 if direction == "horizontal" else 0
+
+    def __call__(self, results):
+        if _rng(results).random() < self.flip_ratio:
+            for k in self.keys:
+                results[k] = np.ascontiguousarray(
+                    np.flip(results[k], axis=self.axis))
+        return results
+
+
+@PIPELINES.register(name="RandomTransposeHW")
+class RandomTransposeHW:
+    """Swap H and W of ``keys`` with probability ``transpose_ratio``."""
+
+    def __init__(self, keys, transpose_ratio=0.5):
+        self.keys = keys
+        self.transpose_ratio = transpose_ratio
+
+    def __call__(self, results):
+        if _rng(results).random() < self.transpose_ratio:
+            for k in self.keys:
+                results[k] = np.ascontiguousarray(
+                    results[k].transpose(1, 0, 2))
+        return results
+
+
 @PIPELINES.register(name="ImageToTensor")
 class ImageToTensor:
     """HWC float32 (the reference's CHW layout marker; the port keeps
@@ -206,6 +243,235 @@ class Collect:
             if extra in results:
                 out["meta"].setdefault(extra, results[extra])
         return out
+
+
+@PIPELINES.register(name="RandomBicubicSampling")
+class RandomBicubicSampling(RandomDownSampling):
+    """The reference's in-tree twin of RandomDownSampling: the same op on
+    the MATLAB-exact bicubic."""
+
+    def __init__(self, scale_min=1.0, scale_max=4.0, patch_size=None,
+                 interpolation="bicubic", **kwargs):
+        super().__init__(scale_min=scale_min, scale_max=scale_max,
+                         patch_size=patch_size, interpolation=interpolation)
+
+
+@PIPELINES.register(name="GenerateCoordinateAndCell1")
+class GenerateCoordinateAndCell1(GenerateCoordinateAndCell):
+    """The reference's local variant: the same op (gt_unsharp included)."""
+
+
+@PIPELINES.register(name="GenerateCoordinateAndCell2")
+class GenerateCoordinateAndCell2:
+    """The super-sampling-eval variant, with the reference's semantics:
+
+    * with a gt, the gt is flattened to (H·W, C) and the target grid is
+      (round(H/scale·scale1), round(W/scale·scale1)), the two steps kept
+      (rounding the intermediate differs from round(H·scale1/scale));
+    * with ``sample_quantity``, indices drawn without replacement over the
+      target grid index both coord and the flattened gt (only scale1 ==
+      scale pairs them consistently, as in the reference);
+    * without a gt, ``target_size`` (its last two entries) is the grid.
+
+    The target size goes to results['target_size']; the op keeps no state.
+    """
+
+    def __init__(self, sample_quantity=None, scale=None, scale1=None,
+                 target_size=None):
+        self.sample_quantity = sample_quantity
+        self.scale = scale
+        self.scale1 = scale1
+        self.target_size = target_size
+
+    def __call__(self, results):
+        if "gt" in results:
+            gt = results["gt"]
+            h, w = gt.shape[:2]
+            results["gt"] = np.ascontiguousarray(
+                gt.reshape(-1, gt.shape[-1]))
+            h_lr, w_lr = h / self.scale, w / self.scale
+            target = (round(h_lr * self.scale1), round(w_lr * self.scale1))
+        else:
+            if self.target_size is None or len(self.target_size) < 2:
+                raise ValueError("GenerateCoordinateAndCell2 without a gt "
+                                 "needs target_size")
+            target = tuple(self.target_size[-2:])
+
+        coord = make_coord_np(target)
+        if self.sample_quantity is not None and "gt" in results:
+            sel = _rng(results).choice(len(coord), self.sample_quantity,
+                                       replace=False)
+            coord = coord[sel]
+            results["gt"] = np.ascontiguousarray(results["gt"][sel])
+
+        cell = np.ones_like(coord)
+        cell[:, 0] *= 2 / target[-2]
+        cell[:, 1] *= 2 / target[-1]
+        results["coord"] = coord
+        results["cell"] = cell
+        results["target_size"] = target
+        return results
+
+
+@PIPELINES.register(name="RandomCrop")
+class RandomCrop:
+    """A random ``patch_size`` square of each of ``keys`` (one draw pair
+    per key)."""
+
+    def __init__(self, patch_size, keys=("gt",)):
+        self.patch_size = patch_size
+        self.keys = keys
+
+    def __call__(self, results):
+        rng = _rng(results)
+        p = self.patch_size
+        for k in self.keys:
+            img = results[k]
+            h, w = img.shape[:2]
+            y0 = int(rng.integers(0, max(h - p, 0) + 1))
+            x0 = int(rng.integers(0, max(w - p, 0) + 1))
+            results[k] = img[y0:y0 + p, x0:x0 + p]
+        return results
+
+
+@PIPELINES.register(name="ContinuousPairedRandomCrop")
+class ContinuousPairedRandomCrop:
+    """Paired crop at the float scale gt/lq: an ``lq_patch_size`` lq patch
+    and the gt patch at the rounded scaled offset and size."""
+
+    def __init__(self, lq_patch_size, keys=("lq", "gt")):
+        self.lq_patch_size = lq_patch_size
+        self.keys = keys
+
+    def __call__(self, results):
+        lq, gt = results["lq"], results["gt"]
+        scale = gt.shape[0] / lq.shape[0]
+        p = self.lq_patch_size
+        rng = _rng(results)
+        y0 = int(rng.integers(0, lq.shape[0] - p + 1))
+        x0 = int(rng.integers(0, lq.shape[1] - p + 1))
+        gp = round(p * scale)
+        results["lq"] = lq[y0:y0 + p, x0:x0 + p]
+        yg, xg = round(y0 * scale), round(x0 * scale)
+        results["gt"] = gt[yg:yg + gp, xg:xg + gp]
+        return results
+
+
+@PIPELINES.register(name="Crop")
+class Crop:
+    """A random (or centre) ``crop_size`` (h, w) crop of each of ``keys``."""
+
+    def __init__(self, keys, crop_size, random_crop=True, **kwargs):
+        self.keys = keys
+        self.crop_size = crop_size
+        self.random_crop = random_crop
+
+    def __call__(self, results):
+        ch, cw = self.crop_size
+        for k in self.keys:
+            img = results[k]
+            h, w = img.shape[:2]
+            if self.random_crop:
+                rng = _rng(results)
+                y0 = int(rng.integers(0, max(h - ch, 0) + 1))
+                x0 = int(rng.integers(0, max(w - cw, 0) + 1))
+            else:
+                y0, x0 = max(0, (h - ch) // 2), max(0, (w - cw) // 2)
+            results[k] = img[y0:y0 + ch, x0:x0 + cw]
+        return results
+
+
+@PIPELINES.register(name="ModCrop")
+class ModCrop:
+    """Cut ``key`` to a multiple of int(results['scale']) (default 1)."""
+
+    def __init__(self, key="gt"):
+        self.key = key
+
+    def __call__(self, results):
+        img = results[self.key]
+        scale = int(results.get("scale", 1))
+        h, w = img.shape[:2]
+        results[self.key] = img[: h - h % scale, : w - w % scale]
+        return results
+
+
+@PIPELINES.register(name="PairedRandomCrop")
+class PairedRandomCrop:
+    """Paired lq / gt random crop at the integer scale gt // lq."""
+
+    def __init__(self, gt_patch_size):
+        self.gt_patch_size = gt_patch_size
+
+    def __call__(self, results):
+        lq, gt = results["lq"], results["gt"]
+        scale = gt.shape[0] // lq.shape[0]
+        lq_patch = self.gt_patch_size // scale
+        rng = _rng(results)
+        y0 = int(rng.integers(0, lq.shape[0] - lq_patch + 1))
+        x0 = int(rng.integers(0, lq.shape[1] - lq_patch + 1))
+        results["lq"] = lq[y0:y0 + lq_patch, x0:x0 + lq_patch]
+        results["gt"] = gt[y0 * scale:y0 * scale + self.gt_patch_size,
+                           x0 * scale:x0 * scale + self.gt_patch_size]
+        return results
+
+
+@PIPELINES.register(name="PairedRandomCropwScale")
+class PairedRandomCropwScale:
+    """Paired crop at the float scale gt/lq (equal in H and W): a fixed lq
+    patch, the gt patch int(lq_patch·scale) at int(offset·scale)."""
+
+    def __init__(self, lq_patch_size):
+        self.lq_patch_size = lq_patch_size
+
+    def __call__(self, results):
+        lq, gt = results["lq"], results["gt"]
+        h_lq, w_lq = lq.shape[:2]
+        h_gt, w_gt = gt.shape[:2]
+        scale = h_gt / h_lq
+        if h_gt / h_lq != w_gt / w_lq:
+            raise ValueError(
+                f"Scale mismatches: GT {(h_gt, w_gt)} is not {scale}x of "
+                f"LQ {(h_lq, w_lq)}")
+        p = self.lq_patch_size
+        if h_lq < p or w_lq < p:
+            raise ValueError(f"LQ {(h_lq, w_lq)} smaller than patch {p}")
+        gp = int(p * scale)
+        rng = _rng(results)
+        y0 = int(rng.integers(0, h_lq - p + 1))
+        x0 = int(rng.integers(0, w_lq - p + 1))
+        results["lq"] = lq[y0:y0 + p, x0:x0 + p]
+        yg, xg = int(y0 * scale), int(x0 * scale)
+        results["gt"] = gt[yg:yg + gp, xg:xg + gp]
+        return results
+
+
+@PIPELINES.register(name="CopyValues")
+class CopyValues:
+    def __init__(self, src_keys, dst_keys):
+        self.src_keys = src_keys
+        self.dst_keys = dst_keys
+
+    def __call__(self, results):
+        for s, d in zip(self.src_keys, self.dst_keys):
+            results[d] = np.copy(results[s]) \
+                if isinstance(results[s], np.ndarray) else results[s]
+        return results
+
+
+@PIPELINES.register(name="Quantize")
+class Quantize:
+    """Round float [0, 1] images to 8-bit levels (they stay float32)."""
+
+    def __init__(self, keys):
+        self.keys = keys
+
+    def __call__(self, results):
+        for k in self.keys:
+            results[k] = np.clip(
+                np.round(results[k] * 255.0) / 255.0, 0.0, 1.0
+            ).astype(np.float32)
+        return results
 
 
 class Compose:

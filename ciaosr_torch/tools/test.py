@@ -4,9 +4,12 @@
         [--save-path DIR] [--split {test,val}] [--device cpu]
 
 CHECKPOINT is a reference ``.pth`` / ``.pt`` file (the mmcv meta dict, a
-full restorer checkpoint or a raw SwinIR-family one), ``None`` (the
-config's ``test_checkpoint_path``) or ``random`` (seeded random weights,
-a smoke run). The model runs on the CUDA device through the port's
+full restorer checkpoint or a raw SwinIR-family one); a training run of
+``ciaosr_torch.tools.train``: its work_dir, its ``checkpoints``
+directory, one of its ``iter_N.pth`` files or ``<work_dir>/latest`` (the
+newest checkpoint); ``None`` (the config's ``test_checkpoint_path``,
+``<work_dir>/latest`` in the shipped configs); or ``random`` (seeded
+random weights, a smoke run). The model runs on the CUDA device through the port's
 kernels unless ``--device cpu`` asks for the plain PyTorch path.
 """
 
@@ -25,13 +28,16 @@ from ciaosr_torch.convert.load import load_torch_checkpoint
 from ciaosr_torch.data.datasets import build_dataset
 from ciaosr_torch.eval.evaluator import evaluate_dataset
 from ciaosr_torch.models.builder import build_model
+from ciaosr_torch.train.checkpoint import resolve_checkpoint
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="ciaosr_torch test")
     p.add_argument("config")
-    p.add_argument("checkpoint", help=".pth/.pt file, 'None' (config "
-                   "test_checkpoint_path), or 'random' (smoke)")
+    p.add_argument("checkpoint", help=".pth/.pt file; a training work_dir, "
+                   "its checkpoints dir or <work_dir>/latest (the newest "
+                   "checkpoint); 'None' (config test_checkpoint_path); or "
+                   "'random' (smoke)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--deterministic", action="store_true",
                    help="seed Python, numpy and torch (0 without --seed) "
@@ -63,18 +69,29 @@ def parse_args(argv=None):
 def load_weights(restorer, checkpoint: str, cfg) -> None:
     """Put ``checkpoint``'s weights into ``restorer``'s generator, as the
     JAX CLI resolves it: 'None' means the config's
-    ``test_checkpoint_path``, 'random' keeps the seeded random weights,
-    a ``.pth`` / ``.pt`` file is loaded (convert/load.py)."""
+    ``test_checkpoint_path``, 'random' keeps the seeded random weights, a
+    training run's work_dir, checkpoints dir or ``latest`` is its newest
+    checkpoint (train/checkpoint.py), and a ``.pth`` / ``.pt`` file is
+    loaded (convert/load.py)."""
     ckpt = cfg.get("test_checkpoint_path") if checkpoint == "None" \
         else checkpoint
     if ckpt == "random":
         print("[warn] evaluating RANDOM weights (smoke mode)", flush=True)
         return
-    if not str(ckpt).endswith((".pth", ".pt")):
+    if not os.path.isfile(ckpt):
+        try:
+            ckpt = resolve_checkpoint(ckpt)
+        except FileNotFoundError as e:
+            raise ValueError(
+                f"checkpoint {ckpt!r}: no .pth/.pt file and no training run "
+                "of the port there (an orbax directory is the JAX "
+                "package's training format)") from e
+        print(f"[ckpt] {ckpt}", flush=True)
+    elif not str(ckpt).endswith((".pth", ".pt")):
         raise ValueError(
-            f"checkpoint {ckpt!r}: the port loads .pth/.pt files; an orbax "
-            "directory is the JAX package's training format, and the "
-            "port's own checkpoints come with ROADMAP queue 1 item 6(b)")
+            f"checkpoint {ckpt!r}: the port loads .pth/.pt files and its "
+            "own training runs; an orbax checkpoint is the JAX package's "
+            "training format")
     sd = load_torch_checkpoint(ckpt, cfg.model)
     restorer.generator.load_state_dict(sd, strict=True)
 

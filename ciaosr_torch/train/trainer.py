@@ -1,20 +1,35 @@
-"""The classical (L1) train step.
+"""Classical (L1) training: the train step, the logger and the Trainer loop.
 
-Counterpart of ciaosr_tpu/train/trainer.py::make_train_step and
-TrainState. One call runs the restorer's ``train_forward`` (the generator
+Counterpart of ciaosr_tpu/train/trainer.py: ``make_train_step`` and
+``TrainState``, ``MetricLogger`` (the JSONL records and the printed line;
+no TensorBoard output) and ``Trainer``, the iteration-based loop with its
+hooks: log every ``log_config.interval``, eval every
+``evaluation.interval``, a checkpoint every ``checkpoint_config.interval``
+and once at the end (train/checkpoint.py), auto-resume from the run's own
+work_dir or ``resume_from``.
+
+One train step runs the restorer's ``train_forward`` (the generator
 forward and the normalized L1 loss), the backward (through row 12 for the
 Swin blocks when the generator has ``use_kernels``), the optimizer step
 and the scheduler step, and returns the loss as a device tensor: nothing
-waits for the device. The Trainer loop, its hooks, logging and
-checkpoints are not ported yet (ROADMAP.md, queue 1).
+waits for the device. The loop syncs with the device once per log
+interval (the interval's mean loss) and copies the state to the host only
+on a save step.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
+
+from ciaosr_torch.train.checkpoint import CheckpointManager, restore_external
+from ciaosr_torch.train.optim import build_optimizer
 
 BATCH_KEYS = ("lq", "gt", "coord", "cell")
 
@@ -43,3 +58,175 @@ def make_train_step(restorer, optimizer: torch.optim.Optimizer,
         return state, {"loss_pix": loss.detach()}
 
     return train_step
+
+
+def _mean(vals: list) -> float:
+    """The mean of an interval's values: device tensors are stacked and
+    read in one copy (the interval's one sync), then averaged in numpy as
+    the JAX logger averages its arrays."""
+    if all(isinstance(v, torch.Tensor) for v in vals):
+        return float(torch.stack(vals).cpu().numpy().mean())
+    return float(np.mean([float(v) for v in vals]))
+
+
+class MetricLogger:
+    """JSONL logging (the TextLoggerHook's records): every ``interval``
+    steps one record ``{"step", <interval means>, <extra>, "time"}`` in
+    ``<work_dir>/train_log.jsonl`` and the line ``[iter N] k=v ...``."""
+
+    def __init__(self, work_dir: str, interval: int = 100, progress=print):
+        self.interval = interval
+        os.makedirs(work_dir, exist_ok=True)
+        self.path = os.path.join(work_dir, "train_log.jsonl")
+        self.progress = progress
+        self._acc: dict[str, list] = {}
+
+    def log(self, step: int, metrics: dict, extra: dict | None = None):
+        for k, v in metrics.items():
+            self._acc.setdefault(k, []).append(v)
+        if step % self.interval != 0:
+            return
+        means = {k: _mean(v) for k, v in self._acc.items()}
+        self._acc.clear()
+        rec = {"step": step, **means, **(extra or {}), "time": time.time()}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        msg = " ".join(f"{k}={v:.4g}" for k, v in means.items())
+        self.progress(f"[iter {step}] {msg}")
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """The batch's arrays on ``device``: on a CUDA device through pinned
+    host memory with ``non_blocking`` copies (the 'meta' list stays)."""
+    out = {}
+    for k in BATCH_KEYS:
+        t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+class Trainer:
+    """Classical (L1) CiaoSR training of ``restorer``'s generator, in
+    place, with the optimizer and schedule of ``cfg``."""
+
+    def __init__(self, restorer, cfg, work_dir: str,
+                 resume_from: str | None = None, auto_resume: bool = True,
+                 progress=print):
+        self.restorer = restorer
+        self.cfg = cfg
+        self.work_dir = work_dir
+        self.resume_from = resume_from
+        self.auto_resume = auto_resume
+        self.progress = progress
+        gen = restorer.generator
+        self.optimizer, self.scheduler = build_optimizer(
+            gen.parameters(), dict(cfg.optimizers),
+            dict(cfg.get("lr_config") or {}))
+        self.state = TrainState(0, gen, self.optimizer, self.scheduler)
+        self.train_step = make_train_step(restorer, self.optimizer,
+                                          self.scheduler)
+        ckpt_cfg = cfg.get("checkpoint_config") or {}
+        self.ckpt = CheckpointManager(
+            work_dir, interval=ckpt_cfg.get("interval", 3000),
+            max_to_keep=ckpt_cfg.get("max_to_keep", 10),
+            keep_best_metric=ckpt_cfg.get("keep_best_metric"))
+        self.logger = MetricLogger(
+            work_dir, interval=(cfg.get("log_config") or {}).get(
+                "interval", 100), progress=progress)
+
+    # ------------------------------------------------------- checkpoints
+    def state_dict(self) -> dict:
+        """The train state as a checkpoint (tensors copied to the host)."""
+        gen = self.state.generator
+        return {
+            "meta": {"iter": self.state.step, "config": self.cfg.text,
+                     "torch": torch.__version__},
+            "state_dict": {f"generator.{k}": v.detach().cpu()
+                           for k, v in gen.state_dict().items()},
+            "optimizer": _to_cpu(self.optimizer.state_dict()),
+            "scheduler": self.scheduler.state_dict(),
+            "step": self.state.step,
+        }
+
+    def load_state_dict(self, ckpt: dict) -> None:
+        sd = {k[len("generator."):]: v
+              for k, v in ckpt["state_dict"].items()
+              if k.startswith("generator.")}
+        self.state.generator.load_state_dict(sd, strict=True)
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.scheduler.load_state_dict(ckpt["scheduler"])
+        self.state.step = int(ckpt["step"])
+
+    def _maybe_resume(self) -> None:
+        """``resume_from`` (a work_dir, checkpoints dir or file) takes
+        precedence over auto-resume from the run's own work_dir;
+        ``auto_resume=False`` turns the latter off."""
+        if self.resume_from:
+            ckpt, step = restore_external(self.resume_from)
+            self.load_state_dict(ckpt)
+            self.progress(f"[resume] from {self.resume_from} @ iteration "
+                          f"{step}")
+        elif self.auto_resume:
+            ckpt, step = self.ckpt.restore()
+            if ckpt is not None:
+                self.load_state_dict(ckpt)
+                self.progress(f"[resume] from iteration {step}")
+
+    # -------------------------------------------------------------- loop
+    def _next(self, it) -> dict:
+        """The next batch: where the loop waits on the loader."""
+        return next(it)
+
+    def run(self, loader, total_iters: int, eval_fn=None,
+            eval_interval: int | None = None) -> TrainState:
+        """Train to ``total_iters`` updates from the resumed step; the
+        loader starts again from its first batch on a resume, as in the
+        JAX package. ``eval_fn()`` evaluates the live weights and returns
+        a dict of metrics."""
+        self._maybe_resume()
+        device = next(self.state.generator.parameters()).device
+        it = iter(loader)
+        try:
+            state, step = self.state, self.state.step
+            win_t0, win_n = time.time(), 0
+            last_eval: dict = {}
+            while step < total_iters:
+                batch = to_device(self._next(it), device)
+                state, metrics = self.train_step(state, batch)
+                step = state.step
+                win_n += 1
+                extra = None
+                if step % self.logger.interval == 0:
+                    ips = win_n / max(time.time() - win_t0, 1e-9)
+                    extra = {"lr": self.optimizer.param_groups[0]["lr"],
+                             "iters_per_s": ips}
+                    win_t0, win_n = time.time(), 0
+                self.logger.log(step, metrics, extra)
+                if eval_fn and eval_interval and step % eval_interval == 0:
+                    last_eval = eval_fn()
+                    self.progress(f"[eval @ {step}] {last_eval}")
+                    self.logger.log(step, {f"val_{k}": v
+                                           for k, v in last_eval.items()
+                                           if isinstance(v, (int, float))})
+                # the host copy of the state only on a save step
+                if step % self.ckpt.interval == 0:
+                    self.ckpt.save(step, self.state_dict(), last_eval)
+            self.ckpt.save(step, self.state_dict())
+        finally:
+            close = getattr(it, "close", None)
+            if close:
+                close()
+        return state
+
+
+def _to_cpu(obj):
+    """A (nested) state dict with its tensors copied to the host."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_cpu(v) for v in obj]
+    return obj
