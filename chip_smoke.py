@@ -119,20 +119,36 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      ``swin_block@10x48x48``, ``swin_block_bwd@10x48x48``,
      ``swin_block_wgrad@10x48x48``), with exactly 36 × 3 launches of rows
      11 and 12 and both reduction kernels and no other; 001 edsr trains 2
-     iterations, no kernel; finite losses and every parameter with a
+     iterations under ``--deterministic``, no kernel; finite losses and every parameter with a
      gradient changed; per config the warm time an iteration, samples/s,
      the peak memory, the loader's share of the loop and the loader alone
      (batches/s); one step's gradients of 001 swinir's generator, kernel
      route against the plain f32 route. Its launches add to the kernel
      rows (``launches_train_cli``);
- 10. prints the script's total time, the kernels line (each row with its
+ 10. phase "gan", the real-world GAN stack of the 002 configs (the
+     generator, its EMA copy, the UNet-SN discriminator, VGG19 perceptual
+     and vanilla GAN losses; f32 params, the kernel route, VGG19 on the
+     explicit synthetic opt-in): 5 GAN steps of the shipped gan model at
+     the 002 batch with exact launches (rows 11 and 12 and both reduction
+     kernels 36 times a step), the warm step, samples/s, peak memory and
+     the stage split (G forward + backward, its optimizer, the D step,
+     the EMA update; VGG19 alone); one G step's gradients, kernel route
+     against the plain f32 route; stage 1 (wogan, 2 iterations) and stage
+     2 (GAN, load_from stage 1: 4 iterations straight, and 2 then resumed
+     to 4, bit-equal) through ``ciaosr_torch.tools.train`` on config
+     copies with ported data ops; ``ciaosr_torch.tools.test`` on the
+     stage-1 work_dir (×4, tile 128) on the Set5-shaped folder, its
+     outputs those of the EMA copy's own ``forward_test``. Its launches
+     add to the kernel rows (``launches_gan``);
+ 11. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
 ``python3 chip_smoke.py --full-image`` builds the kernels and only times
 the full-image requests; ``--kernel-times`` builds them and only prints
 the ``time_kernels`` line; ``--train-cli`` builds them and only runs
-phase "train_cli" (none prints a result line). Copied into
+phase "train_cli"; ``--gan`` builds them and only runs phase "gan" (none
+prints a result line). Copied into
 another checkout (e.g. the parent commit from ``git archive``), either
 times that tree the same way, in the same call.
 Any failure exits non-zero. Without CUDA, or without the repository's
@@ -2221,20 +2237,32 @@ def train_path(drive, kind: str, smi: str, fwd_row: dict,
         "plain f32": dict(SWIN_002, dtype=None, use_kernels=False)})
 
 
-def grad_route_check(label: str, routes: dict) -> None:
-    """One step's gradients on a small batch (B = 1, 16² LR, 256 queries)
-    of the generators ``routes`` names ("kernel", "plain bf16", "plain
-    f32"; the same seeded weights): each parameter tensor of the kernel
-    route within max(TRAIN_ROUTE_TOL, TRAIN_ROUTE_FACTOR × the plain bf16
-    route's own distance) of the plain f32 route, ||Δ||/||ref||."""
+def grad_route_check(label: str, routes: dict, restorer_of=None,
+                     loss_of=None, small: dict | None = None) -> None:
+    """One step's gradients on a small batch (``small``; by default B = 1,
+    16² LR, 256 queries) of the generators ``routes`` names ("kernel",
+    "plain bf16", "plain f32"; the same seeded weights): each parameter
+    tensor of the kernel route within max(TRAIN_ROUTE_TOL,
+    TRAIN_ROUTE_FACTOR × the plain bf16 route's own distance) of the plain
+    f32 route, ||Δ||/||ref||. ``restorer_of(generator dict)`` builds a
+    route's restorer (default: a CiaoSRRestorer) and ``loss_of(restorer,
+    batch)`` gives its loss (default: ``train_forward``'s L1)."""
     from ciaosr_torch.models.restorers import CiaoSRRestorer
 
-    small = train_batch(np.random.default_rng(5), 1, 16, 16)
+    if small is None:
+        small = train_batch(np.random.default_rng(5), 1, 16, 16)
+    if restorer_of is None:
+        def restorer_of(cfg):
+            return CiaoSRRestorer(cfg, rgb_mean=RGB_MEAN, device="cuda",
+                                  seed=0)
+    if loss_of is None:
+        def loss_of(r, b):
+            return r.train_forward(b["lq"], b["gt"], b["coord"],
+                                   b["cell"])[0]
     grads = {}
     for name, cfg in routes.items():
-        r = CiaoSRRestorer(cfg, rgb_mean=RGB_MEAN, device="cuda", seed=0)
-        loss, _ = r.train_forward(small["lq"], small["gt"], small["coord"],
-                                  small["cell"])
+        r = restorer_of(cfg)
+        loss = loss_of(r, small)
         loss.backward()
         grads[name] = (float(loss.detach()),
                        {k: p.grad for k, p in r.generator.named_parameters()})
@@ -2587,31 +2615,39 @@ def write_div2k(root: Path) -> None:
 class TrainProbe:
     """Instruments ``ciaosr_torch.train.trainer`` for one or more CLI runs
     (undone by ``close``): per iteration, the time the loop waited in
-    ``next(loader)`` and the loss, and the time each step ended (after a
-    device sync); the time each run's loop started (``_maybe_resume``) and
-    the state it left; the seconds of each checkpoint save."""
+    ``next(loader)``, the loss (and every metric of a GAN step), and the
+    time each step ended (after a device sync); the time each run's loop
+    started (``_maybe_resume``) and the state it left; the seconds of each
+    checkpoint save."""
 
     def __init__(self):
+        from ciaosr_torch.models.real_restorer import RealCiaoSRRestorer
         from ciaosr_torch.train import trainer as tr
 
-        self.tr = tr
+        self.tr, self.gan = tr, RealCiaoSRRestorer
         self.real = (tr.make_train_step, tr.Trainer._next,
-                     tr.Trainer._maybe_resume, tr.CheckpointManager.save)
+                     tr.Trainer._maybe_resume, tr.CheckpointManager.save,
+                     RealCiaoSRRestorer.make_gan_train_step)
         self.waits, self.ends, self.losses, self.resumed = [], [], [], []
-        self.starts, self.saves = [], []
-        make_step, next_, resume, save = self.real
+        self.starts, self.saves, self.metrics = [], [], []
+        make_step, next_, resume, save, make_gan = self.real
         probe = self
 
-        def make(*a):
-            step = make_step(*a)
-
-            def timed(state, batch):
+        def timed(step):
+            def run(state, batch):
                 state, m = step(state, batch)
                 torch.cuda.synchronize()
                 probe.ends.append((state.step, time.perf_counter()))
                 probe.losses.append(m["loss_pix"])
+                probe.metrics.append(m)
                 return state, m
-            return timed
+            return run
+
+        def make(*a):
+            return timed(make_step(*a))
+
+        def make_gan_step(restorer, *a):
+            return timed(make_gan(restorer, *a))
 
         def waited(trainer, it):
             t = time.perf_counter()
@@ -2636,11 +2672,12 @@ class TrainProbe:
         tr.make_train_step = make
         tr.Trainer._next, tr.Trainer._maybe_resume = waited, resumed
         tr.CheckpointManager.save = saved
+        RealCiaoSRRestorer.make_gan_train_step = make_gan_step
 
     def close(self):
         tr = self.tr
         (tr.make_train_step, tr.Trainer._next, tr.Trainer._maybe_resume,
-         tr.CheckpointManager.save) = self.real
+         tr.CheckpointManager.save, self.gan.make_gan_train_step) = self.real
 
     def loop_stats(self, hooks=()) -> tuple[float, float, int]:
         """(median ms an iteration, the loader-wait share, samples) over
@@ -2790,7 +2827,8 @@ def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
        shifted and unshifted, reproducible, and timed; then 3 iterations
        with exactly 36 × 3 launches of rows 11 and 12 and both reduction
        kernels, and no other kernel;
-    3. 001 edsr as shipped: 2 iterations, no kernel;
+    3. 001 edsr as shipped: 2 iterations under ``--deterministic``, no
+       kernel;
     4. one step's gradients of 001 swinir's generator, the kernel route
        (as the CLI trains it: f32 params, the Swin blocks in bf16)
        against the plain f32 route (``grad_route_check``).
@@ -2965,9 +3003,17 @@ def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
                                      seed=0).state_dict()
             probe.ends.clear()
             probe.waits.clear()
+            # under --deterministic: a CSA config trains with the flag
+            # (F.interpolate and the reflect pad in CSA's backward)
             trainer, peak, _ = train_cli_run(
-                drive, probe, f"edsr {TRAIN_CLI_EDSR} iterations",
-                [path, "--total-iters", str(TRAIN_CLI_EDSR)], {})
+                drive, probe,
+                f"edsr {TRAIN_CLI_EDSR} iterations (--deterministic)",
+                [path, "--total-iters", str(TRAIN_CLI_EDSR),
+                 "--deterministic"], {})
+            if torch.are_deterministic_algorithms_enabled() or \
+                    torch.backends.cudnn.deterministic:
+                raise AssertionError("train_cli edsr: --deterministic "
+                                     "outlived its run")
             changed_parameters(trainer.state.generator, before)
             train_cli_report(kind, smi, "edsr", cfg, probe, trainer, peak)
             del trainer
@@ -2986,6 +3032,537 @@ def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
         "plain f32": dict(f32_gen, use_kernels=False)})
     log(f"train_cli route check: {time.perf_counter() - t0:.2f} s")
     return rows, new_rows
+
+
+# ---- the real-world GAN stack (phase "gan"): the shipped 002 configs'
+# RealCiaoSR (the SwinIR-CiaoSR generator, its EMA copy, the UNet-SN
+# discriminator, VGG19 perceptual and vanilla GAN losses) on the card
+# GAN steps at the 002 batch (TRAIN_B × TRAIN_LR² LR, TRAIN_QSIDE² queries),
+# then steps timed by stage
+GAN_STEPS, GAN_SPLIT_STEPS = 5, 3
+# tools.train: stage 1 (wogan) iterations; stage 2 (GAN) iterations and
+# its checkpoint interval (the resume point)
+GAN_STAGE1, GAN_STAGE2, GAN_CKPT = 2, 4, 2
+# the training picture: one seeded picture holding a 256² crop (64² LR)
+GAN_HR = (288, 320)
+# the config copies: the shipped text, then these assignments. Training
+# data from ported ops only (the Real-ESRGAN degradations are not ported
+# yet): a 256² crop, its ×4 MATLAB-bicubic 64² LR, 4096 contiguous queries
+# (a 16-row strip, which RealCiaoSR's √ns reshape makes a 64² image), no
+# gt_unsharp. The dataset's seed makes every sample the same crop, so every
+# batch is the same: a resumed run (whose loader starts again at its first
+# batch, as in the JAX package) then meets the batches of one that was not
+# interrupted. The Set5-shaped test split of phase "cli" for tools.test.
+GAN_OVERRIDES = """
+# chip_smoke phase gan: ported data ops, hooks every 2 iterations
+train_pipeline = [
+    dict(type='LoadImageFromFile', io_backend='disk', key='gt',
+         flag='color', channel_order='rgb'),
+    dict(type='RandomDownSampling', scale_min=4, scale_max=4,
+         patch_size=64),
+    dict(type='RescaleToZeroOne', keys=['lq', 'gt']),
+    dict(type='ImageToTensor', keys=['lq', 'gt']),
+    dict(type='GenerateCoordinateAndCell', sample_quantity=4096,
+         is_shuffle=False),
+    dict(type='Collect', keys=['lq', 'gt', 'coord', 'cell'],
+         meta_keys=['gt_path'])]
+test_pipeline = [
+    dict(type='LoadImageFromFile', io_backend='disk', key='gt',
+         flag='color', channel_order='rgb'),
+    dict(type='LoadImageFromFile', io_backend='disk', key='lq',
+         flag='color', channel_order='rgb'),
+    dict(type='RescaleToZeroOne', keys=['lq', 'gt']),
+    dict(type='ImageToTensor', keys=['lq', 'gt']),
+    dict(type='GenerateCoordinateAndCell', scale=4),
+    dict(type='Collect', keys=['lq', 'gt', 'coord', 'cell'],
+         meta_keys=['gt_path'])]
+data = dict(
+    workers_per_gpu=6, worker_mode='thread',
+    train_dataloader=dict(samples_per_gpu=6, drop_last=True),
+    train=dict(type='RepeatDataset', times=6,
+               dataset=dict(type='SRFolderGTDataset',
+                            gt_folder='data/DF2K/HR',
+                            pipeline=train_pipeline, scale=4, seed=0)),
+    test=dict(type='SRFolderDataset',
+              lq_folder='data/Classical/Set5/LRbicx4',
+              gt_folder='data/Classical/Set5/GTmod12',
+              pipeline=test_pipeline, scale=4, filename_tmpl='{}'))
+checkpoint_config = dict(interval=2, save_optimizer=True, by_epoch=False)
+log_config = dict(interval=1)
+"""
+
+
+def gan_batch(rng, b: int, lr: int, q_side: int) -> dict:
+    """``train_batch`` with a gt_unsharp beside gt (uniform in [0, 1])."""
+    batch = train_batch(rng, b, lr, q_side)
+    batch["gt_unsharp"] = torch.as_tensor(
+        rng.random((b, q_side ** 2, 3), dtype=np.float32), device="cuda")
+    return batch
+
+
+def gan_restorer(cfg, gen: dict | None = None):
+    """The config's RealCiaoSR on the card (``gen``: another generator
+    dict), seed 0."""
+    from ciaosr_torch.models.real_restorer import RealCiaoSRRestorer
+
+    model = dict(cfg.model)
+    del model["type"]
+    if gen is not None:
+        model["generator"] = gen
+    return RealCiaoSRRestorer(**model, train_cfg=cfg.train_cfg,
+                              test_cfg=cfg.test_cfg, device="cuda", seed=0)
+
+
+def gan_optimizers(res, cfg):
+    """(GANTrainState at 0, the step) with the config's two optimizers."""
+    from ciaosr_torch.models.real_restorer import GANTrainState
+    from ciaosr_torch.train.optim import build_optimizer
+
+    lr_cfg = dict(cfg.lr_config)
+    g_opt, g_sched = build_optimizer(res.generator.parameters(),
+                                     dict(cfg.optimizers["generator"]),
+                                     lr_cfg)
+    d_opt, d_sched = build_optimizer(res.discriminator.parameters(),
+                                     dict(cfg.optimizers["discriminator"]),
+                                     lr_cfg)
+    state = GANTrainState(0, g_opt, d_opt, g_sched, d_sched)
+    return state, res.make_gan_train_step(g_opt, d_opt, (g_sched, d_sched))
+
+
+def gan_split(res, state, batches) -> dict:
+    """A GAN step's stages by CUDA events (median over ``batches``), in
+    the order of ``make_gan_train_step``; and VGG19's forward and
+    backward alone on the step's fake and real images."""
+    from ciaosr_torch.models.real_restorer import query_images
+
+    stages: dict = {"G forward + backward (pixel, VGG and D-forward "
+                    "losses)": [], "G optimizer + schedule": [],
+                    "D step (real + fake, backward, optimizer)": [],
+                    "EMA update": []}
+    disc, m = res.discriminator, res.ema_momentum
+    live, ema = (list(res.generator.parameters()),
+                 list(res.generator_ema.parameters()))
+    for bt in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        disc.requires_grad_(False)
+        state.g_opt.zero_grad(set_to_none=True)
+        total, _, pred_img = res.generator_losses(bt)
+        total.backward()
+        ev[1].record()
+        state.g_opt.step()
+        state.g_sched.step()
+        ev[2].record()
+        disc.requires_grad_(True)
+        state.d_opt.zero_grad(set_to_none=True)
+        gt, unsharp = res._targets(bt)
+        gt_img = query_images(unsharp if res.use_sharp_gan else gt)
+        loss = res.gan_loss(disc(gt_img, update_stats=True), True,
+                            is_disc=True) + res.gan_loss(
+            disc(pred_img.detach(), update_stats=True), False, is_disc=True)
+        loss.backward()
+        state.d_opt.step()
+        state.d_sched.step()
+        ev[3].record()
+        with torch.no_grad():
+            torch._foreach_mul_(ema, m)
+            torch._foreach_add_(ema, live, alpha=1.0 - m)
+        ev[4].record()
+        ev[4].synchronize()
+        for i, k in enumerate(stages):
+            stages[k].append(ev[i].elapsed_time(ev[i + 1]))
+    out = {k: statistics.median(v) for k, v in stages.items()}
+    l1 = []   # the generator alone: the classical L1 step's forward and
+    for bt in batches:   # backward on the same batches
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        state.g_opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        res.train_forward(bt["lq"], bt["gt"], bt["coord"],
+                          bt["cell"])[0].backward()
+        ev[1].record()
+        ev[1].synchronize()
+        l1.append(ev[0].elapsed_time(ev[1]))
+    out["generator alone (L1 forward + backward)"] = statistics.median(l1)
+    gan_profile(res, state, batches[0])
+    bt = batches[0]
+    fake = query_images(res.generator(res.normalize(bt["lq"]), bt["coord"],
+                                      bt["cell"]).detach()).requires_grad_()
+    real = query_images(res.normalize(bt["gt"]))
+
+    def vgg():
+        percep, _ = res.perceptual_loss(fake, real)
+        percep.backward()
+
+    out["VGG19 forward (fake, real) + backward (alone)"] = time_ms(
+        vgg, reps=3, warm=1)
+    return out
+
+
+def gan_profile(res, state, bt, top: int = 10) -> None:
+    """The device time of one G phase (generator forward, the three
+    losses, backward) by kernel (torch.profiler, after one warm-up):
+    the total and the ``top`` kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = {}
+    res.discriminator.requires_grad_(False)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 on_trace_ready=lambda p: seen.update(evs=p.key_averages()),
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            state.g_opt.zero_grad(set_to_none=True)
+            res.generator_losses(bt)[0].backward()
+            torch.cuda.synchronize()
+            prof.step()
+    res.discriminator.requires_grad_(True)
+    evs = sorted((e for e in seen["evs"] if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in evs) / 1e3
+    log(f"gan profile of one G phase: device {total:.2f} ms in "
+        f"{sum(e.count for e in evs)} launches; top: " + "; ".join(
+            f"{e.key[:60]} {e.device_time_total / 1e3:.2f} ms x{e.count}"
+            for e in evs[:top]))
+
+
+def gan_steps(drive, kind: str, smi: str, cfg) -> dict:
+    """GAN_STEPS steps of the shipped 002 gan model's ``make_gan_train_step``
+    at the 002 batch with exact launches (rows 11 and 12 and both of row
+    12's reduction kernels 36 times a step, nothing else), finite losses,
+    the generator, its EMA copy and the discriminator moved; the warm step,
+    samples/s, peak memory and the stage split. Returns the launches."""
+    from ciaosr_torch.models.builder import build_model
+    from ciaosr_torch.ops import kernels
+
+    res = build_model(cfg.model, train_cfg=cfg.train_cfg,
+                      test_cfg=cfg.test_cfg)
+    if not (res.generator.use_kernels and res.generator.dtype ==
+            torch.float32):
+        raise AssertionError("gan: the card's build_model must give f32 "
+                             "params on the kernel route")
+    n_blocks = len(swin_blocks(res.generator))
+    state, step = gan_optimizers(res, cfg)
+    rng = np.random.default_rng(7)
+    batches = [gan_batch(rng, TRAIN_B, TRAIN_LR, TRAIN_QSIDE)
+               for _ in range(GAN_STEPS + GAN_SPLIT_STEPS)]
+    before = {name: [p.detach().clone() for p in mod.parameters()]
+              for name, mod in (("generator", res.generator),
+                                ("generator_ema", res.generator_ema),
+                                ("discriminator", res.discriminator))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        nonlocal state
+        metrics, secs = [], []
+        for bt in batches[:GAN_STEPS]:
+            t = time.perf_counter()
+            state, m = step(state, bt)
+            torch.cuda.synchronize()   # for the per-step time only
+            secs.append(time.perf_counter() - t)
+            metrics.append(m)
+        return metrics, secs
+
+    fwd_kernels = ["swin_block", *BWD_KERNELS]
+    (metrics, secs), launches, _ = drive(
+        f"gan {GAN_STEPS} GAN steps (batch {TRAIN_B} x {TRAIN_LR}^2, "
+        f"{TRAIN_QSIDE ** 2} queries)", run, fwd_kernels,
+        [k for k in kernels.LAUNCHES if k not in fwd_kernels])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: n_blocks * GAN_STEPS for k in fwd_kernels}
+    got = {k: launches[k] for k in fwd_kernels}
+    log(f"gan steps: launches per step "
+        f"{ {k: v / GAN_STEPS for k, v in got.items()} } (want "
+        f"{n_blocks} each)")
+    if got != want:
+        raise AssertionError(f"gan steps: launches {got}, want {want}")
+    keys = res.loss_keys() + ["loss_d_real", "loss_d_fake"]
+    vals = torch.stack([torch.stack([m[k] for k in keys])
+                        for m in metrics]).cpu()
+    if not torch.isfinite(vals).all() or set(metrics[0]) != set(keys):
+        raise AssertionError(f"gan steps: metrics {metrics}")
+    for name, mod in (("generator", res.generator),
+                      ("generator_ema", res.generator_ema),
+                      ("discriminator", res.discriminator)):
+        same = sum(torch.equal(p.detach(), q) for p, q in
+                   zip(mod.parameters(), before[name]))
+        if same:
+            raise AssertionError(f"gan steps: {same} {name} parameters "
+                                 "did not change")
+    warm = statistics.median(secs[1:]) * 1e3
+    log("gan steps: " + "; ".join(
+        f"{k} {[round(float(v), 6) for v in vals[:, i]]}"
+        for i, k in enumerate(keys)) + f"; step ms "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in secs)}")
+    log(f"e2e ({kind}; {smi}): RealCiaoSR 002 GAN step (the shipped gan "
+        f"model: f32 params, kernel route; synthetic VGG19), batch "
+        f"{TRAIN_B} x {TRAIN_LR}^2 LR, {TRAIN_QSIDE ** 2} queries/sample: "
+        f"warm {warm:.1f} ms/step (median of {len(secs) - 1}), "
+        f"{TRAIN_B / warm * 1e3:.2f} samples/s, peak {peak:.2f} GiB")
+    split = gan_split(res, state, batches[GAN_STEPS:])
+    for k, v in split.items():
+        log(f"stage gan {k}: {v:.3f} ms ({kind}; {smi})")
+    return launches
+
+
+def gan_route_check(cfg) -> None:
+    """One G step's gradients (pixel, perceptual and GAN losses) of the
+    gan model on a small batch: the kernel route (f32 params) and the
+    plain bf16 route against the plain f32 route (``grad_route_check``'s
+    rule); the discriminator and VGG19 the same in all three."""
+    gen = cfg.model["generator"]
+    routes = {"kernel": dict(gen, use_kernels=True),
+              "plain bf16": dict(gen, dtype="bf16", use_kernels=False),
+              "plain f32": dict(gen, use_kernels=False)}
+    grad_route_check("gan route check (G step: pixel + perceptual + GAN)",
+                     routes, lambda g: gan_restorer(cfg, g),
+                     lambda res, b: res.generator_losses(b)[0],
+                     gan_batch(np.random.default_rng(5), 1, 16, 16))
+
+
+def gan_cli(drive, probe, root: Path, rows: dict) -> None:
+    """Stage 1 (wogan) and stage 2 (GAN) of the shipped 002 configs
+    through ``ciaosr_torch.tools.train`` on copies with ported data ops,
+    then ``ciaosr_torch.tools.test`` on the stage-1 work_dir."""
+    from ciaosr_torch.convert.load import load_torch_checkpoint
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.data.imageio import imread, write_png
+    from ciaosr_torch.models.builder import build_model
+    from ciaosr_torch.models.real_restorer import RealCiaoSRRestorer
+    from ciaosr_torch.models.restorers import tile_layout
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import test as cli_test
+    from ciaosr_torch.train.checkpoint import list_steps, read_checkpoint
+    from ciaosr_torch.train.gan_trainer import GANTrainer
+
+    hr = root / "data" / "DF2K" / "HR"
+    hr.mkdir(parents=True)
+    write_png(str(hr / "0001.png"),
+              smooth_picture(np.random.default_rng(8), *GAN_HR))
+    write_set5(root)
+    copies = {}
+    for name in ("wogan", "gan"):
+        shipped = Path(config_path(f"002_real_{name}_"))
+        copies[name] = root / f"002_{name}_gan_phase.py"
+        copies[name].write_text(shipped.read_text() + GAN_OVERRIDES)
+    cfg1 = Config.fromfile(str(copies["wogan"]))
+    n_blocks = sum(cfg1.model["generator"]["encoder"]["depths"])
+    train_keys = ("swin_block",) + BWD_KERNELS
+
+    def run(label, argv, iters):
+        want = {k: n_blocks * iters for k in train_keys}
+        trainer, _, secs = train_cli_run(drive, probe, label, argv, want)
+        bad = [m for m in probe.metrics if not all(
+            bool(torch.isfinite(v)) for v in m.values())]
+        if bad:
+            raise AssertionError(f"{label}: metrics {bad}")
+        probe.metrics.clear()
+        for k in train_keys:
+            rows[k] = rows.get(k, 0) + want[k]
+        return trainer, secs
+
+    # ---- stage 1: wogan, the generator and its EMA copy
+    trainer, secs = run(f"gan stage 1 (wogan, {GAN_STAGE1} iterations)",
+                        [str(copies["wogan"]), "--total-iters",
+                         str(GAN_STAGE1)], GAN_STAGE1)
+    if trainer.d_optimizer is not None:
+        raise AssertionError("gan stage 1: a discriminator optimizer")
+    stage1 = Path(trainer.work_dir)
+    log(f"gan stage 1: work_dir {stage1.name}, checkpoints "
+        f"{list_steps(str(stage1 / 'checkpoints'))}, {secs:.2f} s")
+    del trainer
+
+    # ---- stage 2: the GAN, loading stage 1; straight to GAN_STAGE2, and
+    # to GAN_CKPT then resumed; --deterministic for the same bits
+    works = {w: root / "work_dirs" / f"gan_{w}" for w in ("straight", "cut")}
+    # the weights each run starts from, after load_from and any resume
+    starts = []
+    real_resume = GANTrainer._maybe_resume
+
+    def resume(trainer):
+        real_resume(trainer)
+        r = trainer.restorer
+        starts.append({f"{name}.{k}": v.detach().cpu().clone()
+                       for name, mod in (("generator", r.generator),
+                                         ("generator_ema", r.generator_ema))
+                       for k, v in mod.state_dict().items()})
+
+    GANTrainer._maybe_resume = resume
+    try:
+        for label, work, total, iters in (
+                ("straight", "straight", GAN_STAGE2, GAN_STAGE2),
+                ("to the checkpoint", "cut", GAN_CKPT, GAN_CKPT),
+                ("resumed", "cut", GAN_STAGE2, GAN_STAGE2 - GAN_CKPT)):
+            trainer, secs = run(
+                f"gan stage 2 {label} (to {total})",
+                [str(copies["gan"]), "--total-iters", str(total),
+                 "--work-dir", str(works[work]), "--deterministic"], iters)
+            if label == "resumed" and probe.resumed[-1][0] != GAN_CKPT:
+                raise AssertionError(f"gan stage 2: resumed at "
+                                     f"{probe.resumed[-1][0]}")
+            del trainer
+    finally:
+        GANTrainer._maybe_resume = real_resume
+    stage1_sd = read_checkpoint(str(stage1 / "checkpoints" /
+                                    f"iter_{GAN_STAGE1}.pth"))["state_dict"]
+    unseeded = [k for k, v in starts[0].items()
+                if not torch.equal(v, stage1_sd[k])]
+    log(f"gan stage 2: load_from seeded {len(starts[0])} generator and EMA "
+        f"tensors from stage 1's iter_{GAN_STAGE1}.pth; differing "
+        f"{unseeded[:4]}")
+    if unseeded:
+        raise AssertionError(f"gan stage 2: load_from left {unseeded[:4]}")
+    a, b = (read_checkpoint(str(works[w] / "checkpoints" /
+                                f"iter_{GAN_STAGE2}.pth"))
+            for w in ("straight", "cut"))
+    diff = []
+
+    def compare(x, y, path):
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                diff.append(path)
+        elif isinstance(x, dict):
+            if set(x) != set(y):
+                diff.append(f"{path} keys")
+            for k in x:
+                if k != "meta" and k in y:
+                    compare(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, list):
+            for i, (u, v) in enumerate(zip(x, y)):
+                compare(u, v, f"{path}/{i}")
+        elif x != y:
+            diff.append(path)
+
+    compare(a, b, "")
+    sd = a["state_dict"]
+    counts = {p: sum(k.startswith(p + ".") for k in sd)
+              for p in ("generator", "generator_ema", "discriminator")}
+    n_sn = sum(k.endswith((".u", ".sigma")) for k in sd)
+    n_adam = {k: len(v["state"]) for k, v in a["optimizer"].items()}
+    log(f"gan stage 2: iter_{GAN_STAGE2}.pth straight against resumed at "
+        f"{GAN_CKPT}: tensors {counts}, SN stats {n_sn}, Adam states "
+        f"{n_adam}; differing {diff[:8]}")
+    if diff or set(n_adam) != {"generator", "discriminator"} or not n_sn:
+        raise AssertionError(f"gan stage 2: the resumed run differs from "
+                             f"the straight one at {diff[:8]}")
+
+    # ---- tools.test on the stage-1 work_dir: the EMA copy, tiled
+    test_lrs = [imread(f"data/Classical/Set5/LRbicx4/{n}.png").shape[:2]
+                for n, _ in CLI_SET5]
+    tc = cfg1.test_cfg
+    want: dict = {}
+    for h, w in test_lrs:
+        t, hs, ws = tile_layout(h, w, 4, tc["tile"], tc["tile_overlap"])
+        for k, n in (("swin_block", n_blocks), ("f3p_build", 1),
+                     ("wt_hoist", 1), ("grid_decode", 1)):
+            want[k] = want.get(k, 0) + n * len(hs) * len(ws)
+            row = {"f3p_build": "f3p_build@C180", "wt_hoist": "wt_hoist@C180",
+                   "grid_decode": "grid_decode@C180"}.get(k)
+            if k == "swin_block" and -(-t // 8) * 8 == 72:
+                row = "swin_block@72x72"
+            if row:
+                rows[row] = rows.get(row, 0) + n * len(hs) * len(ws)
+    outs = []
+    real_ft = RealCiaoSRRestorer.forward_test
+
+    def recorded(self, *a, **kw):
+        out = real_ft(self, *a, **kw)
+        outs.append(out)
+        return out
+
+    RealCiaoSRRestorer.forward_test = recorded
+    try:
+        metrics, launches, secs = drive(
+            f"gan tools.test on the stage-1 work_dir (want {want})",
+            lambda: cli_test.main([str(copies["wogan"]), str(stage1)]),
+            list(want), [k for k in kernels.LAUNCHES if k not in want])
+    finally:
+        RealCiaoSRRestorer.forward_test = real_ft
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"gan tools.test: launches {got}, want {want}")
+    newest = str(stage1 / "checkpoints" / f"iter_{GAN_STAGE1}.pth")
+    res = build_model(cfg1.model, test_cfg=tc)
+    res.generator.load_state_dict(load_torch_checkpoint(
+        newest, cfg1.model, strict=True), strict=True)
+    res.generator_ema.load_state_dict(load_torch_checkpoint(
+        newest, cfg1.model, ema=True, strict=True), strict=True)
+    dataset = build_dataset(cfg1.data["test"])
+    worst = 0.0
+    for i in range(len(dataset)):
+        smp = dataset[i]
+        meta = smp["meta"]
+        mine = res.forward_test(smp["lq"], target_shape=meta["target_size"],
+                                scale=meta["scale"])
+        worst = max(worst, float(np.abs(mine - outs[i]).max()))
+    log(f"gan tools.test on the stage-1 work_dir: {secs:.2f} s, "
+        f"{metrics['n_images']} images (tile {tc['tile']}); |CLI - the "
+        f"EMA copy's own forward_test| max {worst:.3e}")
+    if len(outs) != len(dataset) or not worst <= 1e-6:
+        raise AssertionError(f"gan tools.test: {len(outs)} outputs, "
+                             f"max |d| {worst:.3e}")
+    del res
+
+
+def gan_phase(drive, kind: str, smi: str) -> dict:
+    """Phase "gan": the shipped 002 configs' RealCiaoSR on the card (f32
+    params, the kernel route, VGG19 on the explicit synthetic opt-in:
+    ``CIAOSR_VGG19_SYNTHETIC``, logged):
+
+    1. GAN_STEPS GAN steps of the shipped gan model at the 002 batch, with
+       exact launches, the warm step, samples/s, peak memory and the
+       stage split (``gan_steps``);
+    2. one G step's gradients, kernel route against the plain f32 route
+       (``gan_route_check``);
+    3. stage 1 (wogan) through ``ciaosr_torch.tools.train`` on a config
+       copy with ported data ops, GAN_STAGE1 iterations;
+    4. stage 2 (GAN) through ``tools.train``: ``load_from`` stage 1 (the
+       generator and its EMA copy start as stage 1's newest checkpoint
+       holds them), GAN_STAGE2 iterations straight, and GAN_CKPT then
+       resumed: the
+       generator, its EMA copy, the discriminator with its spectral norms'
+       stats, both Adam states and both schedules bit-equal at the end
+       (``--deterministic``);
+    5. ``ciaosr_torch.tools.test`` on the stage-1 work_dir (its test_cfg:
+       ×4, tile 128) on phase "cli"'s Set5-shaped folder, exact launches,
+       its outputs equal (≤ 1e-6) to the EMA copy's own ``forward_test``.
+
+    Returns each kernel row's launches (the train kernels under their
+    launch keys: the caller puts them on the rows of its train batch)."""
+    rows: dict = {}
+    cwd = os.getcwd()
+    opt_in = os.environ.get("CIAOSR_VGG19_SYNTHETIC")
+    os.environ["CIAOSR_VGG19_SYNTHETIC"] = "1"
+    log("gan: VGG19 on the explicit synthetic opt-in "
+        "(CIAOSR_VGG19_SYNTHETIC=1): seeded random weights; no weights can "
+        "be fetched")
+    probe = TrainProbe()
+    try:
+        cfg = Config.fromfile(config_path("002_real_gan_"))
+        t0 = time.perf_counter()
+        for k, n in gan_steps(drive, kind, smi, cfg).items():
+            if n and k in ("swin_block",) + BWD_KERNELS:
+                rows[k] = rows.get(k, 0) + n
+        torch.cuda.empty_cache()
+        log(f"gan steps and split: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        gan_route_check(cfg)
+        log(f"gan route check: {time.perf_counter() - t0:.2f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            t0 = time.perf_counter()
+            gan_cli(drive, probe, Path(tmp), rows)
+            log(f"gan stages 1, 2 and tools.test: "
+                f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        os.chdir(cwd)
+        probe.close()
+        if opt_in is None:
+            del os.environ["CIAOSR_VGG19_SYNTHETIC"]
+        else:
+            os.environ["CIAOSR_VGG19_SYNTHETIC"] = opt_in
+        torch.cuda.empty_cache()
+    return rows
 
 
 def drive(name, fn, ran, idle):
@@ -3014,11 +3591,12 @@ def drive(name, fn, ran, idle):
 def main() -> int:
     """``--full-image``: build, then only time_full_images;
     ``--kernel-times``: build, then only time_kernels; ``--train-cli``:
-    build, then only phase train_cli (none prints a result line)."""
+    build, then only phase train_cli; ``--gan``: build, then only phase
+    gan (none prints a result line)."""
     t_start = time.perf_counter()
     flags = sys.argv[1:]
     if flags not in ([], ["--full-image"], ["--kernel-times"],
-                     ["--train-cli"]):
+                     ["--train-cli"], ["--gan"]):
         print(f"chip_smoke: unknown arguments {flags}", file=sys.stderr)
         return 2
     full_only = flags == ["--full-image"]
@@ -3056,6 +3634,11 @@ def main() -> int:
         log(f"train_cli launches by kernel row: {launches}")
         log(json.dumps({"kernels": train_rows}))
         mark("the train_cli phase")
+        return 0
+    if flags == ["--gan"]:
+        log(f"gan launches by kernel row (the train kernels by key): "
+            f"{gan_phase(drive, kind, smi)}")
+        mark("the gan phase")
         return 0
 
     restorer = CiaoSRRestorer(FLAGSHIP, rgb_mean=RGB_MEAN,
@@ -3575,6 +4158,25 @@ def main() -> int:
             f"({r['bound_by']}) library_ms={r['library_ms']} "
             f"launches={r['launches']}")
     mark("the train_cli phase")
+
+    # ---- the real-world GAN stack of the 002 configs
+    gan_launches = gan_phase(drive, kind, smi)
+    train_row = {"swin_block": fwd_row["name"],
+                 "swin_block_bwd": bwd_row["name"],
+                 "swin_block_wgrad": wgrad_row["name"]}
+    bwd_row["launches_gsum"] += gan_launches.pop("swin_block_gsum")
+    gan_rows = {train_row.get(k, k): n for k, n in gan_launches.items()}
+    unrowed = set(gan_rows) - {r["name"] for r in rows}
+    if unrowed:
+        raise AssertionError(f"the gan phase launched {unrowed}, which no "
+                             "kernel row holds")
+    for r in rows:
+        if r["name"] in gan_rows:
+            r["launches_gan"] = gan_rows[r["name"]]
+            r["launches"] += r["launches_gan"]
+            log(f"kernel {r['name']}: launches={r['launches']} (gan phase "
+                f"{r['launches_gan']})")
+    mark("the gan phase")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -41,6 +41,8 @@ class Registry:
 MODELS = Registry("models")
 DATASETS = Registry("datasets")
 PIPELINES = Registry("pipelines")
+LOSSES = Registry("losses")
+COMPONENTS = Registry("components")
 
 
 def build_from_cfg(cfg: dict, registry: Registry,

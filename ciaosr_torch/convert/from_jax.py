@@ -12,7 +12,10 @@ converter's other block keys); ``cs_attn/*_conv``/``*_prelu``/``down`` →
 permutation of the imnet unfold blocks (none without the unfold). Input:
 nested dicts of arrays (optionally under a top-level "params" key).
 Output: a dict of f32 CPU tensors for
-``CiaoSRNet.load_state_dict(strict=True)``.
+``CiaoSRNet.load_state_dict(strict=True)``. The GAN stack's modules
+convert too (``discriminator_state_dict_from_jax``,
+``vgg19_state_dict_from_jax``), so a whole ``GANTrainState`` (g_params,
+ema_params, d_vars) carries into the port.
 """
 
 from __future__ import annotations
@@ -180,4 +183,31 @@ def csa_state_dict_from_jax(cs: dict, scales=(2,)) -> dict:
     for s in scales:
         name = "down" if s == 2 else f"downx{s}"
         _conv(cs[name], name, sd)
+    return sd
+
+
+def discriminator_state_dict_from_jax(d_vars: dict) -> dict:
+    """A flax U-Net SN discriminator's variables ({'params',
+    'batch_stats'}) → the port's ``UNetDiscriminatorSN`` /
+    ``SmallUNetDiscriminatorSN`` keys: ``conv_k`` (HWIO → OIHW, with its
+    bias) for the plain convs, ``conv_k.weight`` from ``conv_k_inner`` and
+    the power-iteration state ``conv_k.u`` (1, out) and ``conv_k.sigma``
+    () from ``batch_stats``."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, p in d_vars["params"].items():
+        _conv(p, name[:-len("_inner")] if name.endswith("_inner") else name,
+              sd)
+    for name, stats in d_vars.get("batch_stats", {}).items():
+        sd[f"{name}.u"] = _t(stats[f"{name}_inner/kernel/u"])
+        sd[f"{name}.sigma"] = _t(stats[f"{name}_inner/kernel/sigma"])
+    return sd
+
+
+def vgg19_state_dict_from_jax(params: dict) -> dict:
+    """Flax ``VGG19Features`` params (``conv_N``) → torchvision's
+    ``features.N.weight`` / ``.bias``."""
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    for name, conv in p.items():
+        _conv(conv, f"features.{name[len('conv_'):]}", sd)
     return sd

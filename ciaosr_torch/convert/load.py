@@ -35,21 +35,36 @@ def generator_shapes(gen_cfg: dict) -> dict:
     return {k: tuple(v.shape) for k, v in net.state_dict().items()}
 
 
-def load_torch_checkpoint(path: str, model_cfg: dict, *, ema: bool = False,
+def checkpoint_state_dict(path_or_raw) -> dict:
+    """The tensors of a ``.pth`` file (or of its loaded contents): the
+    mmcv ``state_dict`` entry, or the file's dict itself."""
+    raw = path_or_raw
+    if not isinstance(raw, dict):
+        # mmcv checkpoints carry a meta dict of plain objects beside the
+        # tensors, which weights_only (the default since PyTorch 2.6)
+        # refuses
+        raw = torch.load(raw, map_location="cpu", weights_only=False)
+    return raw.get("state_dict", raw)
+
+
+def has_ema(state_dict: dict) -> bool:
+    """Whether a checkpoint's tensors hold RealCiaoSR's EMA copy."""
+    return any(k.startswith("generator_ema.") for k in state_dict)
+
+
+def load_torch_checkpoint(path, model_cfg: dict, *, ema: bool = False,
                           strict: bool = False, log=None) -> dict:
-    """The state_dict of ``model_cfg['generator']`` from a ``.pth`` file,
-    for ``generator.load_state_dict(..., strict=True)``. ``ema=True`` takes
-    the EMA copy RealCiaoSR saves beside the live generator (the weights
-    its inference uses); ``strict=True`` makes an unexplained key an
-    error (convert/audit.py)."""
-    # mmcv checkpoints carry a meta dict of plain objects beside the
-    # tensors, which weights_only (the default since PyTorch 2.6) refuses
-    raw = torch.load(path, map_location="cpu", weights_only=False)
-    sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
+    """The state_dict of ``model_cfg['generator']`` from a ``.pth`` file
+    (or its loaded contents), for ``generator.load_state_dict(...,
+    strict=True)``. ``ema=True`` takes the EMA copy RealCiaoSR saves
+    beside the live generator (the weights its inference uses);
+    ``strict=True`` makes an unexplained key an error
+    (convert/audit.py)."""
+    sd = checkpoint_state_dict(path)
 
     if ema:
         pfx = "generator_ema."
-        if not any(k.startswith(pfx) for k in sd):
+        if not has_ema(sd):
             raise KeyError(
                 "ema=True but the checkpoint has no generator_ema.* keys "
                 "(not a RealCiaoSR GAN checkpoint?)")

@@ -40,8 +40,8 @@ class SRFolderGTDataset:
 
     def __init__(self, gt_folder: str, pipeline, scale=None, seed=None,
                  **kwargs):
+        self.pipeline = Compose(pipeline)   # an op not ported raises first
         self.paths = scan_images(gt_folder)
-        self.pipeline = Compose(pipeline)
         self.scale = scale
         self.seed = seed
         self._rng = np.random.default_rng() if seed is None else None

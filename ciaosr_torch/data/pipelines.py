@@ -474,10 +474,31 @@ class Quantize:
         return results
 
 
+# the Real-ESRGAN degradation ops of ciaosr_tpu/data/degradations.py, which
+# the 002 configs' train pipelines run; not ported yet
+DEGRADATIONS = frozenset((
+    "RandomBlur", "RandomResize", "RandomNoise", "RandomJPEGCompression",
+    "RandomScaleResize1", "DegradationsWithShuffle",
+    "DegradationsWithShuffle1", "UnsharpMasking", "RandomGaussianNoise",
+    "RandomGaussianNoisewithPro", "RandomClipGaussianNoise", "RandomLevel",
+    "RealRandomNoise", "RealRandomResize", "UVSRDegradation",
+    "RandomVideoCompression", "OldRandomNoise", "NorResize"))
+
+
+def build_op(cfg):
+    """A pipeline op from its config dict; a degradation op raises."""
+    if cfg.get("type") in DEGRADATIONS:
+        raise NotImplementedError(
+            f"pipeline op {cfg['type']!r} is a Real-ESRGAN degradation "
+            "(ciaosr_tpu/data/degradations.py), not ported yet: ROADMAP "
+            "queue 1 item 7 (data/degradations.py)")
+    return build_from_cfg(cfg, PIPELINES)
+
+
 class Compose:
     def __init__(self, ops):
         self.ops = [op if callable(op) and not isinstance(op, dict)
-                    else build_from_cfg(op, PIPELINES) for op in ops]
+                    else build_op(op) for op in ops]
 
     def __call__(self, results):
         for op in self.ops:

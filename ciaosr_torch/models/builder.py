@@ -12,8 +12,10 @@ at C = 64 with CSA (68 → 64, 132 → 128, 128 → 3 with
 ``feat_unfold=False``). The 002
 configs' decoder knobs with baked-in semantics are accepted and checked
 as in the JAX package. ``build_model`` builds a restorer from a config's
-``model`` dict (``build_model`` at ciaosr_tpu/models/builder.py). Weights are random, drawn from an explicit seed
-with PyTorch's default Linear/Conv2d init (U(±1/√fan_in)) and PReLU 0.25;
+``model`` dict (``build_model`` at ciaosr_tpu/models/builder.py):
+``CiaoSR`` or ``RealCiaoSR`` (models/real_restorer.py). Weights are
+random, drawn from an explicit seed with PyTorch's default Linear/Conv2d
+init (U(±1/√fan_in)) and PReLU 0.25;
 the SwinIR trunk then takes the reference's own init (trunc-normal(0.02)
 Linear weights and bias tables, zero Linear biases, LayerNorms 1 / 0).
 """
@@ -151,8 +153,7 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
 
 # restorer types of the JAX package that the port does not have yet, and
 # the ROADMAP queue 1 item that brings each
-_NOT_PORTED = {"RealCiaoSR": "ROADMAP queue 1 item 7 (the GAN stack)",
-               "BasicRestorer": "ROADMAP queue 1 item 5 (BasicRestorer "
+_NOT_PORTED = {"BasicRestorer": "ROADMAP queue 1 item 5 (BasicRestorer "
                                 "and models/basic_sr.py)"}
 
 
@@ -162,7 +163,7 @@ def build_model(cfg: dict, train_cfg=None, test_cfg=None, *, device=None,
     the CUDA device; raises without one unless ``device="cpu"``), with
     seeded random weights. On a CUDA device the generator takes the
     kernel route (``use_kernels=True``), whatever the config says."""
-    import ciaosr_torch.models.restorers  # noqa: F401  (registers CiaoSR)
+    import ciaosr_torch.models.real_restorer  # noqa: F401  (registry)
     from ciaosr_torch.config.registry import MODELS
 
     cfg = copy.deepcopy(dict(cfg))

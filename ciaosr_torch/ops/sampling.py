@@ -46,3 +46,21 @@ def interpolate_bilinear(x: torch.Tensor, out_h: int,
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
                       mode="bilinear", align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """``interpolate_bilinear`` to 2H × 2W (align_corners False) on NCHW,
+    by slices and adds: out[2i] = x[i-1]/4 + 3x[i]/4 and out[2i+1] =
+    3x[i]/4 + x[i+1]/4 along each axis, the edges clamped. Its backward is
+    slices and adds too, so it gives the same bits on every run, where
+    F.interpolate's CUDA backward adds by atomics. x: (B, C, H, W)."""
+    def axis(v: torch.Tensor, dim: int) -> torch.Tensor:
+        n = v.shape[dim]
+        prev = torch.cat([v.narrow(dim, 0, 1), v.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([v.narrow(dim, 1, n - 1), v.narrow(dim, n - 1, 1)],
+                        dim)
+        even = 0.25 * prev + 0.75 * v
+        odd = 0.75 * v + 0.25 * nxt
+        return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+    return axis(axis(x, 2), 3)

@@ -24,11 +24,11 @@ import numpy as np
 import torch
 
 from ciaosr_torch.config.config import Config
-from ciaosr_torch.convert.load import load_torch_checkpoint
 from ciaosr_torch.data.datasets import build_dataset
 from ciaosr_torch.eval.evaluator import evaluate_dataset
 from ciaosr_torch.models.builder import build_model
-from ciaosr_torch.train.checkpoint import resolve_checkpoint
+from ciaosr_torch.train.checkpoint import (load_staged_generator,
+                                           resolve_checkpoint)
 
 
 def parse_args(argv=None):
@@ -72,7 +72,9 @@ def load_weights(restorer, checkpoint: str, cfg) -> None:
     ``test_checkpoint_path``, 'random' keeps the seeded random weights, a
     training run's work_dir, checkpoints dir or ``latest`` is its newest
     checkpoint (train/checkpoint.py), and a ``.pth`` / ``.pt`` file is
-    loaded (convert/load.py)."""
+    loaded (convert/load.py). A ``RealCiaoSR`` restorer's EMA copy, which
+    its ``forward_test`` evaluates with ``is_use_ema``, takes the file's
+    ``generator_ema.`` tensors (the generator's where it has none)."""
     ckpt = cfg.get("test_checkpoint_path") if checkpoint == "None" \
         else checkpoint
     if ckpt == "random":
@@ -92,8 +94,14 @@ def load_weights(restorer, checkpoint: str, cfg) -> None:
             f"checkpoint {ckpt!r}: the port loads .pth/.pt files and its "
             "own training runs; an orbax checkpoint is the JAX package's "
             "training format")
-    sd = load_torch_checkpoint(ckpt, cfg.model)
-    restorer.generator.load_state_dict(sd, strict=True)
+    gen, ema_sd = load_staged_generator(ckpt, cfg.model)
+    restorer.generator.load_state_dict(gen, strict=True)
+    ema = getattr(restorer, "generator_ema", None)
+    if ema is not None:
+        ema.load_state_dict(ema_sd, strict=True)
+        print("[ckpt] EMA copy from " + (
+            "the generator (the file has no EMA copy)" if ema_sd is gen
+            else "generator_ema.*"), flush=True)
 
 
 def main(argv=None) -> dict:

@@ -4,16 +4,18 @@
         [--resume-from CKPT] [--no-auto-resume] [--seed N] [--deterministic]
         [--autoscale-lr] [--total-iters N] [--bf16] [--device cpu]
 
-Classical (L1) training of a ``CiaoSR`` config: the config's train
-pipeline through the threaded loader, the ``Trainer`` loop with its log,
-eval (``data.val`` every ``evaluation.interval``) and checkpoint hooks,
-auto-resume from the work_dir's newest checkpoint. The run writes
-``config_dump.py``, ``env.json``, ``train_log.jsonl`` and
-``checkpoints/iter_N.pth`` under the work_dir, which
-``python3 -m ciaosr_torch.tools.test CONFIG WORK_DIR`` evaluates. The
-model runs on the CUDA device through the port's kernels unless
-``--device cpu`` asks for the plain PyTorch path. ``RealCiaoSR`` (GAN)
-and ``BasicRestorer`` configs are not ported yet and raise.
+Training of a ``CiaoSR`` config (classical, L1: the ``Trainer`` loop) or
+a ``RealCiaoSR`` config (real-world GAN: the ``GANTrainer`` loop, with the
+staged ``load_from``): the config's train pipeline through the threaded
+loader, the loop with its log, eval (``data.val`` every
+``evaluation.interval``) and checkpoint hooks, auto-resume from the
+work_dir's newest checkpoint. The run writes ``config_dump.py``,
+``env.json``, ``train_log.jsonl`` and ``checkpoints/iter_N.pth`` under
+the work_dir, which ``python3 -m ciaosr_torch.tools.test CONFIG
+WORK_DIR`` evaluates. The model runs on the CUDA device through the
+port's kernels unless ``--device cpu`` asks for the plain PyTorch path.
+``BasicRestorer`` configs are not ported yet and raise, and so do the
+shipped 002 configs' train pipelines (their degradation ops).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ciaosr_torch.data.datasets import build_dataset
 from ciaosr_torch.data.loader import build_dataloader
 from ciaosr_torch.eval.evaluator import evaluate_dataset
 from ciaosr_torch.models.builder import build_model
+from ciaosr_torch.train.gan_trainer import GANTrainer
 from ciaosr_torch.train.trainer import Trainer
 
 # the processes of one run, each training on one device: several GPUs are
@@ -50,8 +53,9 @@ def parse_args(argv=None):
                         "checkpoint")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--deterministic", action="store_true",
-                   help="seed Python, numpy and torch and make cuDNN pick "
-                        "deterministic algorithms")
+                   help="seed Python, numpy and torch and make cuDNN and "
+                        "every op that has a deterministic implementation "
+                        "use it (the others warn), for the run")
     p.add_argument("--autoscale-lr", action="store_true",
                    help="linear LR scaling: lr x (devices trained on) / 8")
     p.add_argument("--total-iters", type=int, default=None,
@@ -82,13 +86,33 @@ def environment(device: torch.device) -> dict:
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
-    if args.deterministic:
-        random.seed(args.seed)
-        np.random.seed(args.seed)
-        torch.manual_seed(args.seed)
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
+    if not args.deterministic:
+        return train(args)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    # cuBLAS is deterministic on one stream only with a fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # an op with a deterministic implementation takes it (the per-query
+    # decoder's gather backward sums in a fixed order); one without warns
+    # and runs as it is, so that no config stops at its first backward
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return train(args)
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved[2:]
 
+
+def train(args) -> Trainer:
+    """The run of parsed ``args`` (``main``'s, after its seeding)."""
     cfg = Config.fromfile(args.config)
     work_dir = args.work_dir or cfg.work_dir
     os.makedirs(work_dir, exist_ok=True)
@@ -96,6 +120,14 @@ def main(argv=None) -> Trainer:
         f.write(cfg.text)
 
     if args.autoscale_lr:
+        if "lr" not in cfg.optimizers:
+            # the JAX CLI reads the same flat key and has no rule for
+            # per-module optimizers either
+            raise ValueError(
+                "--autoscale-lr scales the flat optimizers['lr']; this "
+                "config has per-module optimizers "
+                f"({sorted(cfg.optimizers)}), for which no scaling rule "
+                "is defined")
         cfg.optimizers = dict(cfg.optimizers,
                               lr=cfg.optimizers["lr"] * N_DEVICES / 8)
     if args.bf16:
@@ -125,9 +157,12 @@ def main(argv=None) -> Trainer:
         def eval_fn():
             return evaluate_dataset(model, val_ds)
 
-    trainer = Trainer(restorer=model, cfg=cfg, work_dir=work_dir,
-                      resume_from=args.resume_from,
-                      auto_resume=not args.no_auto_resume)
+    mtype = cfg.model["type"]
+    cls = GANTrainer if (mtype if isinstance(mtype, str)
+                         else mtype.__name__) == "RealCiaoSR" else Trainer
+    trainer = cls(restorer=model, cfg=cfg, work_dir=work_dir,
+                  resume_from=args.resume_from,
+                  auto_resume=not args.no_auto_resume)
     trainer.run(loader, total_iters=args.total_iters or cfg.total_iters,
                 eval_fn=eval_fn, eval_interval=eval_interval)
     return trainer

@@ -1,14 +1,18 @@
 """The port's training checkpoints: one ``torch.save`` file per save.
 
 Counterpart of ciaosr_tpu/train/checkpoint.py's ``CheckpointManager``,
-``resolve_checkpoint_dir`` and ``restore_external`` (orbax there). A save
+``resolve_checkpoint_dir``, ``restore_external`` and
+``load_staged_generator`` (orbax there). A save
 of iteration N writes ``<work_dir>/checkpoints/iter_N.pth`` in the mmcv
 layout the port's ``.pth`` loader reads (convert/load.py):
 
 * ``meta``: ``iter``, ``config`` (the config's text), ``metrics`` (the
   last eval's, for ``keep_best_metric``), ``torch``;
-* ``state_dict``: the generator's tensors under ``generator.``;
-* ``optimizer``, ``scheduler``: their ``state_dict()``; ``step``: N.
+* ``state_dict``: the generator's tensors under ``generator.`` (a GAN
+  run's also ``generator_ema.`` and ``discriminator.``, the spectral
+  norms' ``u`` and ``sigma`` included);
+* ``optimizer``, ``scheduler``: their ``state_dict()`` (a GAN run's: a
+  dict of them under ``generator`` and ``discriminator``); ``step``: N.
 
 A save writes a temporary name and then ``os.replace``-s it, so a run
 killed mid-save leaves no torn file for auto-resume. After each save the
@@ -136,3 +140,20 @@ def restore_external(path: str) -> tuple[dict, int]:
     work_dir."""
     ckpt = read_checkpoint(resolve_checkpoint(path))
     return ckpt, int(ckpt["step"])
+
+
+def load_staged_generator(path: str, model_cfg: dict) -> tuple[dict, dict]:
+    """Stage 2's ``load_from``: the (generator, EMA copy) state_dicts of
+    ``model_cfg['generator']`` from a stage-1 run. ``path`` resolves as in
+    ``resolve_checkpoint``; the file may be the port's GAN checkpoint
+    (``generator.`` and ``generator_ema.``), its classical one (the
+    generator seeds both) or a reference ``.pth`` (convert/load.py, EMA
+    copy where it has one)."""
+    from ciaosr_torch.convert.load import (checkpoint_state_dict, has_ema,
+                                           load_torch_checkpoint)
+
+    sd = checkpoint_state_dict(resolve_checkpoint(path))
+    gen = load_torch_checkpoint(sd, model_cfg)
+    ema = load_torch_checkpoint(sd, model_cfg, ema=True) if has_ema(sd) \
+        else gen
+    return gen, ema

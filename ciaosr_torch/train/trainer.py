@@ -96,11 +96,14 @@ class MetricLogger:
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """The batch's arrays on ``device``: on a CUDA device through pinned
-    host memory with ``non_blocking`` copies (the 'meta' list stays)."""
+    """The batch's arrays (every key but the 'meta' list) on ``device``:
+    on a CUDA device through pinned host memory with ``non_blocking``
+    copies."""
     out = {}
-    for k in BATCH_KEYS:
-        t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+    for k, v in batch.items():
+        if k == "meta":
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
@@ -120,13 +123,7 @@ class Trainer:
         self.resume_from = resume_from
         self.auto_resume = auto_resume
         self.progress = progress
-        gen = restorer.generator
-        self.optimizer, self.scheduler = build_optimizer(
-            gen.parameters(), dict(cfg.optimizers),
-            dict(cfg.get("lr_config") or {}))
-        self.state = TrainState(0, gen, self.optimizer, self.scheduler)
-        self.train_step = make_train_step(restorer, self.optimizer,
-                                          self.scheduler)
+        self.state, self.train_step = self._make_step()
         ckpt_cfg = cfg.get("checkpoint_config") or {}
         self.ckpt = CheckpointManager(
             work_dir, interval=ckpt_cfg.get("interval", 3000),
@@ -135,6 +132,18 @@ class Trainer:
         self.logger = MetricLogger(
             work_dir, interval=(cfg.get("log_config") or {}).get(
                 "interval", 100), progress=progress)
+
+    def _make_step(self):
+        """(the train state at step 0, the train step): the config's
+        optimizer and schedule (``self.optimizer``, ``self.scheduler``)
+        over the generator."""
+        gen = self.restorer.generator
+        self.optimizer, self.scheduler = build_optimizer(
+            gen.parameters(), dict(self.cfg.optimizers),
+            dict(self.cfg.get("lr_config") or {}))
+        return (TrainState(0, gen, self.optimizer, self.scheduler),
+                make_train_step(self.restorer, self.optimizer,
+                                self.scheduler))
 
     # ------------------------------------------------------- checkpoints
     def state_dict(self) -> dict:
@@ -186,7 +195,7 @@ class Trainer:
         JAX package. ``eval_fn()`` evaluates the live weights and returns
         a dict of metrics."""
         self._maybe_resume()
-        device = next(self.state.generator.parameters()).device
+        device = self.restorer.device
         it = iter(loader)
         try:
             state, step = self.state, self.state.step

@@ -436,9 +436,9 @@ def test_train_cli_trains_resumes_and_tools_test_reads_it(cli_config):
 
 
 def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path):
-    """--bf16 trains the generator in bf16; RealCiaoSR and BasicRestorer
-    configs raise and name their ROADMAP items; --launcher takes 'none'
-    only."""
+    """--bf16 trains the generator in bf16; a BasicRestorer config and a
+    RealCiaoSR config with a degradation op in its train pipeline raise and
+    name their ROADMAP items; --launcher takes 'none' only."""
     _, write = cli_config
     cfg = write()
     trainer = port_train.main([cfg, "--device", "cpu", "--bf16",
@@ -448,8 +448,15 @@ def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path):
     assert np.isfinite(logged(tmp_path / "bf16")).all()
     for mtype, item in (("RealCiaoSR", "item 7"), ("BasicRestorer",
                                                    "item 5")):
+        path = write(mtype)
+        if mtype == "RealCiaoSR":   # the model is ported; its degradations
+            path = tmp_path / "RealCiaoSR_degraded.py"   # are not yet
+            op = "dict(type='RescaleToZeroOne', keys=['lq', 'gt']),"
+            path.write_text(open(write(mtype)).read().replace(
+                op, op + "\n        dict(type='UnsharpMasking', keys=['gt']),",
+                1))
         with pytest.raises(NotImplementedError, match=item):
-            port_train.main([write(mtype), "--device", "cpu",
+            port_train.main([str(path), "--device", "cpu",
                              "--work-dir", str(tmp_path / mtype)])
     with pytest.raises(SystemExit):
         port_train.main([cfg, "--launcher", "pytorch"])
