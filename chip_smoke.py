@@ -85,7 +85,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      6x64x64``) and its backward (row 12), shifted and unshifted, on the
      batch's tokens, held against their f32 plain versions (row 12: against
      autograd) and checked reproducible, row 12's sum kernel also timed
-     against ``pw.sum(0)`` and ``pd.sum(0)`` on its partials; 5 steps of
+     against ``pw.sum(0)`` and ``pd.sum(0)`` on its partials (and in
+     alternation, 5 rounds each, at 6×64×64 and 10×48×48); 5 steps of
      ``make_train_step`` with exact launch counts (rows 11 and 12 and its
      two reduction kernels 36 times a step, nothing else), finite losses
      and every parameter with a gradient changed; the warm step time,
@@ -136,10 +137,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      against the plain f32 route; stage 1 (wogan, 2 iterations) and stage
      2 (GAN, load_from stage 1: 4 iterations straight, and 2 then resumed
      to 4, bit-equal) through ``ciaosr_torch.tools.train`` on config
-     copies with ported data ops; ``ciaosr_torch.tools.test`` on the
+     copies with a fixed crop; ``ciaosr_torch.tools.test`` on the
      stage-1 work_dir (×4, tile 128) on the Set5-shaped folder, its
-     outputs those of the EMA copy's own ``forward_test``. Its launches
-     add to the kernel rows (``launches_gan``);
+     outputs those of the EMA copy's own ``forward_test``; part
+     gan_shipped: both shipped configs through ``tools.train`` with their
+     own train pipeline (the degradation chain) and loader (6 forked
+     workers), 6 iterations each, exact launches, finite losses, every
+     parameter with a gradient changed, the warm iteration, the loader's
+     wait share, the loader alone and the chain's per-op times. Its
+     launches add to the kernel rows (``launches_gan``);
  11. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
@@ -2126,10 +2132,51 @@ def check_swin_bwd(swin, batch: dict) -> tuple[dict, dict]:
         f"{sbms:.4f} (bytes); max|d|={g_abs:.3e} max|d|/max|ref|="
         f"{g_rel:.3e} against the library's sums")
     del pw, pd
+    row["gsum_rounds"] = gsum_rounds(pk1, ws, shift, c)
     row["split_ms"] = log_launch_split(
         f"{row['name']} (shifted)",
         lambda: sb.swin_block_bwd(tok1, dy, pk1, ws, shift), BWD_KERNEL_NAMES)
     return row, check_swin_wgrad(tok1, dy, pk1, ws, shift, hid)
+
+
+# row 12's sum kernel against the library's pair (pw.sum(0), pd.sum(0)):
+# token grids (B, H, W) and rounds of each, in alternation
+GSUM_GRIDS, GSUM_ROUNDS = ((6, 64, 64), (10, 48, 48)), 5
+
+
+def gsum_rounds(pk, ws: int, shift: int, c: int) -> dict:
+    """The sum kernel and the library's two column sums on the partials of
+    the window and weight-gradient kernels at each of GSUM_GRIDS (seeded
+    tokens and dy), timed in alternation (kernel, library) GSUM_ROUNDS
+    times: {grid: {"ms": [...], "library_ms": [...]}}, both logged with
+    their medians."""
+    from ciaosr_torch.ops.kernels import swin_block as sb
+
+    out = {}
+    for b, h, w in GSUM_GRIDS:
+        rng = np.random.default_rng(b * h)
+        tok, dy = (torch.as_tensor(rng.standard_normal(
+            (b, h, w, c)).astype(np.float32), device="cuda")
+            for _ in range(2))
+        with torch.inference_mode():
+            _, pairs, pw = sb.launch_swin_bwd_window(tok, dy, pk, ws, shift)
+            pd = sb.swin_block_wgrad(pairs)
+            del pairs
+            kern, lib = [], []
+            for _ in range(GSUM_ROUNDS):
+                kern.append(time_ms(lambda: sb.swin_block_gsum(pw, pd)))
+                lib.append(time_ms(lambda: (pw.sum(0), pd.sum(0))))
+        grid = f"{b}x{h}x{w}"
+        out[grid] = {"ms": kern, "library_ms": lib}
+        log(f"kernel swin_gsum_kernel at {grid} (pw {tuple(pw.shape)}, pd "
+            f"{tuple(pd.shape)}), {GSUM_ROUNDS} rounds in alternation: "
+            f"ms {[round(t, 4) for t in kern]} (median "
+            f"{statistics.median(kern):.4f}); library (pw.sum(0), "
+            f"pd.sum(0)) {[round(t, 4) for t in lib]} (median "
+            f"{statistics.median(lib):.4f}); kernel faster in "
+            f"{sum(k < q for k, q in zip(kern, lib))} of {GSUM_ROUNDS}")
+        del tok, dy, pw, pd
+    return out
 
 
 def train_path(drive, kind: str, smi: str, fwd_row: dict,
@@ -2704,6 +2751,8 @@ def loader_rate(cfg) -> tuple[float, int, int]:
     workers = cfg.data.get("workers_per_gpu", 4)
     it = iter(build_dataloader(build_dataset(cfg.data["train"]),
                                samples_per_gpu=b, workers_per_gpu=workers,
+                               worker_mode=cfg.data.get("worker_mode",
+                                                        "thread"),
                                seed=1))
     try:
         next(it)
@@ -3046,15 +3095,15 @@ GAN_STAGE1, GAN_STAGE2, GAN_CKPT = 2, 4, 2
 # the training picture: one seeded picture holding a 256² crop (64² LR)
 GAN_HR = (288, 320)
 # the config copies: the shipped text, then these assignments. Training
-# data from ported ops only (the Real-ESRGAN degradations are not ported
-# yet): a 256² crop, its ×4 MATLAB-bicubic 64² LR, 4096 contiguous queries
-# (a 16-row strip, which RealCiaoSR's √ns reshape makes a 64² image), no
+# data without the degradation chain (part gan_shipped runs that): a 256²
+# crop, its ×4 MATLAB-bicubic 64² LR, 4096 contiguous queries (a 16-row
+# strip, which RealCiaoSR's √ns reshape makes a 64² image), no
 # gt_unsharp. The dataset's seed makes every sample the same crop, so every
 # batch is the same: a resumed run (whose loader starts again at its first
 # batch, as in the JAX package) then meets the batches of one that was not
 # interrupted. The Set5-shaped test split of phase "cli" for tools.test.
 GAN_OVERRIDES = """
-# chip_smoke phase gan: ported data ops, hooks every 2 iterations
+# chip_smoke phase gan: a fixed crop, hooks every 2 iterations
 train_pipeline = [
     dict(type='LoadImageFromFile', io_backend='disk', key='gt',
          flag='color', channel_order='rgb'),
@@ -3322,7 +3371,7 @@ def gan_route_check(cfg) -> None:
 
 def gan_cli(drive, probe, root: Path, rows: dict) -> None:
     """Stage 1 (wogan) and stage 2 (GAN) of the shipped 002 configs
-    through ``ciaosr_torch.tools.train`` on copies with ported data ops,
+    through ``ciaosr_torch.tools.train`` on copies with a fixed crop,
     then ``ciaosr_torch.tools.test`` on the stage-1 work_dir."""
     from ciaosr_torch.convert.load import load_torch_checkpoint
     from ciaosr_torch.data.datasets import build_dataset
@@ -3504,6 +3553,175 @@ def gan_cli(drive, probe, root: Path, rows: dict) -> None:
     del res
 
 
+# part gan_shipped: both shipped 002 configs through tools.train with their
+# own train pipeline (the Real-ESRGAN degradation chain) and loader (batch
+# 6, 6 forked workers), on derived copies that set only the data paths and
+# the hook intervals; the iterations of each stage (the command line's
+# --total-iters), SHIPPED_N seeded DF2K-shaped pictures of SHIPPED_HR
+# (the 400² crop draws), the samples of the per-op chain times
+SHIPPED_ITERS, SHIPPED_N, SHIPPED_HR = 6, 12, (480, 512)
+CHAIN_SAMPLES = 24
+SHIPPED_OVERRIDES = """
+# chip_smoke phase gan, part gan_shipped: data paths and hook intervals
+data['train']['dataset']['gt_folder'] = 'data/DF2K/HR'
+data['val']['gt_folder'] = 'data/val'
+checkpoint_config = dict(checkpoint_config, interval={iters})
+log_config = dict(interval=1)
+"""
+
+
+def chain_op_ms(cfg, n: int = CHAIN_SAMPLES) -> tuple[dict, float]:
+    """One process's time in each group of the train pipeline's ops over
+    ``n`` samples of ``cfg``'s train split (seeded generators): the
+    median ms a sample of each group and of the whole sample."""
+    from ciaosr_torch.data import degradations as dg
+    from ciaosr_torch.data.datasets import build_dataset
+
+    groups = {"filters": (dg.RandomBlur,),
+              "resizes": (dg.RandomResize, dg.RandomScaleResize),
+              "noise": (dg.RandomNoise,),
+              "JPEG": (dg.RandomJPEGCompression,),
+              "USM": (dg.UnsharpMasking,)}
+    spent = dict.fromkeys(groups, 0.0)
+    real = {}
+    for group, classes in groups.items():
+        for cls in classes:
+            real[cls] = cls.__call__
+
+            def call(self, results, _cls=cls, _g=group):
+                t = time.perf_counter()
+                out = real[_cls](self, results)
+                spent[_g] += time.perf_counter() - t
+                return out
+            cls.__call__ = call
+    per = {g: [] for g in groups}
+    total = []
+    try:
+        ds = build_dataset(cfg.data["train"])
+        for i in range(n):
+            for g in spent:
+                spent[g] = 0.0
+            t = time.perf_counter()
+            ds.load(i % len(ds), np.random.default_rng((7, i)))
+            total.append((time.perf_counter() - t) * 1e3)
+            for g in groups:
+                per[g].append(spent[g] * 1e3)
+    finally:
+        for cls, fn in real.items():
+            cls.__call__ = fn
+    return ({g: statistics.median(v) for g, v in per.items()},
+            statistics.median(total))
+
+
+def gan_shipped(drive, probe, root: Path, rows: dict, kind: str,
+                smi: str) -> None:
+    """Stage 1 (wogan, SHIPPED_ITERS iterations) and stage 2 (GAN,
+    SHIPPED_ITERS iterations, ``load_from`` of stage 1's work_dir as
+    shipped) of the shipped 002 configs through ``tools.train`` with their
+    own train pipeline and loader: exact launches, finite losses, every
+    parameter with a gradient changed; the warm iteration, samples/s and
+    the loader's wait share; then the loader alone and one process's
+    per-op chain times."""
+    from ciaosr_torch.data.imageio import write_png
+    from ciaosr_torch.train.gan_trainer import GANTrainer
+
+    rng = np.random.default_rng(24)
+    hr = root / "data" / "DF2K" / "HR"
+    hr.mkdir(parents=True)
+    for i in range(SHIPPED_N):
+        write_png(str(hr / f"{i + 1:04d}.png"),
+                  smooth_picture(rng, *SHIPPED_HR))
+    (root / "data" / "val").mkdir()
+    write_png(str(root / "data" / "val" / "0001.png"),
+              smooth_picture(rng, 48, 48))
+    copies = {}
+    for name in ("wogan", "gan"):
+        shipped = Path(config_path(f"002_real_{name}_"))
+        copies[name] = root / f"002_{name}_shipped.py"
+        copies[name].write_text(shipped.read_text() + SHIPPED_OVERRIDES.format(
+            iters=SHIPPED_ITERS))
+    cfg = Config.fromfile(str(copies["wogan"]))
+    loader_cfg = (cfg.data["workers_per_gpu"], cfg.data["worker_mode"],
+                  cfg.data["train_dataloader"]["samples_per_gpu"])
+    if loader_cfg != (6, "process", 6):
+        raise AssertionError(f"gan_shipped: loader {loader_cfg}")
+    b = loader_cfg[2]
+    n_blocks = sum(cfg.model["generator"]["encoder"]["depths"])
+    train_keys = ("swin_block",) + BWD_KERNELS
+    want = {k: n_blocks * SHIPPED_ITERS for k in train_keys}
+
+    before = {}
+    real_resume = GANTrainer._maybe_resume
+
+    def resume(trainer):    # the weights the loop starts from
+        real_resume(trainer)
+        r = trainer.restorer
+        before.clear()
+        for part in ("generator", "discriminator"):
+            mod = getattr(r, part)
+            if mod is not None:
+                before[part] = {k: v.detach().cpu().clone()
+                                for k, v in mod.named_parameters()}
+
+    GANTrainer._maybe_resume = resume
+    try:
+        for name in ("wogan", "gan"):
+            label = f"gan_shipped {name} ({SHIPPED_ITERS} iterations)"
+            # the steps timed outside a loop (gan_steps) have no wait
+            probe.ends.clear()
+            probe.waits.clear()
+            trainer, peak, secs = train_cli_run(
+                drive, probe, label, [str(copies[name]), "--total-iters",
+                                      str(SHIPPED_ITERS)], want)
+            bad = [m for m in probe.metrics if not all(
+                bool(torch.isfinite(v)) for v in m.values())]
+            if bad:
+                raise AssertionError(f"{label}: metrics {bad}")
+            probe.metrics.clear()
+            r = trainer.restorer
+            if (r.discriminator is None) != (name == "wogan"):
+                raise AssertionError(f"{label}: discriminator "
+                                     f"{type(r.discriminator)}")
+            for part, start in before.items():
+                changed_parameters(getattr(r, part), start)
+            n_grad = {part: sum(p.grad is not None for p in getattr(
+                r, part).parameters()) for part in before}
+            log(f"{label}: every parameter with a gradient changed "
+                f"({n_grad} with gradients)")
+            ends = [t for _, t in probe.ends]
+            waits = probe.waits
+            if len(ends) != SHIPPED_ITERS or len(waits) != SHIPPED_ITERS:
+                raise AssertionError(f"{label}: {len(ends)} steps, "
+                                     f"{len(waits)} loader waits")
+            its = [(t1 - t0) * 1e3 for t0, t1 in zip(ends, ends[1:])]
+            warm = statistics.median(its)
+            share = sum(waits[2:]) * 1e3 / sum(its[1:])
+            log(f"e2e ({kind}; {smi}): gan_shipped {name} as shipped (f32 "
+                f"params, kernel route; its train pipeline; batch {b}, "
+                f"{loader_cfg[0]} {loader_cfg[1]} workers): iterations 2-"
+                f"{SHIPPED_ITERS} {[round(t, 1) for t in its]} ms, warm "
+                f"iteration {warm:.1f} ms (median, loader wait included), "
+                f"{b / warm * 1e3:.2f} samples/s; loader wait share over "
+                f"iterations 3-{SHIPPED_ITERS} {share:.3f} (waits "
+                f"{[round(w * 1e3, 1) for w in waits]} ms); peak "
+                f"{peak:.2f} GiB; {secs:.2f} s in all")
+            for k in train_keys:
+                rows[k] = rows.get(k, 0) + want[k]
+            del trainer, r
+            torch.cuda.empty_cache()
+    finally:
+        GANTrainer._maybe_resume = real_resume
+    rate, _, workers = loader_rate(cfg)
+    log(f"e2e ({kind}; {smi}): gan_shipped the train loader alone as "
+        f"tools.train builds it ({workers} process workers, batch {b}): "
+        f"{rate:.3f} batches/s ({rate * b:.2f} samples/s)")
+    per, total = chain_op_ms(cfg)
+    log(f"e2e ({kind}; {smi}): gan_shipped one process's chain, median of "
+        f"{CHAIN_SAMPLES} samples: {total:.1f} ms a sample; by op group "
+        + ", ".join(f"{g} {t:.1f} ms" for g, t in per.items())
+        + f", the rest {total - sum(per.values()):.1f} ms")
+
+
 def gan_phase(drive, kind: str, smi: str) -> dict:
     """Phase "gan": the shipped 002 configs' RealCiaoSR on the card (f32
     params, the kernel route, VGG19 on the explicit synthetic opt-in:
@@ -3515,7 +3733,7 @@ def gan_phase(drive, kind: str, smi: str) -> dict:
     2. one G step's gradients, kernel route against the plain f32 route
        (``gan_route_check``);
     3. stage 1 (wogan) through ``ciaosr_torch.tools.train`` on a config
-       copy with ported data ops, GAN_STAGE1 iterations;
+       copy with a fixed crop, GAN_STAGE1 iterations;
     4. stage 2 (GAN) through ``tools.train``: ``load_from`` stage 1 (the
        generator and its EMA copy start as stage 1's newest checkpoint
        holds them), GAN_STAGE2 iterations straight, and GAN_CKPT then
@@ -3525,7 +3743,9 @@ def gan_phase(drive, kind: str, smi: str) -> dict:
        (``--deterministic``);
     5. ``ciaosr_torch.tools.test`` on the stage-1 work_dir (its test_cfg:
        ×4, tile 128) on phase "cli"'s Set5-shaped folder, exact launches,
-       its outputs equal (≤ 1e-6) to the EMA copy's own ``forward_test``.
+       its outputs equal (≤ 1e-6) to the EMA copy's own ``forward_test``;
+    6. part gan_shipped: both shipped configs through ``tools.train`` with
+       their own train pipeline and loader (``gan_shipped``).
 
     Returns each kernel row's launches (the train kernels under their
     launch keys: the caller puts them on the rows of its train batch)."""
@@ -3554,6 +3774,11 @@ def gan_phase(drive, kind: str, smi: str) -> dict:
             gan_cli(drive, probe, Path(tmp), rows)
             log(f"gan stages 1, 2 and tools.test: "
                 f"{time.perf_counter() - t0:.2f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            t0 = time.perf_counter()
+            gan_shipped(drive, probe, Path(tmp), rows, kind, smi)
+            log(f"gan_shipped: {time.perf_counter() - t0:.2f} s")
     finally:
         os.chdir(cwd)
         probe.close()

@@ -10,11 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from ciaosr_torch.core.color import bgr2ycbcr
-
-try:
-    import cv2
-except ImportError:  # pragma: no cover - scipy fallback below
-    cv2 = None
+from ciaosr_torch.core.filters import filter2d, gaussian_kernel_1d
 
 
 def _reorder(img: np.ndarray, input_order: str) -> np.ndarray:
@@ -56,12 +52,7 @@ def psnr(img1: np.ndarray, img2: np.ndarray, crop_border: int = 0,
 
 
 def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
-    if cv2 is not None:
-        k = cv2.getGaussianKernel(size, sigma)
-    else:  # pragma: no cover
-        x = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
-        k = np.exp(-(x ** 2) / (2 * sigma ** 2))[:, None]
-        k /= k.sum()
+    k = gaussian_kernel_1d(size, sigma)
     return np.outer(k, k.T)
 
 
@@ -74,14 +65,8 @@ def _ssim_single(img1: np.ndarray, img2: np.ndarray) -> float:
     img2 = img2.astype(np.float64)
     window = _gaussian_window()
 
-    if cv2 is not None:
-        def filt(x):
-            return cv2.filter2D(x, -1, window)[5:-5, 5:-5]
-    else:  # pragma: no cover
-        from scipy.signal import correlate2d
-
-        def filt(x):
-            return correlate2d(x, window, mode="valid")
+    def filt(x):
+        return filter2d(x, window)[5:-5, 5:-5]
 
     mu1, mu2 = filt(img1), filt(img2)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ciaosr_torch.config.registry import PIPELINES, build_from_cfg
+from ciaosr_torch.core.cvresize import resize as cvresize
 from ciaosr_torch.core.resize import imresize_np
 from ciaosr_torch.data.imageio import imread
 
@@ -81,21 +82,28 @@ class RandomDownSampling:
     """LQ synthesis: scale ∈ [min, max) uniform; crop an HR patch of
     round(patch·s) and bicubic-downsample it to the LR patch, or (no
     ``patch_size``, eval) the whole image cut to an integer LR grid.
-    Only the 'matlab' backend (MATLAB-exact bicubic) is ported."""
+    Backends: 'matlab' (MATLAB-exact bicubic) and 'cv2' (cv2.resize's
+    INTER_CUBIC, from core/cvresize.py); 'pillow' is not ported."""
 
     def __init__(self, scale_min=1.0, scale_max=4.0, patch_size=None,
                  interpolation="bicubic", backend="matlab"):
         if scale_max < scale_min:
             raise ValueError(f"scale_max {scale_max} < scale_min "
                              f"{scale_min}")
-        if backend != "matlab":
+        if backend not in ("matlab", "cv2"):
             raise NotImplementedError(
                 f"RandomDownSampling backend {backend!r} is not ported "
-                "(ROADMAP queue 1 item 6(a)); use 'matlab'")
+                "(ROADMAP queue 1 item 6(a)); use 'matlab' or 'cv2'")
         self.scale_min = scale_min
         self.scale_max = scale_max
         self.patch_size = patch_size
         self.interpolation = interpolation
+        self.backend = backend
+
+    def _resize(self, img, size, scale):
+        if self.backend == "matlab":
+            return imresize_np(img, size=size, scale=1.0 / scale)
+        return cvresize(img, size, "bicubic")
 
     def __call__(self, results):
         img = results["gt"]
@@ -107,7 +115,7 @@ class RandomDownSampling:
             h_lr = int(img.shape[0] / scale + 1e-9)
             w_lr = int(img.shape[1] / scale + 1e-9)
             gt = img[: round(h_lr * scale), : round(w_lr * scale)]
-            lq = imresize_np(gt, size=(h_lr, w_lr), scale=1.0 / scale)
+            lq = self._resize(gt, (h_lr, w_lr), scale)
         else:
             rng = _rng(results)
             w_lr = self.patch_size
@@ -115,7 +123,7 @@ class RandomDownSampling:
             x0 = int(rng.integers(0, img.shape[0] - w_hr + 1))
             y0 = int(rng.integers(0, img.shape[1] - w_hr + 1))
             gt = img[x0:x0 + w_hr, y0:y0 + w_hr]
-            lq = imresize_np(gt, size=(w_lr, w_lr), scale=1.0 / scale)
+            lq = self._resize(gt, (w_lr, w_lr), scale)
         results["gt"] = gt
         results["lq"] = lq
         results["scale"] = scale
@@ -474,24 +482,8 @@ class Quantize:
         return results
 
 
-# the Real-ESRGAN degradation ops of ciaosr_tpu/data/degradations.py, which
-# the 002 configs' train pipelines run; not ported yet
-DEGRADATIONS = frozenset((
-    "RandomBlur", "RandomResize", "RandomNoise", "RandomJPEGCompression",
-    "RandomScaleResize1", "DegradationsWithShuffle",
-    "DegradationsWithShuffle1", "UnsharpMasking", "RandomGaussianNoise",
-    "RandomGaussianNoisewithPro", "RandomClipGaussianNoise", "RandomLevel",
-    "RealRandomNoise", "RealRandomResize", "UVSRDegradation",
-    "RandomVideoCompression", "OldRandomNoise", "NorResize"))
-
-
 def build_op(cfg):
-    """A pipeline op from its config dict; a degradation op raises."""
-    if cfg.get("type") in DEGRADATIONS:
-        raise NotImplementedError(
-            f"pipeline op {cfg['type']!r} is a Real-ESRGAN degradation "
-            "(ciaosr_tpu/data/degradations.py), not ported yet: ROADMAP "
-            "queue 1 item 7 (data/degradations.py)")
+    """A pipeline op from its config dict."""
     return build_from_cfg(cfg, PIPELINES)
 
 
@@ -506,3 +498,7 @@ class Compose:
             if results is None:
                 return None
         return results
+
+
+# the Real-ESRGAN degradation ops register themselves on import
+from ciaosr_torch.data import degradations as _degradations  # noqa: E402,F401

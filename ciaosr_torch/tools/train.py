@@ -14,8 +14,9 @@ work_dir's newest checkpoint. The run writes ``config_dump.py``,
 the work_dir, which ``python3 -m ciaosr_torch.tools.test CONFIG
 WORK_DIR`` evaluates. The model runs on the CUDA device through the
 port's kernels unless ``--device cpu`` asks for the plain PyTorch path.
-``BasicRestorer`` configs are not ported yet and raise, and so do the
-shipped 002 configs' train pipelines (their degradation ops).
+``BasicRestorer`` configs are not ported yet and raise. Both shipped 002
+configs train as they are (their train pipelines run the degradation
+chain of ``ciaosr_torch.data.degradations`` in the loader's workers).
 """
 
 from __future__ import annotations

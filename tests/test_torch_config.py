@@ -134,15 +134,26 @@ def test_build_model_takes_the_kernel_route_on_cuda(monkeypatch):
 
 @pytest.mark.parametrize("mtype,item", [("RealCiaoSR", "item 7"),
                                         ("BasicRestorer", "item 5")])
-def test_build_model_names_what_is_not_ported(mtype, item):
+def test_build_model_names_what_is_not_ported(mtype, item, tmp_path):
     path = glob.glob(str(ROOT / "configs" / "002_real_gan_*.py"))[0]
     cfg = Config.fromfile(path)
     if mtype == "RealCiaoSR":
-        # the model builds (tests/test_torch_gan_trainer.py); what item 7
-        # has left is its train pipeline's degradation ops
+        # item 7 is closed: the model builds (tests/test_torch_gan_
+        # trainer.py) and so does its train split, whose sample has the
+        # keys, shapes and dtypes of JAX's
         from ciaosr_torch.data.datasets import build_dataset
-        with pytest.raises(NotImplementedError, match=item):
-            build_dataset(cfg.data["train"])
+        from ciaosr_tpu.data.datasets import build_dataset as jax_build
+        from tests.test_torch_degradations import derived_002, write_df2k
+        write_df2k(tmp_path, n=1)
+        cfg = Config.fromfile(derived_002("gan", tmp_path))
+        got = build_dataset(cfg.data["train"]).load(
+            0, np.random.default_rng(1))
+        ref = jax_build(cfg.data["train"])[0]
+        assert set(got) == set(ref) == {"lq", "gt", "gt_unsharp", "coord",
+                                        "cell", "meta"}
+        for k in set(got) - {"meta"}:
+            assert (got[k].shape, got[k].dtype) == (ref[k].shape,
+                                                    ref[k].dtype), k
         return
     model = dict(_plain(cfg.model), type=mtype)
     with pytest.raises(NotImplementedError, match=item):

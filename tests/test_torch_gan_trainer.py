@@ -18,7 +18,7 @@ and the entry points on ``RealCiaoSR`` configs, f32 on the CPU.
 * ``tools.train`` on RealCiaoSR config copies whose data use ported ops:
   stage 1 (wogan), then stage 2 (GAN) loading stage 1; ``--autoscale-lr``
   refuses per-module optimizers. ``tools.test`` evaluates the EMA copy.
-  The shipped 002 train pipelines raise, naming the degradation item.
+  The shipped 002 train splits build and give the trainer's samples.
 """
 
 import glob
@@ -311,11 +311,25 @@ def test_build_model_on_the_shipped_002_model_dicts(name):
 
 
 @pytest.mark.parametrize("name", ["wogan", "gan"])
-def test_shipped_002_train_pipeline_names_the_degradation_item(name):
-    cfg = Config.fromfile(SHIPPED[name])
-    with pytest.raises(NotImplementedError,
-                       match=r"item 7 \(data/degradations\.py\)"):
-        build_dataset(cfg.data["train"])
+def test_shipped_002_train_pipeline_names_the_degradation_item(name,
+                                                               tmp_path):
+    """The shipped train split builds (the degradation ops are ported)
+    and gives the trainer's sample: a 64² lq, 4096 queries of gt and
+    gt_unsharp, a contiguous run of the grid where ``is_shuffle=False``
+    (stage 2) and a permutation otherwise."""
+    from tests.test_torch_degradations import derived_002, write_df2k
+    write_df2k(tmp_path, n=1)
+    cfg = Config.fromfile(derived_002(name, tmp_path))
+    s = build_dataset(cfg.data["train"]).load(0, np.random.default_rng(2))
+    assert s["lq"].shape == (64, 64, 3) and s["lq"].dtype == np.float32
+    assert s["gt"].shape == s["gt_unsharp"].shape == (4096, 3)
+    assert s["coord"].shape == s["cell"].shape == (4096, 2)
+    assert np.isfinite(s["lq"]).all() and not np.array_equal(
+        s["gt"], s["gt_unsharp"])
+    # a row-major run steps one cell in x, or wraps to the next row
+    dx = np.diff(s["coord"][:, 1])
+    contiguous = bool(np.all(np.isclose(dx, s["cell"][0, 1]) | (dx < 0)))
+    assert contiguous == (name == "gan")
 
 
 # --------------------------------------------------- tools.train / .test --

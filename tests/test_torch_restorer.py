@@ -69,8 +69,10 @@ def test_evaluate_matches_jax_metrics(models):
     o8, g8 = tensor2img(out.astype(np.float32)), tensor2img(gt)
     assert got["PSNR"] == jax_metrics.psnr(o8, g8, crop_border=2,
                                            convert_to="y")
-    assert got["SSIM"] == jax_metrics.ssim(o8, g8, crop_border=2,
-                                           convert_to="y")
+    # SSIM filters through core/filters.py, not cv2's DFT: the same bound
+    # as tests/test_torch_data.py::test_ssim_without_opencv_matches_jax
+    ref = jax_metrics.ssim(o8, g8, crop_border=2, convert_to="y")
+    assert abs(got["SSIM"] - ref) <= 1e-9, (got["SSIM"], ref)
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):

@@ -436,9 +436,10 @@ def test_train_cli_trains_resumes_and_tools_test_reads_it(cli_config):
 
 
 def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path):
-    """--bf16 trains the generator in bf16; a BasicRestorer config and a
-    RealCiaoSR config with a degradation op in its train pipeline raise and
-    name their ROADMAP items; --launcher takes 'none' only."""
+    """--bf16 trains the generator in bf16; a BasicRestorer config raises
+    and names its ROADMAP item; a RealCiaoSR config with the shipped 002
+    train pipeline (degradation chain, a narrow generator, 2 process
+    workers) trains an iteration; --launcher takes 'none' only."""
     _, write = cli_config
     cfg = write()
     trainer = port_train.main([cfg, "--device", "cpu", "--bf16",
@@ -448,15 +449,24 @@ def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path):
     assert np.isfinite(logged(tmp_path / "bf16")).all()
     for mtype, item in (("RealCiaoSR", "item 7"), ("BasicRestorer",
                                                    "item 5")):
-        path = write(mtype)
-        if mtype == "RealCiaoSR":   # the model is ported; its degradations
-            path = tmp_path / "RealCiaoSR_degraded.py"   # are not yet
-            op = "dict(type='RescaleToZeroOne', keys=['lq', 'gt']),"
-            path.write_text(open(write(mtype)).read().replace(
-                op, op + "\n        dict(type='UnsharpMasking', keys=['gt']),",
-                1))
+        if mtype == "RealCiaoSR":   # item 7 is closed: it trains
+            from tests.test_torch_degradations import (NARROW_002,
+                                                       derived_002,
+                                                       write_df2k)
+            write_df2k(tmp_path, n=2)
+            path = derived_002("wogan", tmp_path, NARROW_002 + (
+                "data.update(workers_per_gpu=2)\n"
+                "data['train_dataloader']['samples_per_gpu'] = 2\n"
+                "log_config = dict(interval=1)\n"))
+            trainer = port_train.main([path, "--device", "cpu",
+                                       "--total-iters", "1", "--work-dir",
+                                       str(tmp_path / mtype)])
+            assert trainer.state.step == 1
+            assert Config.fromfile(path).data["worker_mode"] == "process"
+            assert np.isfinite(logged(tmp_path / mtype, "loss_pix")).all()
+            continue
         with pytest.raises(NotImplementedError, match=item):
-            port_train.main([str(path), "--device", "cpu",
+            port_train.main([write(mtype), "--device", "cpu",
                              "--work-dir", str(tmp_path / mtype)])
     with pytest.raises(SystemExit):
         port_train.main([cfg, "--launcher", "pytorch"])
