@@ -146,15 +146,33 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      parameter with a gradient changed, the warm iteration, the loader's
      wait share, the loader alone and the chain's per-op times. Its
      launches add to the kernel rows (``launches_gan``);
- 11. prints the script's total time, the kernels line (each row with its
+ 11. phase "basic", the fixed-scale BasicRestorer (EDSRNet, RDNNet) as a
+     user runs it, f32 with TF32 off, on seeded Set5- and DIV2K-shaped
+     folders in a temporary working directory and two configs modelled on
+     the 001 ones (RDN's published ×4 net; EDSR's at ×3 with a window of
+     8, so the reflect pad runs): ``tools.test`` with random weights on
+     each (finite PSNR and SSIM, equal to the same restorer's), the warm
+     ms a picture, MP/s and peak memory beside the f32 bound, the card
+     against the CPU on one picture (≤ 1e-4 relative), a profile by
+     kernel; ``tools.inference --tile 0`` (the PNG's size) and ``--tile
+     192`` on a larger picture (its ValueError); ``tools.train
+     --deterministic`` on the rdn config (batch 16 of 48² LR, 6
+     iterations, checkpoints at 3 and 6): finite losses, every parameter
+     changed, ``iter_6.pth`` loaded strictly, ``tools.test`` on the
+     work_dir equal to the trained restorer in memory and its outputs bit
+     for bit, the iteration, a warm step, the loader's share and peak
+     memory; NIQE and the matting metrics in a Python where ``import
+     cv2`` fails. No launch count moves in any of it;
+ 12. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
 ``python3 chip_smoke.py --full-image`` builds the kernels and only times
 the full-image requests; ``--kernel-times`` builds them and only prints
 the ``time_kernels`` line; ``--train-cli`` builds them and only runs
-phase "train_cli"; ``--gan`` builds them and only runs phase "gan" (none
-prints a result line). Copied into
+phase "train_cli"; ``--gan`` builds them and only runs phase "gan";
+``--basic`` only runs phase "basic", without a build (none prints a
+result line). Copied into
 another checkout (e.g. the parent commit from ``git archive``), either
 times that tree the same way, in the same call.
 Any failure exits non-zero. Without CUDA, or without the repository's
@@ -3790,6 +3808,526 @@ def gan_phase(drive, kind: str, smi: str) -> dict:
     return rows
 
 
+# ---- the fixed-scale restorer (phase "basic"): BasicRestorer configs
+# modelled on the 001 configs through tools.test, tools.inference and
+# tools.train, f32 (TF32 off), on seeded pictures; its nets run cuDNN
+# convolutions and launch no kernel of the port
+# Set5's GTmod12 shapes: multiples of 12, so the ×3 and ×4 LR images are
+# whole; LR sides such as 126, 63, 69 and 57 are no multiple of 8
+BASIC_SET5 = (("baby", (504, 504)), ("bird", (288, 288)),
+              ("butterfly", (252, 252)), ("head", (276, 276)),
+              ("woman", (228, 336)))
+# DIV2K-shaped training pictures (multiples of 12, each side ≥ the patch)
+BASIC_HR = ((264, 264), (240, 300), (300, 240), (228, 336))
+# config name → (generator, scale, test_cfg window_size): RDN's published
+# ×4 net, and EDSR's at ×3 (the upsampler's ×3 step) with the window pad
+BASIC_NETS = {
+    "rdn": (dict(type="RDNNet", in_channels=3, out_channels=3,
+                 mid_channels=64, num_blocks=16, num_layers=8,
+                 channel_growth=64, upscale_factor=4), 4, 1),
+    "edsr": (dict(type="EDSRNet", in_channels=3, out_channels=3,
+                  mid_channels=64, num_blocks=16, upscale_factor=3,
+                  res_scale=1.0, rgb_mean=RGB_MEAN,
+                  rgb_std=(1.0, 1.0, 1.0)), 3, 8)}
+# training the rdn config: batch, GT patch, iterations, checkpoint interval
+BASIC_TRAIN = dict(batch=16, patch=192, iters=6, interval=3)
+# the card's output against the CPU's on the same weights: max|d|/max|ref|
+BASIC_CPU_TOL = 1e-4
+# the inference CLI's refused case: an LR picture larger than --tile
+BASIC_TILE, BASIC_WIDE = 192, (200, 240)
+# H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet): the
+# bound of an f32 conv net with TF32 off
+PEAK_F32_FLOPS = 67e12
+
+BASIC_CONFIG = """\
+# chip_smoke phase basic: a BasicRestorer config modelled on the 001 ones
+exp_name = 'basic_{name}'
+scale = {scale}
+model = dict(
+    type='BasicRestorer',
+    generator={generator},
+    pixel_loss=dict(type='L1Loss', loss_weight=1.0, reduction='mean'))
+train_cfg = None
+test_cfg = dict(metrics=['PSNR', 'SSIM'], crop_border=scale,
+                convert_to='y', window_size={window})
+train_pipeline = [
+    dict(type='LoadImageFromFile', io_backend='disk', key='lq',
+         flag='color', channel_order='rgb'),
+    dict(type='LoadImageFromFile', io_backend='disk', key='gt',
+         flag='color', channel_order='rgb'),
+    dict(type='RescaleToZeroOne', keys=['lq', 'gt']),
+    dict(type='PairedRandomCrop', gt_patch_size={patch}),
+    dict(type='Flip', keys=['lq', 'gt'], flip_ratio=0.5,
+         direction='horizontal'),
+    dict(type='Flip', keys=['lq', 'gt'], flip_ratio=0.5,
+         direction='vertical'),
+    dict(type='RandomTransposeHW', keys=['lq', 'gt'], transpose_ratio=0.5),
+    dict(type='Collect', keys=['lq', 'gt'], meta_keys=['lq_path', 'gt_path']),
+    dict(type='ImageToTensor', keys=['lq', 'gt'])
+]
+test_pipeline = [
+    dict(type='LoadImageFromFile', io_backend='disk', key='lq',
+         flag='color', channel_order='rgb'),
+    dict(type='LoadImageFromFile', io_backend='disk', key='gt',
+         flag='color', channel_order='rgb'),
+    dict(type='RescaleToZeroOne', keys=['lq', 'gt']),
+    dict(type='Collect', keys=['lq', 'gt'], meta_keys=['lq_path', 'gt_path']),
+    dict(type='ImageToTensor', keys=['lq', 'gt'])
+]
+data_dir = 'data'
+data = dict(
+    workers_per_gpu={workers},
+    train_dataloader=dict(samples_per_gpu={batch}, drop_last=True),
+    train=dict(
+        type='RepeatDataset',
+        times=1000,
+        dataset=dict(type='SRFolderDataset',
+                     lq_folder=f'{{data_dir}}/DIV2K/LRbicx{scale}',
+                     gt_folder=f'{{data_dir}}/DIV2K/HR',
+                     pipeline=train_pipeline, scale=scale)),
+    val=dict(type='SRFolderDataset',
+             lq_folder=f'{{data_dir}}/Set5/LRbicx{scale}',
+             gt_folder=f'{{data_dir}}/Set5/GTmod12',
+             pipeline=test_pipeline, scale=scale),
+    test=dict(type='SRFolderDataset',
+              lq_folder=f'{{data_dir}}/Set5/LRbicx{scale}',
+              gt_folder=f'{{data_dir}}/Set5/GTmod12',
+              pipeline=test_pipeline, scale=scale))
+optimizers = dict(type='Adam', lr=1.e-4, betas=(0.9, 0.999))
+total_iters = {iters}
+lr_config = dict(policy='Step', by_epoch=False, step=[200000], gamma=0.5)
+checkpoint_config = dict(interval={interval}, save_optimizer=True,
+                         by_epoch=False)
+evaluation = dict(interval={iters}, save_image=False)
+log_config = dict(interval=1)
+work_dir = './work_dirs/basic_{name}'
+test_checkpoint_path = './work_dirs/basic_{name}/latest'
+"""
+
+
+def write_basic_config(root: Path, name: str, workers: int = 8) -> str:
+    """``root``/basic_{name}.py: BASIC_CONFIG with BASIC_NETS[name]'s
+    generator, scale and window and BASIC_TRAIN's batch, patch,
+    iterations and checkpoint interval (an eval at the last iteration)."""
+    gen, scale, window = BASIC_NETS[name]
+    path = root / f"basic_{name}.py"
+    path.write_text(BASIC_CONFIG.format(
+        name=name, scale=scale, generator=repr(gen), window=window,
+        workers=workers, **BASIC_TRAIN))
+    return str(path)
+
+
+def write_basic_data(root: Path) -> None:
+    """data/Set5/{GTmod12,LRbicx<s>} and data/DIV2K/{HR,LRbicx<s>} under
+    ``root`` for each scale of BASIC_NETS: seeded smooth pictures of
+    BASIC_SET5's and BASIC_HR's shapes and their MATLAB-bicubic LR images
+    (the port's imresize_np), uint8 PNGs by the port's codec; and
+    data/wide.png, an LR picture of BASIC_WIDE."""
+    from ciaosr_torch.core.resize import imresize_np
+    from ciaosr_torch.data.imageio import write_png
+
+    rng = np.random.default_rng(25)
+    scales = sorted({s for _, s, _ in BASIC_NETS.values()})
+    base = root / "data"
+    for folder, gt_sub, pictures in (
+            ("Set5", "GTmod12", BASIC_SET5),
+            ("DIV2K", "HR", [(f"{i + 1:04d}", hw)
+                             for i, hw in enumerate(BASIC_HR)])):
+        for sub in [gt_sub] + [f"LRbicx{s}" for s in scales]:
+            (base / folder / sub).mkdir(parents=True)
+        for name, (h, w) in pictures:
+            gt = smooth_picture(rng, h, w)
+            write_png(str(base / folder / gt_sub / f"{name}.png"), gt)
+            for s in scales:
+                lq = imresize_np(gt.astype(np.float32) / 255.0, scale=1 / s)
+                write_png(str(base / folder / f"LRbicx{s}" / f"{name}.png"),
+                          np.clip(np.round(lq * 255.0), 0,
+                                  255).astype(np.uint8))
+    write_png(str(base / "wide.png"), smooth_picture(rng, *BASIC_WIDE))
+
+
+def basic_flops(net, h: int, w: int) -> float:
+    """The FLOPs of a fixed-scale net's forward on an h × w LR picture:
+    2·C_in·C_out·k² a conv's output pixel, the trunk's convs at h × w,
+    upsampling step j's conv at the resolution the steps before it made,
+    conv_last at the output's."""
+    import math
+
+    import torch.nn as nn
+
+    total = 0.0
+    for name, m in net.named_modules():
+        if not isinstance(m, nn.Conv2d):
+            continue
+        if name.startswith("upsample."):
+            f = math.prod(net.upsample.factors[:int(name.split(".")[1])])
+        elif name == "conv_last":
+            f = net.upscale_factor
+        else:
+            f = 1
+        total += 2.0 * m.weight.numel() * h * w * f * f
+    return total
+
+
+def basic_warm_eval(res, samples, reps: int = 3) -> tuple[list, list]:
+    """Each sample's ``forward_test`` once to warm cuDNN, then ``reps``
+    passes over the samples timed by the host clock (a call ends in its
+    output's copy to the host). Returns the outputs and each sample's
+    median ms."""
+    for smp in samples:
+        res.forward_test(smp["lq"])
+    times = [[] for _ in samples]
+    for _ in range(reps):
+        outs = []
+        for smp, ts in zip(samples, times):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(res.forward_test(smp["lq"]))
+            ts.append((time.perf_counter() - t) * 1e3)
+    return outs, [statistics.median(ts) for ts in times]
+
+
+def basic_profile(label: str, fn, top: int = 6) -> None:
+    """One warm call of ``fn`` by kernel (torch.profiler, after one
+    warm-up): the device total, its share of the call's host wall (one
+    stream: the device's busy share) and the ``top`` kernels, whose names
+    say which algorithm cuDNN runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = {}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 on_trace_ready=lambda p: seen.update(evs=p.key_averages()),
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            prof.step()
+    evs = sorted((e for e in seen["evs"] if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in evs) / 1e3
+    log(f"basic profile of {label}: device {total:.2f} ms of a {wall:.2f} ms "
+        f"call (busy {total / wall:.3f}) in "
+        f"{sum(e.count for e in evs)} launches; top: " + "; ".join(
+            f"{e.key[:70]} {e.device_time_total / 1e3:.2f} ms x{e.count}"
+            for e in evs[:top]))
+
+
+# the metrics of phase "basic", run by a Python in which ``import cv2``
+# fails: NIQE (y and gray) of one output (argv[1], a uint8 BGR .npy) and the
+# four matting metrics on a seeded 512² matte; prints one JSON object
+BASIC_METRICS_CODE = r"""
+import json, sys, time
+sys.modules["cv2"] = None
+import numpy as np
+from ciaosr_torch.core import metrics as m
+try:
+    import cv2
+    sys.exit("cv2 importable")
+except ImportError:
+    pass
+out = {}
+
+
+def timed(key, fn, *args, **kw):
+    ms = []
+    for _ in range(2):   # the first call, then a warm one
+        t = time.perf_counter()
+        v = fn(*args, **kw)
+        ms.append((time.perf_counter() - t) * 1e3)
+    out[key] = [v] + ms
+
+
+img = np.load(sys.argv[1])
+for ct in ("y", "gray"):
+    timed("niqe_" + ct, m.niqe, img, crop_border=4, convert_to=ct)
+rng = np.random.default_rng(0)
+y, x = np.mgrid[0:512, 0:512] / 512
+alpha = np.clip(np.round((np.sin(6 * y + 4 * x) + 1) * 160 - 32), 0,
+                255).astype(np.uint8)
+trimap = np.full(alpha.shape, 128, np.uint8)
+trimap[alpha == 0], trimap[alpha == 255] = 0, 255
+pred = np.clip(alpha + rng.integers(-40, 41, alpha.shape), 0,
+               255).astype(np.uint8)
+pred[trimap == 0], pred[trimap == 255] = 0, 255
+for name in ("sad", "mse", "gradient_error", "connectivity"):
+    timed(name, getattr(m, name), alpha, trimap, pred)
+out["imported"] = sorted({k.split(".")[0] for k, v in sys.modules.items()
+                          if v is not None and k.split(".")[0] in (
+                              "cv2", "PIL", "jax", "jaxlib", "flax",
+                              "ciaosr_tpu")})
+print(json.dumps(out))
+"""
+
+
+def basic_metrics(img_bgr: np.ndarray, tmp: Path) -> None:
+    """BASIC_METRICS_CODE in a subprocess from the repository root: every
+    score finite, nothing of OpenCV, Pillow or JAX imported; logs each
+    score and its ms."""
+    npy = tmp / "basic_output.npy"
+    np.save(npy, img_bgr)
+    run = subprocess.run(
+        [sys.executable, "-c", BASIC_METRICS_CODE, str(npy)],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=300)
+    if run.returncode:
+        raise AssertionError(f"basic metrics without cv2: rc "
+                             f"{run.returncode}\n{run.stderr[-3000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    imported = got.pop("imported")
+    log("basic metrics (cv2 unimportable, host; ms of the first call, "
+        "then a warm one): " + "; ".join(
+            f"{k} {v:.6f} in {first:.1f}, {warm:.1f} ms"
+            for k, (v, first, warm) in got.items())
+        + f" on a {img_bgr.shape[0]}x{img_bgr.shape[1]} output and a "
+        "512^2 matte")
+    if imported or not all(np.isfinite(v) for v, _, _ in got.values()):
+        raise AssertionError(f"basic metrics: {got}, imported {imported}")
+
+
+def basic_eval(drive, kind: str, smi: str, name: str, path: str) -> tuple:
+    """``tools.test`` with random weights on the config at ``path`` (exactly
+    no launch, finite PSNR and SSIM), then the same restorer (seed 0, as
+    the CLI builds it) warm: its metrics equal to the CLI's (≤ 1e-6), the
+    ms a picture, MP/s and peak memory beside the f32 bound; its output on
+    the last picture against the same weights on the CPU. Returns the
+    config and the restorer's outputs."""
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.models.builder import build_model
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import test as cli_test
+
+    cfg = Config.fromfile(path)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, _, secs = drive(f"basic {name} tools.test (random weights)",
+                             lambda: cli_test.main([path, "random"]), [],
+                             list(kernels.LAUNCHES))
+    if not all(np.isfinite(metrics[k]) for k in ("PSNR", "SSIM")):
+        raise AssertionError(f"basic {name} tools.test: {metrics}")
+    res = build_model(cfg.model, test_cfg=cfg.test_cfg)
+    dataset = build_dataset(cfg.data["test"])
+    samples = [dataset[i] for i in range(len(dataset))]
+    outs, ms = basic_warm_eval(res, samples)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mine = {k: float(np.mean([res.evaluate(o, smp["gt"])[k]
+                              for o, smp in zip(outs, samples)]))
+            for k in ("PSNR", "SSIM")}
+    if any(abs(mine[k] - metrics[k]) > 1e-6 for k in mine):
+        raise AssertionError(f"basic {name}: tools.test {metrics}, the same "
+                             f"restorer {mine}")
+    s = res.generator.upscale_factor
+    lrs = [smp["lq"].shape[:2] for smp in samples]
+    flops = sum(basic_flops(res.generator, h, w) for h, w in lrs)
+    mp = sum(h * w * s * s for h, w in lrs) / 1e6
+    log(f"e2e ({kind}; {smi}): basic {name} x{s} (BasicRestorer "
+        f"{res.generator.__class__.__name__}, f32, TF32 off, window "
+        f"{cfg.test_cfg['window_size']}) tools.test on {len(samples)} "
+        f"pictures {[tuple(hw) for hw in lrs]} in {secs:.2f} s (cold), "
+        f"PSNR {metrics['PSNR']:.4f} SSIM {metrics['SSIM']:.4f}; warm "
+        f"forward_test {[round(t, 2) for t in ms]} ms (each the median of "
+        f"3), "
+        f"{statistics.median(ms):.2f} ms a picture (median), "
+        f"{mp / sum(ms) * 1e3:.3f} MP/s over the {mp:.3f} MP out, "
+        f"{flops / 1e12:.3f} TFLOP: {tflops(flops, sum(ms)):.2f} TFLOP/s, "
+        f"f32 bound {flops / PEAK_F32_FLOPS * 1e3:.2f} ms "
+        f"({sum(ms) / (flops / PEAK_F32_FLOPS * 1e3):.1f}x); peak "
+        f"{peak:.3f} GiB")
+
+    cpu = build_model(cfg.model, test_cfg=cfg.test_cfg, device="cpu")
+    lq = samples[-1]["lq"]
+    t0 = time.perf_counter()
+    ref = cpu.predict(lq)
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.abs(outs[-1] - ref).max() / np.abs(ref).max())
+    log(f"basic {name}: the card's output on {lq.shape[0]}x{lq.shape[1]} "
+        f"against the same weights on the CPU ({cpu_s:.2f} s): "
+        f"max|d|/max|ref| {rel:.3e} (limit {BASIC_CPU_TOL:g})")
+    if not rel <= BASIC_CPU_TOL:
+        raise AssertionError(f"basic {name}: card vs CPU {rel}")
+    basic_profile(f"{name}'s forward on {lq.shape[0]}x{lq.shape[1]}",
+                  lambda: res.forward_test(lq))
+    return outs
+
+
+def basic_infer(drive, path: str) -> None:
+    """``tools.inference --tile 0`` on the rdn config's last Set5 LR
+    picture (the PNG's shape is the picture's × the net's scale), and
+    ``--tile BASIC_TILE`` on a larger picture: the ValueError naming
+    ``--tile 0``. Neither launches a kernel."""
+    from ciaosr_torch.data.imageio import imread
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.tools import inference as cli_inference
+
+    scale = BASIC_NETS["rdn"][1]
+    src = f"data/Set5/LRbicx{scale}/{BASIC_SET5[-1][0]}.png"
+    (written,), _, secs = drive(
+        "basic rdn tools.inference --tile 0",
+        lambda: cli_inference.main([path, "random", "--img", src, "--scale",
+                                    str(scale), "--tile", "0", "--out",
+                                    "basic_sr.png"]), [],
+        list(kernels.LAUNCHES))
+    h, w = imread(src).shape[:2]
+    got = imread(written).shape
+    log(f"basic rdn tools.inference --tile 0: {h}x{w} -> {got} in "
+        f"{secs:.2f} s")
+    if got != (h * scale, w * scale, 3):
+        raise AssertionError(f"basic inference: {got}")
+
+    def tiled():
+        try:
+            cli_inference.main([path, "random", "--img", "data/wide.png",
+                                "--scale", str(scale), "--tile",
+                                str(BASIC_TILE)])
+        except ValueError as e:
+            return str(e)
+        return None
+
+    msg, _, _ = drive(f"basic rdn tools.inference --tile {BASIC_TILE}",
+                      tiled, [], list(kernels.LAUNCHES))
+    log(f"basic rdn tools.inference --tile {BASIC_TILE} on "
+        f"{BASIC_WIDE[0]}x{BASIC_WIDE[1]}: ValueError {msg!r}")
+    if not msg or "--tile 0" not in msg:
+        raise AssertionError(f"basic inference --tile: {msg!r}")
+
+
+def basic_train(drive, kind: str, smi: str, path: str) -> None:
+    """``tools.train --deterministic`` on the rdn config (BASIC_TRAIN:
+    checkpoints at its interval and the end, an eval at the end): no
+    launch, finite losses, every parameter changed; ``iter_<last>.pth``
+    loads strictly; ``tools.test`` on the work_dir gives the metrics of
+    the trained restorer in memory, and a restorer loaded by the CLI's
+    own ``load_weights`` gives its outputs bit for bit; the CLI loop's
+    iteration, a warm step, the loader's share and alone, peak memory,
+    the f32 bound, and one step by kernel."""
+    from ciaosr_torch.convert.load import load_torch_checkpoint
+    from ciaosr_torch.data.datasets import build_dataset
+    from ciaosr_torch.eval.evaluator import evaluate_dataset
+    from ciaosr_torch.models.builder import build_generator, build_model
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.train.checkpoint import list_steps
+    from ciaosr_torch.train.trainer import to_device
+    from ciaosr_torch.tools import test as cli_test
+
+    cfg = Config.fromfile(path)
+    iters, every = BASIC_TRAIN["iters"], BASIC_TRAIN["interval"]
+    before = build_generator(cfg.model["generator"], device="cpu",
+                             seed=0).state_dict()
+    probe = TrainProbe()
+    try:
+        trainer, peak, secs = train_cli_run(
+            drive, probe, f"basic rdn {iters} iterations (--deterministic)",
+            [path, "--deterministic"], {})
+        changed_parameters(trainer.state.generator, before)
+        work = Path(trainer.work_dir)
+        hooks = set(range(every, iters + 1, every)) | {iters}
+        ckpts = list_steps(str(work / "checkpoints"))
+        if ckpts != sorted(hooks):
+            raise AssertionError(f"basic train: checkpoints {ckpts}")
+        ms, share, n = probe.loop_stats(hooks)
+    finally:
+        probe.close()
+    res = build_model(cfg.model, test_cfg=cfg.test_cfg, seed=1)
+    res.generator.load_state_dict(load_torch_checkpoint(
+        str(work / "checkpoints" / f"iter_{iters}.pth"), cfg.model,
+        strict=True), strict=True)
+
+    dataset = build_dataset(cfg.data["test"])
+    want = evaluate_dataset(trainer.restorer, dataset, progress=lambda *_: 0)
+    got, _, tsecs = drive("basic rdn tools.test on the work_dir",
+                          lambda: cli_test.main([path, str(work)]), [],
+                          list(kernels.LAUNCHES))
+    fresh = build_model(cfg.model, test_cfg=cfg.test_cfg, seed=2)
+    cli_test.load_weights(fresh, str(work), cfg)
+    same = [np.array_equal(fresh.predict(dataset[i]["lq"]),
+                           trainer.restorer.predict(dataset[i]["lq"]))
+            for i in range(len(dataset))]
+    log(f"basic rdn tools.test on the work_dir: {tsecs:.2f} s, PSNR "
+        f"{got['PSNR']:.6f} SSIM {got['SSIM']:.6f}; the trained restorer "
+        f"in memory PSNR {want['PSNR']:.6f} SSIM {want['SSIM']:.6f}; "
+        f"outputs bit-equal to a restorer the CLI's load_weights loaded: "
+        f"{same}; iter_{iters}.pth loaded strictly")
+    if any(got[k] != want[k] for k in ("PSNR", "SSIM")) or not all(same):
+        raise AssertionError(f"basic train: tools.test {got}, in memory "
+                             f"{want}, outputs equal {same}")
+
+    b = BASIC_TRAIN["batch"]
+    lr_side = BASIC_TRAIN["patch"] // BASIC_NETS["rdn"][1]
+    warm = warm_steps(trainer, cfg)
+    step = statistics.median(warm)
+    rate, _, workers = loader_rate(cfg)
+    flops = 3 * basic_flops(trainer.restorer.generator, lr_side,
+                            lr_side) * b
+    log(f"e2e ({kind}; {smi}): basic rdn train (BasicRestorer RDNNet x4, "
+        f"f32, TF32 off, --deterministic), batch {b} x {lr_side}^2 LR: the "
+        f"CLI loop {ms:.1f} ms/iteration (median of {n}, loader wait "
+        f"included), loader wait {share:.3f} of it; warm step {step:.1f} "
+        f"ms (median of {[round(t, 1) for t in warm]}), "
+        f"{b / step * 1e3:.2f} samples/s; {flops / 1e12:.3f} TFLOP a step "
+        f"(3x the forward): {tflops(flops, step):.2f} TFLOP/s, f32 bound "
+        f"{flops / PEAK_F32_FLOPS * 1e3:.2f} ms "
+        f"({step / (flops / PEAK_F32_FLOPS * 1e3):.1f}x); peak {peak:.2f} "
+        f"GiB; the loader alone ({workers} threads) {rate:.2f} batches/s "
+        f"({rate * b:.1f} samples/s); the run {secs:.2f} s")
+    train_ds, rng = build_dataset(cfg.data["train"]), np.random.default_rng(0)
+    smps = [train_ds.load(i, rng) for i in range(b)]
+    batch = to_device({k: np.stack([smp[k] for smp in smps])
+                       for k in ("lq", "gt")}, trainer.restorer.device)
+    basic_profile(f"one train step at batch {b}",
+                  lambda: trainer.train_step(trainer.state, batch))
+
+
+def basic_phase(drive, kind: str, smi: str) -> None:
+    """Phase "basic": the fixed-scale BasicRestorer, in a temporary
+    working directory holding seeded Set5- and DIV2K-shaped folders
+    (``write_basic_data``) and one config for each of BASIC_NETS
+    (``write_basic_config``: RDN's published ×4 net; EDSR's at ×3 with a
+    window of 8), f32 params, TF32 off:
+
+    1. each config through ``tools.test`` with random weights, then the
+       same restorer warm, and on the CPU for one picture (``basic_eval``);
+    2. ``tools.inference`` on the rdn config (``basic_infer``);
+    3. ``tools.train`` on the rdn config, then ``tools.test`` on its
+       work_dir (``basic_train``);
+    4. NIQE and the matting metrics in a Python where cv2 is unimportable
+       (``basic_metrics``).
+
+    Each CLI run is driven with every launch count at 0 and none may
+    move: no kernel of the port is on this path."""
+    from ciaosr_torch.core.color import tensor2img
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_basic_data(root)
+        paths = {name: write_basic_config(root, name) for name in BASIC_NETS}
+        log(f"basic: pictures and configs written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        os.chdir(root)
+        try:
+            outs = {}
+            for name, path in paths.items():
+                t0 = time.perf_counter()
+                outs[name] = basic_eval(drive, kind, smi, name, path)
+                log(f"basic {name} eval: {time.perf_counter() - t0:.2f} s")
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            basic_infer(drive, paths["rdn"])
+            log(f"basic inference: {time.perf_counter() - t0:.2f} s")
+            t0 = time.perf_counter()
+            basic_train(drive, kind, smi, paths["rdn"])
+            log(f"basic train: {time.perf_counter() - t0:.2f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            basic_metrics(tensor2img(outs["rdn"][0]), root)
+            log(f"basic metrics: {time.perf_counter() - t0:.2f} s")
+        finally:
+            os.chdir(cwd)
+
+
 def drive(name, fn, ran, idle):
     """fn() as one path: every launch count set to 0 just before it and
     read just after; each kernel of ``ran`` launched, none of ``idle``.
@@ -3817,11 +4355,12 @@ def main() -> int:
     """``--full-image``: build, then only time_full_images;
     ``--kernel-times``: build, then only time_kernels; ``--train-cli``:
     build, then only phase train_cli; ``--gan``: build, then only phase
-    gan (none prints a result line)."""
+    gan; ``--basic``: only phase basic, which needs no kernel (none prints
+    a result line)."""
     t_start = time.perf_counter()
     flags = sys.argv[1:]
     if flags not in ([], ["--full-image"], ["--kernel-times"],
-                     ["--train-cli"], ["--gan"]):
+                     ["--train-cli"], ["--gan"], ["--basic"]):
         print(f"chip_smoke: unknown arguments {flags}", file=sys.stderr)
         return 2
     full_only = flags == ["--full-image"]
@@ -3849,10 +4388,15 @@ def main() -> int:
     # the f32 references compute in full f32: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"build: {_build.build_all():.2f} s ({_build.build_dir()})")
 
     def mark(phase):   # where the script's own time goes
         log(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f} s")
+
+    if flags == ["--basic"]:
+        basic_phase(drive, kind, smi)
+        mark("the basic phase")
+        return 0
+    log(f"build: {_build.build_all():.2f} s ({_build.build_dir()})")
 
     if flags == ["--train-cli"]:
         launches, train_rows = train_cli_phase(drive, kind, smi)
@@ -4402,6 +4946,10 @@ def main() -> int:
             log(f"kernel {r['name']}: launches={r['launches']} (gan phase "
                 f"{r['launches_gan']})")
     mark("the gan phase")
+
+    # ---- the fixed-scale restorer: no kernel of the port on its path
+    basic_phase(drive, kind, smi)
+    mark("the basic phase")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -39,6 +39,7 @@ class Registry:
 
 
 MODELS = Registry("models")
+BACKBONES = Registry("backbones")
 DATASETS = Registry("datasets")
 PIPELINES = Registry("pipelines")
 LOSSES = Registry("losses")

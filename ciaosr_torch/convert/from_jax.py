@@ -4,7 +4,9 @@ Inverts each step of ciaosr_tpu/convert/torch_weights.py::convert_generator
 (RDN, EDSR and SwinIR generators): Dense (in, out) → Linear (out, in); HWIO →
 OIHW; LayerNorm ``scale`` → ``weight``; the PReLU scalar → a (1,) weight;
 ``rdb_i/layers_j`` → ``rdbs.i.layers.j.conv``; ``gff_0/1`` → ``gff.0/1``;
-``body_i/conv1`` → ``body.i.conv1``; ``patch_embed_norm`` →
+``body_i/conv1`` → ``body.i.conv1``; a fixed-scale net's
+``upsample/up_i`` → ``upsample.i`` beside its trunk's keys
+(``basic_sr_state_dict_from_jax``); ``patch_embed_norm`` →
 ``patch_embed.norm``; ``layers_i/blocks_j/mlp_fc1`` →
 ``layers.i.residual_group.blocks.j.mlp.fc1`` (and the SwinIR
 converter's other block keys); ``cs_attn/*_conv``/``*_prelu``/``down`` →
@@ -19,6 +21,8 @@ ema_params, d_vars) carries into the port.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -140,6 +144,30 @@ def swinir_state_dict_from_jax(enc: dict) -> dict:
 _ENCODERS = {"rdn": rdn_state_dict_from_jax,
              "edsr": edsr_state_dict_from_jax,
              "swinir": swinir_state_dict_from_jax}
+
+
+def _n_leaves(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_n_leaves(v) for v in tree.values())
+    return 1
+
+
+def basic_sr_state_dict_from_jax(params: dict, family: str) -> dict:
+    """Flax params of an EDSRNet (``family`` 'edsr') or RDNNet ('rdn') →
+    the port's keys (models/basic_sr.py): ``trunk/*`` as the encoder's
+    converter gives them, ``upsample/up_i`` → ``upsample.i``,
+    ``conv_last``. Every JAX leaf becomes one tensor; a leaf left over is
+    a KeyError."""
+    p = params.get("params", params)
+    sd = _ENCODERS[family](p["trunk"])
+    ups = p["upsample"]
+    for i in range(len(ups)):
+        _conv(ups[f"up_{i}"], f"upsample.{i}", sd)
+    _conv(p["conv_last"], "conv_last", sd)
+    if len(sd) != _n_leaves(p):
+        raise KeyError(f"{_n_leaves(p) - len(sd)} JAX leaves left over by "
+                       f"the {family} converter")
+    return sd
 
 
 def state_dict_from_jax(params: dict, *, feat_dim: int, n_hidden: int = 4,

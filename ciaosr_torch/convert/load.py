@@ -6,7 +6,10 @@ dict is unwrapped (``state_dict``), the EMA copy selected on request, the
 ``generator.`` prefix stripped (a raw SwinIR-family checkpoint, whose
 keys the reference rewrites with ``'^' → 'generator.'``, is taken as it
 is), and the keys audited (convert/audit.py) against the generator the
-config builds.
+config builds. A fixed-scale generator (EDSRNet / RDNNet, a
+``BasicRestorer`` config) loads from the port's own training
+checkpoints only: the JAX package converts no reference ``.pth`` of one
+either.
 """
 
 from __future__ import annotations
@@ -35,16 +38,36 @@ def generator_shapes(gen_cfg: dict) -> dict:
     return {k: tuple(v.shape) for k, v in net.state_dict().items()}
 
 
+def read_pth(path_or_raw) -> dict:
+    """A ``.pth`` file's contents (tensors on the CPU); loaded contents
+    are returned as they are."""
+    if isinstance(path_or_raw, dict):
+        return path_or_raw
+    # mmcv checkpoints carry a meta dict of plain objects beside the
+    # tensors, which weights_only (the default since PyTorch 2.6) refuses
+    return torch.load(path_or_raw, map_location="cpu", weights_only=False)
+
+
 def checkpoint_state_dict(path_or_raw) -> dict:
     """The tensors of a ``.pth`` file (or of its loaded contents): the
     mmcv ``state_dict`` entry, or the file's dict itself."""
-    raw = path_or_raw
-    if not isinstance(raw, dict):
-        # mmcv checkpoints carry a meta dict of plain objects beside the
-        # tensors, which weights_only (the default since PyTorch 2.6)
-        # refuses
-        raw = torch.load(raw, map_location="cpu", weights_only=False)
+    raw = read_pth(path_or_raw)
     return raw.get("state_dict", raw)
+
+
+def is_port_checkpoint(raw: dict) -> bool:
+    """Whether loaded contents are a checkpoint of the port's own
+    training (train/checkpoint.py: a top-level ``step`` and the torch
+    version in ``meta``)."""
+    meta = raw.get("meta")
+    return "step" in raw and isinstance(meta, dict) and "torch" in meta
+
+
+def _fixed_scale(gen_cfg: dict) -> bool:
+    from ciaosr_torch.config.registry import BACKBONES
+    import ciaosr_torch.models.basic_sr  # noqa: F401  (registry)
+
+    return gen_cfg.get("type") in BACKBONES
 
 
 def has_ema(state_dict: dict) -> bool:
@@ -59,8 +82,16 @@ def load_torch_checkpoint(path, model_cfg: dict, *, ema: bool = False,
     strict=True)``. ``ema=True`` takes the EMA copy RealCiaoSR saves
     beside the live generator (the weights its inference uses);
     ``strict=True`` makes an unexplained key an error
-    (convert/audit.py)."""
-    sd = checkpoint_state_dict(path)
+    (convert/audit.py). A fixed-scale generator takes a checkpoint of the
+    port's own training only (KeyError otherwise)."""
+    raw = read_pth(path)
+    if _fixed_scale(model_cfg["generator"]) and not is_port_checkpoint(raw):
+        raise KeyError(
+            f"a reference .pth of a {model_cfg['generator']['type']} "
+            "(BasicRestorer) config is not loadable: its layout has no "
+            "converter, in the JAX package either; the port loads the "
+            "checkpoints of its own training runs (tools.train work_dirs)")
+    sd = raw.get("state_dict", raw)
 
     if ema:
         pfx = "generator_ema."

@@ -1,7 +1,8 @@
 """Color conversions and tensor→image rounding semantics (numpy).
 
 Transcribed from ciaosr_tpu/core/color.py: mmcv ``bgr2ycbcr(y_only=True)``
-as the eval protocol uses it, and mmedit ``tensor2img``. ITU-R BT.601 with
+as the eval protocol uses it, its inverse ``ycbcr2rgb``, and mmedit
+``tensor2img``. ITU-R BT.601 with
 TV range: Y = 65.481 R + 128.553 G + 24.966 B + 16 for inputs in [0, 1].
 """
 
@@ -36,6 +37,17 @@ def rgb2ycbcr(img: np.ndarray, y_only: bool = False) -> np.ndarray:
 def bgr2ycbcr(img: np.ndarray, y_only: bool = False) -> np.ndarray:
     """BGR variant (channel-reversed input)."""
     return rgb2ycbcr(np.ascontiguousarray(img[..., ::-1]), y_only=y_only)
+
+
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    """YCbCr → RGB for float input in [0, 1], as the JAX package computes
+    it: with the inverse of the forward matrix's transpose, which is not
+    the inverse of :func:`rgb2ycbcr` (mmcv's ``ycbcr2rgb`` is); no metric
+    calls it."""
+    img = img.astype(np.float64) * 255.0
+    inv = np.linalg.inv(_YCBCR_RGB.T) * 255.0
+    out = (img - _YCBCR_BIAS) @ inv
+    return (out / 255.0).astype(np.float32)
 
 
 def tensor2img(arr: np.ndarray, out_type=np.uint8, min_max=(0.0, 1.0),

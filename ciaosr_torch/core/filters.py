@@ -3,15 +3,18 @@
 ``filter2d`` is ``cv2.filter2D(img, -1, kernel)``: a correlation (not a
 convolution) anchored at the kernel's centre (``ksize // 2`` on an even
 axis), with reflect-101 borders (``gfedcb|abcdefgh|gfedcba``, repeated
-for images smaller than the kernel's reach). It computes in float64 on
-the kernel cv2 would use (rounded to float32 for a float32 image) and
-returns the image's dtype, the trailing channel of 1 dropped as cv2
-drops it. Three routes, by the kernel's shape and size:
+for images smaller than the kernel's reach) or, with
+``border="replicate"``, cv2's BORDER_REPLICATE (``aaa|abcdefgh|hhh``).
+It computes in float64 on the kernel cv2 would use (rounded to float32
+for a float32 image) and returns the image's dtype, the trailing channel
+of 1 dropped as cv2 drops it. Three routes, by the kernel's shape and
+size:
 
-* an outer product (USM's 51² Gaussian ``k @ k.T``): two 1-D passes;
+* an outer product (USM's 51² Gaussian ``k @ k.T``): two 1-D passes
+  (reflect-101 only);
 * a small kernel (≤ ``DIRECT_TAPS`` taps): a direct correlation;
 * a larger one (the blur zoo's kernels, up to 21²): an FFT product over
-  the reflect-101 padded image.
+  the padded image.
 
 The crossover is where the two routes took the same time on a 400² RGB
 image (7²: about 19 ms each on one core; at 9² the FFT was 1.4× faster).
@@ -22,7 +25,8 @@ in forked loader workers.
 OpenCV's bit-exact variant: its fixed tables for σ ≤ 0 at ksize 1-9 and
 its centre values of 1 for even sizes), and ``rgb2gray`` is
 ``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` on float32 images, bit for bit
-(the Poisson noise's draws depend on its last bit).
+(the Poisson noise's draws depend on its last bit); ``bgr2gray`` is
+``COLOR_BGR2GRAY`` (NIQE's gray conversion), bit for bit.
 """
 
 from __future__ import annotations
@@ -81,26 +85,40 @@ def _fma32(a, b, c):
 GRAY_LANES = 8
 
 
-def rgb2gray(img: np.ndarray) -> np.ndarray:
-    """(H, W) gray of an (H, W, 3) RGB float32 image, ``cv2.cvtColor(img,
-    cv2.COLOR_RGB2GRAY)`` bit for bit: BT.601 weights as float32
-    constants; the vector loop computes fma(b, wb, fma(r, wr, g·wg)); in a
-    row's tail, the scalar loop's first block of 4 takes fma(b, wb,
-    fma(g, wg, r·wr)) for its 1st and 3rd pixel."""
+def _gray(img: np.ndarray, weights, name: str) -> np.ndarray:
+    """OpenCV's float32 gray conversion with BT.601 ``weights`` (float32
+    constants) in the image's channel order c0, c1, c2: the vector loop
+    computes fma(c2, k2, fma(c0, k0, c1·k1)); in a row's tail, the scalar
+    loop's first block of 4 takes fma(c2, k2, fma(c1, k1, c0·k0)) for its
+    1st and 3rd pixel."""
     img = np.asarray(img)
     if img.dtype != np.float32 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"rgb2gray takes (H, W, 3) float32, got "
+        raise ValueError(f"{name} takes (H, W, 3) float32, got "
                          f"{img.dtype} {img.shape}")
-    wr, wg, wb = (np.float32(v) for v in (0.299, 0.587, 0.114))
-    r, g, b = img[..., 0], img[..., 1], img[..., 2]
-    out = _fma32(b, wb, _fma32(r, wr, g * wg))
+    k0, k1, k2 = (np.float32(v) for v in weights)
+    c0, c1, c2 = img[..., 0], img[..., 1], img[..., 2]
+    out = _fma32(c2, k2, _fma32(c0, k0, c1 * k1))
     w = img.shape[1]
     start = w // GRAY_LANES * GRAY_LANES
     if w - start >= 4:          # the scalar loop's block of 4
         first = [start, start + 2]
-        out[:, first] = _fma32(b[:, first], wb, _fma32(
-            g[:, first], wg, r[:, first] * wr))
+        out[:, first] = _fma32(c2[:, first], k2, _fma32(
+            c1[:, first], k1, c0[:, first] * k0))
     return out
+
+
+def rgb2gray(img: np.ndarray) -> np.ndarray:
+    """(H, W) gray of an (H, W, 3) RGB float32 image, ``cv2.cvtColor(img,
+    cv2.COLOR_RGB2GRAY)`` bit for bit."""
+    return _gray(img, (0.299, 0.587, 0.114), "rgb2gray")
+
+
+def bgr2gray(img: np.ndarray) -> np.ndarray:
+    """(H, W) gray of an (H, W, 3) BGR float32 image, ``cv2.cvtColor(img,
+    cv2.COLOR_BGR2GRAY)`` bit for bit. cv2 applies its fma order to the
+    channels as they lie in memory, so this is not ``rgb2gray`` of the
+    channel-reversed image (which differs in the last bit)."""
+    return _gray(img, (0.114, 0.587, 0.299), "bgr2gray")
 
 
 def reflect101_index(n: int, before: int, after: int) -> np.ndarray:
@@ -113,6 +131,20 @@ def reflect101_index(n: int, before: int, after: int) -> np.ndarray:
     period = 2 * (n - 1)
     p = np.mod(p, period)
     return np.where(p >= n, period - p, p)
+
+
+def border_index(n: int, before: int, after: int,
+                 border: str) -> np.ndarray:
+    """Source indices of an axis of ``n`` padded by ``before`` / ``after``
+    with the cv2 border ``border``: 'reflect101' (BORDER_REFLECT_101) or
+    'replicate' (BORDER_REPLICATE, ``aaa|abcd|ddd``)."""
+    if border == "replicate":
+        return np.clip(np.arange(-before, n + after), 0, n - 1)
+    return reflect101_index(n, before, after)
+
+
+# the scipy.ndimage mode of each cv2 border
+_SCIPY_MODE = {"reflect101": "mirror", "replicate": "nearest"}
 
 
 def _separable(k: np.ndarray):
@@ -140,26 +172,27 @@ def _correlate_axis(img64: np.ndarray, taps: np.ndarray, axis: int):
     return np.take(out, np.arange(a, a + n), axis=axis)
 
 
-def _direct(img64: np.ndarray, k: np.ndarray) -> np.ndarray:
+def _direct(img64: np.ndarray, k: np.ndarray, border: str) -> np.ndarray:
     from scipy.ndimage import correlate
     kh, kw = k.shape
     h, w = img64.shape[:2]
     kk = k.reshape(k.shape + (1,) * (img64.ndim - 2))
+    mode = _SCIPY_MODE[border]
     if h >= kh and w >= kw:
-        return correlate(img64, kk, mode="mirror")
+        return correlate(img64, kk, mode=mode)
     ay, ax = kh // 2, kw // 2
-    pad = img64[reflect101_index(h, ay, kh - 1 - ay)][
-        :, reflect101_index(w, ax, kw - 1 - ax)]
-    return correlate(pad, kk, mode="mirror")[ay:ay + h, ax:ax + w]
+    pad = img64[border_index(h, ay, kh - 1 - ay, border)][
+        :, border_index(w, ax, kw - 1 - ax, border)]
+    return correlate(pad, kk, mode=mode)[ay:ay + h, ax:ax + w]
 
 
-def _fft(img64: np.ndarray, k: np.ndarray) -> np.ndarray:
+def _fft(img64: np.ndarray, k: np.ndarray, border: str) -> np.ndarray:
     import scipy.fft as sfft
     kh, kw = k.shape
     h, w = img64.shape[:2]
     ay, ax = kh // 2, kw // 2
-    pad = img64[reflect101_index(h, ay, kh - 1 - ay)][
-        :, reflect101_index(w, ax, kw - 1 - ax)]
+    pad = img64[border_index(h, ay, kh - 1 - ay, border)][
+        :, border_index(w, ax, kw - 1 - ax, border)]
     shape = (sfft.next_fast_len(pad.shape[0], True),
              sfft.next_fast_len(pad.shape[1], True))
     f_img = sfft.rfft2(pad, shape, axes=(0, 1))
@@ -170,9 +203,14 @@ def _fft(img64: np.ndarray, k: np.ndarray) -> np.ndarray:
     return out[kh - 1:kh - 1 + h, kw - 1:kw - 1 + w]
 
 
-def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+def filter2d(img: np.ndarray, kernel: np.ndarray,
+             border: str = "reflect101") -> np.ndarray:
     """``cv2.filter2D(img, -1, kernel)`` for a float32 / float64 image of
-    shape (H, W) or (H, W, C)."""
+    shape (H, W) or (H, W, C); ``border="replicate"`` is its
+    ``borderType=cv2.BORDER_REPLICATE``."""
+    if border not in _SCIPY_MODE:
+        raise ValueError(f"border must be one of {sorted(_SCIPY_MODE)}, "
+                         f"got {border!r}")
     img = np.asarray(img)
     if img.dtype not in (np.float32, np.float64):
         raise TypeError(f"filter2d takes float32 or float64, got "
@@ -189,8 +227,12 @@ def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
         img = img[..., 0]
     x = img.astype(np.float64)
     # an outer product is found on the kernel as given: the float32
-    # rounding below would hide it (and moves a tap by < 1e-7 of itself)
-    sep = _separable(k) if min(k.shape) > 1 else None
+    # rounding below would hide it (and moves a tap by < 1e-7 of itself).
+    # cv2 never splits a kernel; the split is the degradation chain's
+    # speed path, so the replicate border (NIQE's 7² window on float64,
+    # where the direct route gives cv2's bits) keeps cv2's routes
+    sep = _separable(k) if min(k.shape) > 1 and border == "reflect101" \
+        else None
     # cv2 filters a float32 image with the kernel in float32
     k = k.astype(np.float32 if img.dtype == np.float32 else np.float64)
     k = k.astype(np.float64)
@@ -198,7 +240,7 @@ def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
         col, row = sep
         out = _correlate_axis(_correlate_axis(x, col, 0), row, 1)
     elif k.size <= DIRECT_TAPS:
-        out = _direct(x, k)
+        out = _direct(x, k, border)
     else:
-        out = _fft(x, k)
+        out = _fft(x, k, border)
     return out.astype(img.dtype)

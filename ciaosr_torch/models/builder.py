@@ -11,9 +11,12 @@ overwrites them): imnet_k 580 → 576, imnet_v 644 → 640, imnet_q 640 → 3
 at C = 64 with CSA (68 → 64, 132 → 128, 128 → 3 with
 ``feat_unfold=False``). The 002
 configs' decoder knobs with baked-in semantics are accepted and checked
-as in the JAX package. ``build_model`` builds a restorer from a config's
-``model`` dict (``build_model`` at ciaosr_tpu/models/builder.py):
-``CiaoSR`` or ``RealCiaoSR`` (models/real_restorer.py). Weights are
+as in the JAX package. The fixed-scale
+nets ``EDSRNet`` and ``RDNNet`` (models/basic_sr.py, registry
+``BACKBONES``) build from their own keys. ``build_model`` builds a
+restorer from a config's ``model`` dict (``build_model`` at
+ciaosr_tpu/models/builder.py): ``CiaoSR``, ``RealCiaoSR``
+(models/real_restorer.py) or ``BasicRestorer``. Weights are
 random, drawn from an explicit seed with PyTorch's default Linear/Conv2d
 init (U(±1/√fan_in)) and PReLU 0.25;
 the SwinIR trunk then takes the reference's own init (trunc-normal(0.02)
@@ -29,7 +32,9 @@ import warnings
 import torch
 import torch.nn as nn
 
+from ciaosr_torch.config.registry import BACKBONES
 from ciaosr_torch.core.device import resolve_device, resolve_dtype
+import ciaosr_torch.models.basic_sr  # noqa: F401  (registers the nets)
 from ciaosr_torch.models.ciaosr import CiaoSRNet
 from ciaosr_torch.models.edsr import EDSR
 from ciaosr_torch.models.rdn import RDN
@@ -99,12 +104,15 @@ def init_weights_(module: nn.Module, seed: int) -> None:
         module.encoder.init_trunk_(g)
 
 
-def make_generator(cfg: dict) -> CiaoSRNet:
+def make_generator(cfg: dict) -> nn.Module:
     """The generator's modules as ``cfg`` gives them, with PyTorch's own
     initial weights, on the default device (``torch.device("meta")`` as a
-    context gives its parameter shapes without storage)."""
+    context gives its parameter shapes without storage): a CiaoSR
+    generator, or a fixed-scale net of ``BACKBONES``."""
     cfg = copy.deepcopy(dict(cfg))
     gname = cfg.pop("type")
+    if gname in BACKBONES:
+        return BACKBONES.get(gname)(**cfg)
     if gname not in _ENCODERS:
         raise KeyError(f"unknown generator type {gname}")
     _check_baked_in(cfg)
@@ -142,7 +150,7 @@ def make_generator(cfg: dict) -> CiaoSRNet:
     return net
 
 
-def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
+def build_generator(cfg: dict, *, device=None, seed: int = 0) -> nn.Module:
     """Build the generator on ``device`` (default: the CUDA device; raises
     without one unless ``device="cpu"``) with seeded random weights."""
     dev = resolve_device(device)
@@ -151,29 +159,21 @@ def build_generator(cfg: dict, *, device=None, seed: int = 0) -> CiaoSRNet:
     return net.to(dev).eval()
 
 
-# restorer types of the JAX package that the port does not have yet, and
-# the ROADMAP queue 1 item that brings each
-_NOT_PORTED = {"BasicRestorer": "ROADMAP queue 1 item 5 (BasicRestorer "
-                                "and models/basic_sr.py)"}
-
-
 def build_model(cfg: dict, train_cfg=None, test_cfg=None, *, device=None,
                 seed: int = 0):
     """A restorer from a config's ``model`` dict on ``device`` (default:
     the CUDA device; raises without one unless ``device="cpu"``), with
-    seeded random weights. On a CUDA device the generator takes the
-    kernel route (``use_kernels=True``), whatever the config says."""
+    seeded random weights. On a CUDA device a CiaoSR generator takes the
+    kernel route (``use_kernels=True``), whatever the config says; the
+    fixed-scale nets have no kernel route."""
     import ciaosr_torch.models.real_restorer  # noqa: F401  (registry)
     from ciaosr_torch.config.registry import MODELS
 
     cfg = copy.deepcopy(dict(cfg))
     mtype = cfg.pop("type")
-    if mtype in _NOT_PORTED:
-        raise NotImplementedError(f"model type {mtype!r} is not ported "
-                                  f"yet: {_NOT_PORTED[mtype]}")
     cls = MODELS.get(mtype) if isinstance(mtype, str) else mtype
     dev = resolve_device(device)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and cfg["generator"].get("type") in _ENCODERS:
         cfg["generator"] = dict(cfg["generator"], use_kernels=True)
     return cls(train_cfg=train_cfg, test_cfg=test_cfg, device=dev,
                seed=seed, **cfg)

@@ -1,9 +1,12 @@
-"""Restorer around CiaoSRNet: normalization, the L1 training objective,
-dense-grid prediction at integer and rational scales, the per-query
-fallback, overlap-average tiling and the metric protocol.
+"""Restorers. ``CiaoSRRestorer`` around CiaoSRNet: normalization, the L1
+training objective, dense-grid prediction at integer and rational scales,
+the per-query fallback, overlap-average tiling and the metric protocol.
+``BasicRestorer`` around a fixed-scale net (models/basic_sr.py): the plain
+L1 objective, the window-padded full-image predict and the same metrics.
 
-Counterpart of ciaosr_tpu/models/restorers.py::CiaoSRRestorer. The module
-holds its weights; there is no params argument.
+Counterparts of ciaosr_tpu/models/restorers.py::CiaoSRRestorer and
+``BasicRestorer``. The modules hold their weights; there is no params
+argument.
 """
 
 from __future__ import annotations
@@ -218,3 +221,56 @@ class CiaoSRRestorer:
                     out_img, gt_img, crop_border=cfg.get("crop_border", 0),
                     convert_to=cfg.get("convert_to"))
                 for name in cfg.get("metrics", ["PSNR"])}
+
+
+@MODELS.register(name="BasicRestorer")
+class BasicRestorer:
+    """Fixed-scale restorer around an lq → sr generator (EDSRNet or
+    RDNNet): the L1 objective on whole images, a full-image ``predict``
+    (the image reflect-padded to ``test_cfg['window_size']``, clamped,
+    cropped back) and the PSNR / SSIM protocol. Runs on ``device``
+    (default: the CUDA device; raises without one unless
+    ``device="cpu"``)."""
+
+    allowed_metrics = {"PSNR": psnr, "SSIM": ssim}
+    batch_keys = ("lq", "gt")
+
+    def __init__(self, generator: dict, pixel_loss: dict | None = None,
+                 train_cfg: Any = None, test_cfg: Any = None, *,
+                 device=None, seed: int = 0):
+        self.generator = build_generator(generator, device=device, seed=seed)
+        self.device = next(self.generator.parameters()).device
+        # stored as the JAX restorer stores them; ``train_forward`` computes
+        # the L1 objective both packages compute
+        self.pixel_loss_cfg = pixel_loss
+        self.train_cfg = train_cfg
+        self.test_cfg = test_cfg or {}
+
+    def train_forward(self, lq: torch.Tensor, gt: torch.Tensor):
+        """The mean |pred − gt| of lq (B, H, W, 3) and gt (B, H·s, W·s, 3)
+        in [0, 1]. Returns (loss, pred)."""
+        pred = self.generator(lq)
+        return torch.mean(torch.abs(pred - gt)), pred
+
+    @torch.inference_mode()
+    def predict(self, lq: np.ndarray, target_shape=None) -> np.ndarray:
+        """lq (H, W, 3) in [0, 1] → (H·s, W·s, 3) in [0, 1]: H and W
+        reflect-padded up to multiples of ``test_cfg['window_size']``
+        (default 1), the generator, a clamp, the output cropped back.
+        ``target_shape`` is ignored: the scale is the generator's."""
+        h, w = lq.shape[:2]
+        win = int(self.test_cfg.get("window_size", 1) or 1)
+        ph, pw = _ceil_to(h, win), _ceil_to(w, win)
+        if (ph, pw) != (h, w):
+            lq = np.pad(lq, ((0, ph - h), (0, pw - w), (0, 0)),
+                        mode="reflect")
+        x = torch.as_tensor(np.asarray(lq, np.float32), device=self.device)
+        sr = torch.clamp(self.generator(x[None]), 0.0, 1.0)[0]
+        s = self.generator.upscale_factor
+        return sr[:h * s, :w * s].cpu().numpy()
+
+    def forward_test(self, lq: np.ndarray, target_shape=None,
+                     scale=None) -> np.ndarray:
+        return self.predict(lq)
+
+    evaluate = CiaoSRRestorer.evaluate

@@ -8,7 +8,10 @@ tools/inference.py:
 CHECKPOINT is handled as by ``ciaosr_torch.tools.test``. An integer scale
 on an image larger than the tile runs the overlap-average tiling; any
 other scale (integer or not) a full-image ``predict`` at
-round(H·s) × round(W·s). Without OpenCV the images are PNG files.
+round(H·s) × round(W·s). A ``BasicRestorer`` config upscales by its
+generator's own factor, full-image only: ``--tile 0``, or an image that
+fits in the tile (a larger one raises). Without OpenCV the images are
+PNG files.
 """
 
 from __future__ import annotations
@@ -83,6 +86,11 @@ def main(argv=None) -> list[str]:
         lq = imread(path).astype(np.float32) / 255.0
         h, w = lq.shape[:2]
         if int_scale and args.tile and (h > args.tile or w > args.tile):
+            if not hasattr(model, "predict_tiled"):
+                raise ValueError(
+                    f"{type(model).__name__} has no tiled predict: a "
+                    f"{h}x{w} image exceeds --tile {args.tile}; run with "
+                    "--tile 0 for a full-image predict")
             sr = model.predict_tiled(lq, int(scale), args.tile,
                                      args.tile_overlap)
         else:

@@ -4,19 +4,20 @@
         [--resume-from CKPT] [--no-auto-resume] [--seed N] [--deterministic]
         [--autoscale-lr] [--total-iters N] [--bf16] [--device cpu]
 
-Training of a ``CiaoSR`` config (classical, L1: the ``Trainer`` loop) or
-a ``RealCiaoSR`` config (real-world GAN: the ``GANTrainer`` loop, with the
-staged ``load_from``): the config's train pipeline through the threaded
-loader, the loop with its log, eval (``data.val`` every
-``evaluation.interval``) and checkpoint hooks, auto-resume from the
-work_dir's newest checkpoint. The run writes ``config_dump.py``,
-``env.json``, ``train_log.jsonl`` and ``checkpoints/iter_N.pth`` under
-the work_dir, which ``python3 -m ciaosr_torch.tools.test CONFIG
-WORK_DIR`` evaluates. The model runs on the CUDA device through the
-port's kernels unless ``--device cpu`` asks for the plain PyTorch path.
-``BasicRestorer`` configs are not ported yet and raise. Both shipped 002
-configs train as they are (their train pipelines run the degradation
-chain of ``ciaosr_torch.data.degradations`` in the loader's workers).
+Training of a ``CiaoSR`` or ``BasicRestorer`` config (classical, L1: the
+``Trainer`` loop) or a ``RealCiaoSR`` config (real-world GAN: the
+``GANTrainer`` loop, with the staged ``load_from``): the config's train
+pipeline through the threaded loader, the loop with its log, eval
+(``data.val`` every ``evaluation.interval``) and checkpoint hooks,
+auto-resume from the work_dir's newest checkpoint. The run writes
+``config_dump.py``, ``env.json``, ``train_log.jsonl`` and
+``checkpoints/iter_N.pth`` under the work_dir, which ``python3 -m
+ciaosr_torch.tools.test CONFIG WORK_DIR`` evaluates. The model runs on
+the CUDA device through the port's kernels unless ``--device cpu`` asks
+for the plain PyTorch path (a ``BasicRestorer``'s nets have no kernel:
+cuDNN on the card). Both shipped 002 configs train as they are (their
+train pipelines run the degradation chain of
+``ciaosr_torch.data.degradations`` in the loader's workers).
 """
 
 from __future__ import annotations

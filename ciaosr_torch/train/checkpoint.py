@@ -152,8 +152,8 @@ def load_staged_generator(path: str, model_cfg: dict) -> tuple[dict, dict]:
     from ciaosr_torch.convert.load import (checkpoint_state_dict, has_ema,
                                            load_torch_checkpoint)
 
-    sd = checkpoint_state_dict(resolve_checkpoint(path))
-    gen = load_torch_checkpoint(sd, model_cfg)
-    ema = load_torch_checkpoint(sd, model_cfg, ema=True) if has_ema(sd) \
-        else gen
+    raw = read_checkpoint(resolve_checkpoint(path))
+    gen = load_torch_checkpoint(raw, model_cfg)
+    ema = load_torch_checkpoint(raw, model_cfg, ema=True) \
+        if has_ema(checkpoint_state_dict(raw)) else gen
     return gen, ema

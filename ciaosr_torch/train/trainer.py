@@ -8,9 +8,10 @@ hooks: log every ``log_config.interval``, eval every
 and once at the end (train/checkpoint.py), auto-resume from the run's own
 work_dir or ``resume_from``.
 
-One train step runs the restorer's ``train_forward`` (the generator
-forward and the normalized L1 loss), the backward (through row 12 for the
-Swin blocks when the generator has ``use_kernels``), the optimizer step
+One train step runs the restorer's ``train_forward`` on its
+``batch_keys`` (the generator forward and the L1 loss), the backward
+(through row 12 for the Swin blocks when the generator has
+``use_kernels``), the optimizer step
 and the scheduler step, and returns the loss as a device tensor: nothing
 waits for the device. The loop syncs with the device once per log
 interval (the interval's mean loss) and copies the state to the host only
@@ -45,12 +46,15 @@ class TrainState:
 def make_train_step(restorer, optimizer: torch.optim.Optimizer,
                     scheduler) -> Callable:
     """``train_step(state, batch) -> (state, {"loss_pix": loss})``;
-    ``batch`` holds lq (B, H, W, 3), gt (B, Q, 3), coord and cell (B, Q,
-    2) on the generator's device. ``state.step`` counts the updates."""
+    ``batch`` holds the restorer's ``batch_keys`` (default lq (B, H, W,
+    3), gt (B, Q, 3), coord and cell (B, Q, 2); a ``BasicRestorer``'s lq
+    and gt) on the generator's device. ``state.step`` counts the
+    updates."""
+    keys = getattr(restorer, "batch_keys", BATCH_KEYS)
 
     def train_step(state: TrainState, batch: dict):
         optimizer.zero_grad(set_to_none=True)
-        loss, _ = restorer.train_forward(*(batch[k] for k in BATCH_KEYS))
+        loss, _ = restorer.train_forward(*(batch[k] for k in keys))
         loss.backward()
         optimizer.step()
         scheduler.step()

@@ -155,6 +155,18 @@ def test_build_model_names_what_is_not_ported(mtype, item, tmp_path):
             assert (got[k].shape, got[k].dtype) == (ref[k].shape,
                                                     ref[k].dtype), k
         return
-    model = dict(_plain(cfg.model), type=mtype)
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(model, device="cpu")
+    # item 5 is closed: a BasicRestorer model dict builds on the CPU, as
+    # JAX's build_model builds it (tests/test_torch_basic_sr.py holds its
+    # outputs); the builder keeps no list of unported types
+    gen = dict(type="RDNNet", mid_channels=8, num_blocks=2, num_layers=2,
+               channel_growth=4, upscale_factor=4)
+    model = dict(type=mtype, generator=gen,
+                 pixel_loss=dict(type="L1Loss", loss_weight=1.0,
+                                 reduction="mean"))
+    port = build_model(model, test_cfg={"window_size": 4}, device="cpu")
+    ref = jax_build_model(model, test_cfg={"window_size": 4})
+    assert type(port).__name__ == type(ref).__name__ == mtype
+    assert port.batch_keys == ref.batch_keys == ("lq", "gt")
+    assert set(port.allowed_metrics) == set(ref.allowed_metrics)
+    assert port.generator.upscale_factor == ref.generator.upscale_factor
+    assert not hasattr(builder, "_NOT_PORTED")

@@ -435,11 +435,13 @@ def test_train_cli_trains_resumes_and_tools_test_reads_it(cli_config):
     assert port_ckpt.list_steps(str(work / "checkpoints")) == [1, 2, 3]
 
 
-def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path):
-    """--bf16 trains the generator in bf16; a BasicRestorer config raises
-    and names its ROADMAP item; a RealCiaoSR config with the shipped 002
-    train pipeline (degradation chain, a narrow generator, 2 process
-    workers) trains an iteration; --launcher takes 'none' only."""
+def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path,
+                                               monkeypatch):
+    """--bf16 trains the generator in bf16; a BasicRestorer config
+    (chip_smoke.py phase basic's, its net cut) trains an iteration in
+    bf16; a RealCiaoSR config with the shipped 002 train pipeline
+    (degradation chain, a narrow generator, 2 process workers) trains an
+    iteration; --launcher takes 'none' only."""
     _, write = cli_config
     cfg = write()
     trainer = port_train.main([cfg, "--device", "cpu", "--bf16",
@@ -465,9 +467,17 @@ def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path):
             assert Config.fromfile(path).data["worker_mode"] == "process"
             assert np.isfinite(logged(tmp_path / mtype, "loss_pix")).all()
             continue
-        with pytest.raises(NotImplementedError, match=item):
-            port_train.main([write(mtype), "--device", "cpu",
-                             "--work-dir", str(tmp_path / mtype)])
+        # item 5 is closed: it trains
+        from tests.test_torch_basic_cli import write_basic
+        (tmp_path / "basic").mkdir()
+        path = write_basic(tmp_path / "basic")["rdn"]
+        monkeypatch.chdir(tmp_path / "basic")
+        trainer = port_train.main([path, "--device", "cpu", "--bf16",
+                                   "--total-iters", "1", "--work-dir",
+                                   str(tmp_path / mtype)])
+        assert trainer.state.step == 1
+        assert trainer.restorer.generator.dtype == torch.bfloat16
+        assert np.isfinite(logged(tmp_path / mtype, "loss_pix")).all()
     with pytest.raises(SystemExit):
         port_train.main([cfg, "--launcher", "pytorch"])
 
