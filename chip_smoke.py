@@ -163,7 +163,31 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      for bit, the iteration, a warm step, the loader's share and peak
      memory; NIQE and the matting metrics in a Python where ``import
      cv2`` fails. No launch count moves in any of it;
- 12. prints the script's total time, the kernels line (each row with its
+ 12. phase "dist", several GPUs (ciaosr_torch/parallel/mesh.py) as one
+     card allows: (c) the flagship's predict_tiled of the 256² picture at
+     ×4 and ×2.5 with tile_batch 1, 2 and 4 in this process (exact
+     launches a tile group, each picture within 1e-2 max|Δ|/max|ref| of
+     tile_batch 1's, K1, K2, K3, row 10 and K4 at B = 2 and 4 against
+     their plain versions at ≤ 1e-2, the ms a tile split into host and
+     device time, the peak memory); then, each part its own command
+     (``--dist-worker`` under ``python3 -m torch.distributed.run
+     --standalone``, on seeded DIV2K-, Set5- and DF2K-shaped folders in a
+     temporary working directory): (a) one rank over NCCL, against the
+     same command without a launcher, bit for bit: ``tools.train`` on 001
+     rdn (batch 16 × 48², 4 iterations, --deterministic; its losses,
+     evals and weights) and ``tools.test --shard-tiles`` (its summary);
+     (b) two ranks sharing cuda:0 over gloo: the same training at 8
+     samples a rank (both ranks' weights bit for bit; losses ≤ 1e-4
+     relative and weights ≤ 4·lr from one process at 16), ``tools.test``
+     of the 5 pictures strided and gathered (both ranks' summaries equal,
+     ≤ 1e-6 from one process), the flagship's predict_tiled at tile_batch
+     4 (both ranks bit for bit, ≤ 1e-2 from tile_batch 1) and the shipped
+     002 gan config for 2 iterations at a global batch of 6 (its
+     degradation chain and forked workers, VGG19 synthetic; generator,
+     EMA copy and discriminator bit for bit on both ranks); every command
+     with its exact launches, its iterations and each rank's peak memory.
+     Its launches add to the kernel rows (``launches_dist``);
+ 13. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
@@ -171,8 +195,8 @@ The f32 references run with TF32 off in matmuls and cuDNN.
 the full-image requests; ``--kernel-times`` builds them and only prints
 the ``time_kernels`` line; ``--train-cli`` builds them and only runs
 phase "train_cli"; ``--gan`` builds them and only runs phase "gan";
-``--basic`` only runs phase "basic", without a build (none prints a
-result line). Copied into
+``--basic`` only runs phase "basic", without a build; ``--dist`` builds
+them and only runs phase "dist" (none prints a result line). Copied into
 another checkout (e.g. the parent commit from ``git archive``), either
 times that tree the same way, in the same call.
 Any failure exits non-zero. Without CUDA, or without the repository's
@@ -4328,6 +4352,573 @@ def basic_phase(drive, kind: str, smi: str) -> None:
             os.chdir(cwd)
 
 
+# ---- several GPUs (phase "dist"): one process per GPU on torch.distributed
+# (ciaosr_torch/parallel/mesh.py). The smoke run's machine has one card: (a)
+# runs one rank over NCCL, (b) two ranks that share cuda:0 over gloo (NCCL
+# refuses two ranks on one device), each as its own command, this script's
+# --dist-worker mode under python3 -m torch.distributed.run; (c) batches
+# tiles in this process
+DIST_ITERS, DIST_GAN_ITERS = 4, 2
+DIST_TILE_BATCHES = (1, 2, 4)
+DIST_SCALES = (4, Fraction(5, 2))
+DIST_SHARED = ["--device", "cuda:0", "--dist-backend", "gloo"]
+# the ranks meet on the loopback device: no other network is needed
+DIST_ENV = dict(GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+# (b) 2 ranks at batch 8 against one process at 16: the first step's loss
+# sees the same weights; cuDNN may pick other algorithms at batch 8, so the
+# sums round otherwise, by f32 rounding (TF32 off), which Adam carries on.
+# Its step moves an element by at most about lr, so the weights stay within
+# iterations × lr
+DIST_LOSS_REL = 1e-4
+# the eval metrics of (b)'s gathered eval against one process (phase cli's)
+DIST_METRIC_TOL = 1e-6
+DIST_TIMEOUT = 600      # one command, s
+DIST_TILE_CALLS = 5     # host-clock calls a tile batch is timed over
+DIST_GAN_OVERRIDES = SHIPPED_OVERRIDES + """
+# chip_smoke phase dist: no stage-1 checkpoint to start from
+load_from = None
+"""
+TRAIN_KERNELS = ("swin_block",) + BWD_KERNELS
+
+
+def dist_worker(argv: list) -> int:
+    """``chip_smoke.py --dist-worker TASK OUT ARGS...``: one process of
+    phase "dist" (a rank under torch.distributed.run, or one process
+    without a launcher). ``train``: ``ciaosr_torch.tools.train``'s main on
+    ARGS; ``test``: ``ciaosr_torch.tools.test``'s; ``tiles``: the
+    flagship's ``predict_tiled`` of the IMG² picture at DIST_SCALES,
+    tile_batch 4, under the launcher's mesh (ARGS: its device and
+    backend, e.g. cuda:0 gloo; none: cuda:LOCAL_RANK over NCCL), then the
+    warm ms of each request (median of DIST_TILE_CALLS; the launches are
+    the requests' before it). Saves its result, its launches, peak memory
+    and seconds to OUT/TASK_rank<RANK>.pt."""
+    from ciaosr_torch.ops import kernels
+
+    task, out, rest = argv[0], Path(argv[1]), argv[2:]
+    rank = int(os.environ.get("RANK", "0"))
+    t0 = time.perf_counter()
+    if task == "train":
+        from ciaosr_torch.tools import train as cli_train
+        trainer = cli_train.main(rest)
+        res = {"step": trainer.state.step, "weights": {
+            name: {k: v.detach().cpu() for k, v in mod.state_dict().items()}
+            for name, mod in trainer._modules().items()}}
+    elif task == "test":
+        from ciaosr_torch.tools import test as cli_test
+        res = {"summary": cli_test.main(rest)}
+    elif task == "tiles":
+        from ciaosr_torch.models.restorers import CiaoSRRestorer
+        from ciaosr_torch.parallel.mesh import close_mesh, init_mesh
+        mesh = init_mesh("pytorch", *rest)
+        try:
+            r = CiaoSRRestorer(FLAGSHIP, rgb_mean=RGB_MEAN,
+                               test_cfg=dict(TEST_CFG, tile_batch=4),
+                               device=mesh.device, seed=0)
+            lq = np.random.default_rng(0).random((IMG, IMG, 3),
+                                                 dtype=np.float32)
+            res = {"checksum": weight_checksum(r.generator), "outs": [
+                r.predict_tiled(lq, s, TILE, OVERLAP, mesh=mesh)
+                for s in DIST_SCALES]}
+            # the requests' launches, before the timed calls add theirs
+            res["launches"] = dict(kernels.LAUNCHES)
+            res["ms"] = [request_ms(lambda: r.predict_tiled(
+                lq, s, TILE, OVERLAP, mesh=mesh)) for s in DIST_SCALES]
+        finally:
+            close_mesh(mesh)
+    else:
+        print(f"chip_smoke: unknown dist task {task!r}", file=sys.stderr)
+        return 2
+    res.setdefault("launches", dict(kernels.LAUNCHES))
+    res.update(secs=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               device=torch.cuda.current_device())
+    torch.save(res, out / f"{task}_rank{rank}.pt")
+    return 0
+
+
+def request_ms(fn) -> float:
+    """The median host ms of DIST_TILE_CALLS warm calls of ``fn``, each
+    ended by a synchronize."""
+    fn()
+    ts = []
+    for _ in range(DIST_TILE_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def weight_checksum(module) -> float:
+    """The sum of a module's parameters in float64: the same seeded weights
+    in two processes give the same sum."""
+    return float(sum(p.detach().double().sum() for p in module.parameters()))
+
+
+def dist_run(label: str, ranks: int, task: str, out: Path, argv: list,
+             env: dict | None = None) -> tuple[list[dict], float]:
+    """The dist worker's ``task`` on ARGS ``argv``: under ``python3 -m
+    torch.distributed.run --standalone`` with ``ranks`` processes, or
+    with ranks = 0 as one process without a launcher. Returns each rank's
+    result and the command's wall seconds; raises (with the end of its
+    output) if it fails or outlives DIST_TIMEOUT, when its whole process
+    group is killed."""
+    import signal
+
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [str(Path(__file__).resolve()), "--dist-worker", task, str(out),
+           *argv]
+    if ranks:
+        cmd = ["-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(ranks)] + cmd
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable] + cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env={**os.environ, **DIST_ENV, **(env or {})})
+    try:
+        text, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"dist {label}: no end in {DIST_TIMEOUT} s:\n"
+                             + text[-4000:])
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"dist {label}: exit {proc.returncode}:\n"
+                             + text[-4000:])
+    res = [torch.load(out / f"{task}_rank{r}.pt", weights_only=False)
+           for r in range(max(ranks, 1))]
+    log(f"dist {label}: {secs:.1f} s (each rank's own part "
+        f"{[round(r['secs'], 1) for r in res]} s, peak device memory "
+        f"{[round(r['peak_gib'], 2) for r in res]} GiB, devices "
+        f"{[r['device'] for r in res]})")
+    return res, secs
+
+
+def dist_launches(label: str, res: list, want: dict) -> None:
+    """The launches of a dist command's ranks, summed, are exactly
+    ``want``'s; every other kernel is idle."""
+    got: dict = {}
+    for r in res:
+        for k, n in r["launches"].items():
+            got[k] = got.get(k, 0) + n
+    extra = {k: n for k, n in got.items() if n and k not in want}
+    short = {k: (got.get(k, 0), n) for k, n in want.items()
+             if got.get(k, 0) != n}
+    if extra or short:
+        raise AssertionError(f"dist {label}: launches off the path {extra}, "
+                             f"(got, want) {short}")
+
+
+def logged_records(work: Path) -> list:
+    with open(work / "train_log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def iteration_ms(recs: list) -> list:
+    """The ms of the logged iterations whose window holds no hook (the
+    log interval is 1; evals and saves at 2 and 4 fall into the next
+    window): iterations 2 and 4."""
+    return [round(1e3 / r["iters_per_s"], 1) for r in recs
+            if r.get("step") in (2, 4) and "iters_per_s" in r]
+
+
+def same_weights(label: str, a: dict, b: dict) -> None:
+    """Two ranks' (or runs') modules, bit for bit."""
+    for name, sd in a.items():
+        bad = [k for k, v in sd.items() if not torch.equal(v, b[name][k])]
+        if bad or set(sd) != set(b[name]):
+            raise AssertionError(f"dist {label}: {name} differs at "
+                                 f"{bad[:5]}")
+
+
+def dist_train_checks(kind: str, smi: str, root: Path, derived: Path,
+                      cfg, evals) -> None:
+    """(a) and (b) of 001 rdn through tools.train: DIST_ITERS iterations
+    under --deterministic (evals at 2 and 4, checkpoints at 2 and 4) in
+    one process without a launcher, in one rank over NCCL (the losses,
+    evals and weights bit for bit the plain run's) and in two ranks on
+    cuda:0 over gloo at 8 samples each (the two ranks' weights bit for
+    bit; the losses within DIST_LOSS_REL of the plain run, the weights
+    within DIST_ITERS × lr). ``evals(n)``: the launches of n evals."""
+    argv = [str(derived), "--deterministic", "--total-iters",
+            str(DIST_ITERS), "--work-dir"]
+    runs = {}
+    for name, ranks, extra in (
+            ("plain", 0, []), ("nccl", 1, ["--launcher", "pytorch"]),
+            ("gloo", 2, ["--launcher", "pytorch"] + DIST_SHARED)):
+        work = root / f"work_{name}"
+        res, secs = dist_run(f"rdn train {name} ({ranks} ranks)", ranks,
+                             "train", root / f"out_{name}",
+                             argv + [str(work)] + extra)
+        dist_launches(f"rdn train {name}", res, evals(2))
+        recs = logged_records(work)
+        runs[name] = (res, recs)
+        log(f"e2e ({kind}; {smi}): dist rdn train {name} ({max(ranks, 1)} "
+            f"process(es), global batch 16 x 48^2): iterations 2 and 4 "
+            f"{iteration_ms(recs)} ms (loader wait included), command "
+            f"{secs:.1f} s, losses "
+            f"{[r['loss_pix'] for r in recs if 'loss_pix' in r]}")
+    (plain,), p_recs = runs["plain"]
+    (nccl,), n_recs = runs["nccl"]
+    clock = ("time", "iters_per_s", "val_elapsed_s")
+    strip = [{k: v for k, v in r.items() if k not in clock} for r in p_recs]
+    if strip != [{k: v for k, v in r.items() if k not in clock}
+                 for r in n_recs]:
+        raise AssertionError("dist (a): the NCCL run logged other losses or "
+                             "evals than the plain run")
+    same_weights("(a) NCCL world 1 against the plain run", nccl["weights"],
+                 plain["weights"])
+    log("dist (a): the NCCL world-1 run logged the plain run's losses and "
+        "evals and ended with its weights, bit for bit")
+    g_res, g_recs = runs["gloo"]
+    same_weights("(b) gloo rank 1 against rank 0", g_res[1]["weights"],
+                 g_res[0]["weights"])
+    losses = [[r["loss_pix"] for r in recs if "loss_pix" in r]
+              for recs in (p_recs, g_recs)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses, strict=True))
+    dw = max(float((v - plain["weights"]["generator"][k]).abs().max())
+             for k, v in g_res[0]["weights"]["generator"].items())
+    w_tol = DIST_ITERS * cfg.optimizers["lr"]
+    log(f"dist (b): 2 ranks on cuda:0 over gloo (8 samples each) against "
+        f"one process at 16: losses max rel {rel:.3e} (<= {DIST_LOSS_REL}), "
+        f"weights max|d| {dw:.3e} (<= {w_tol}); the ranks' weights bit for "
+        "bit")
+    if not (rel <= DIST_LOSS_REL and dw <= w_tol):
+        raise AssertionError("dist (b): the 2-rank run left its bounds")
+
+
+def dist_eval_checks(root: Path, derived: Path, gen_cfg: dict,
+                     expected) -> None:
+    """tools.test on the Set5-shaped test split with a seeded .pth: one
+    process without a launcher; (a) one rank over NCCL with --shard-tiles
+    (the summary equal); (b) two ranks on cuda:0 over gloo, the 5
+    pictures strided (ragged) and gathered (both ranks' summaries equal,
+    and within DIST_METRIC_TOL of the plain run's). ``expected()``: the
+    launches of one eval of the split."""
+    ckpt = root / "rdn_dist.pth"
+    write_checkpoint(ckpt, gen_cfg, seed=3)
+    argv = [str(derived), str(ckpt)]
+    summaries = {}
+    for name, ranks, extra in (
+            ("plain", 0, []),
+            ("nccl", 1, ["--launcher", "pytorch", "--shard-tiles"]),
+            ("gloo", 2, ["--launcher", "pytorch"] + DIST_SHARED)):
+        res, _ = dist_run(f"rdn test {name} ({ranks} ranks)", ranks, "test",
+                          root / f"out_test_{name}", argv + extra)
+        dist_launches(f"rdn test {name}", res, expected())
+        got = [{k: v for k, v in r["summary"].items() if k != "elapsed_s"}
+               for r in res]
+        if any(g != got[0] for g in got):
+            raise AssertionError(f"dist test {name}: the ranks' summaries "
+                                 f"differ: {got}")
+        summaries[name] = got[0]
+    log(f"dist eval summaries: {summaries}")
+    if summaries["nccl"] != summaries["plain"]:
+        raise AssertionError("dist (a): tools.test --shard-tiles over NCCL "
+                             "gave another summary")
+    g, p = summaries["gloo"], summaries["plain"]
+    if g["n_images"] != p["n_images"] or any(
+            abs(g[k] - p[k]) > DIST_METRIC_TOL for k in ("PSNR", "SSIM")):
+        raise AssertionError("dist (b): the gathered eval left its bound")
+
+
+def dist_gan_check(root: Path) -> dict:
+    """(b): the shipped 002 gan config (its degradation chain and 6
+    forked loader workers a rank; no stage-1 checkpoint) through
+    tools.train for DIST_GAN_ITERS iterations on two ranks that share
+    cuda:0 over gloo, global batch 6, VGG19 synthetic: finite losses, the
+    generator, its EMA copy and the discriminator (its spectral norms' u
+    and sigma) bit for bit the same on both ranks. Returns the train
+    kernels' launches."""
+    from ciaosr_torch.data.imageio import write_png
+
+    rng = np.random.default_rng(24)
+    hr = root / "data" / "DF2K" / "HR"
+    hr.mkdir(parents=True)
+    for i in range(SHIPPED_N):
+        write_png(str(hr / f"{i + 1:04d}.png"),
+                  smooth_picture(rng, *SHIPPED_HR))
+    (root / "data" / "val").mkdir()
+    write_png(str(root / "data" / "val" / "0001.png"),
+              smooth_picture(rng, 48, 48))
+    path = root / "002_gan_dist.py"
+    path.write_text(Path(config_path("002_real_gan_")).read_text()
+                    + DIST_GAN_OVERRIDES.format(iters=DIST_GAN_ITERS))
+    cfg = Config.fromfile(str(path))
+    n_blocks = sum(cfg.model["generator"]["encoder"]["depths"])
+    work = root / "work_gan"
+    res, _ = dist_run("002 gan train (2 ranks)", 2, "train",
+                      root / "out_gan",
+                      [str(path), "--total-iters", str(DIST_GAN_ITERS),
+                       "--work-dir", str(work), "--launcher", "pytorch"]
+                      + DIST_SHARED, env={"CIAOSR_VGG19_SYNTHETIC": "1"})
+    want = {k: 2 * n_blocks * DIST_GAN_ITERS for k in TRAIN_KERNELS}
+    dist_launches("002 gan train", res, want)
+    same_weights("(b) 002 gan rank 1 against rank 0", res[1]["weights"],
+                 res[0]["weights"])
+    recs = logged_records(work)
+    losses = [{k: v for k, v in r.items() if k.startswith("loss")}
+              for r in recs]
+    if len(recs) != DIST_GAN_ITERS or not all(
+            np.isfinite(list(m.values())).all() and m for m in losses):
+        raise AssertionError(f"dist (b) 002 gan: records {recs}")
+    log(f"dist (b) 002 gan: 2 ranks on cuda:0, global batch 6: iteration 2 "
+        f"{iteration_ms(recs)} ms (loader wait included), losses "
+        f"{losses}; generator, EMA copy and discriminator ("
+        f"{sum(k.endswith('.u') for k in res[0]['weights']['discriminator'])}"
+        " spectral-norm u) the same on both ranks, bit for bit")
+    return want
+
+
+def dist_tiles_check(restorer, lq: np.ndarray, root: Path, ones: list,
+                     rows: dict) -> None:
+    """(b): the flagship's predict_tiled of the IMG² picture at ×4 and ×2.5
+    with tile_batch 4 on two ranks (2 tiles each a group) that share
+    cuda:0 over gloo: the ranks' pictures bit for bit, each within
+    REL_TOL (max|Δ|/max|ref|) of this process's tile_batch 1 picture
+    ``ones``; the ranks' weights this process's (a float64 checksum)."""
+    res, _ = dist_run("flagship predict_tiled tile_batch 4 (2 ranks)", 2,
+                      "tiles", root / "out_tiles", ["cuda:0", "gloo"])
+    if {r["checksum"] for r in res} != {weight_checksum(restorer.generator)}:
+        raise AssertionError("dist tiles: the ranks' seeded weights are not "
+                             "this process's")
+    # a group of 4 tiles: one group a scale, each rank 2 tiles of it
+    want = {"f3p_build": 4, "wt_hoist": 4, "csa_stencil_fused": 4,
+            "grid_decode": 2, "grid_decode_rational": 2}
+    dist_launches("tiles", res, want)
+    for k, n in want.items():
+        rows[k] = rows.get(k, 0) + n
+    for s, a, b, one in zip(DIST_SCALES, res[0]["outs"], res[1]["outs"],
+                            ones, strict=True):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"dist tiles x{s}: the ranks differ")
+        e_abs, e_rel = errors(torch.as_tensor(a), torch.as_tensor(one))
+        log(f"dist (b) predict_tiled x{s} {IMG}^2, 2 ranks x 2 tiles "
+            f"against one process at tile_batch 1: max|d|={e_abs:.3e} "
+            f"max|d|/max|ref|={e_rel:.3e}; warm ms a request on rank 0 "
+            f"{res[0]['ms'][DIST_SCALES.index(s)]:.1f}")
+        if not e_rel <= REL_TOL:
+            raise AssertionError(f"dist tiles x{s}: {e_rel:.3e}")
+
+
+def batched_kernel_checks(restorer, lq: np.ndarray, b: int) -> None:
+    """K1, K2 (wt and ck each), K3 at ×4, row 10 at ×2.5 and K4 on the
+    first ``b`` flagship tiles of the IMG² picture in one call (bf16)
+    against their plain versions (f32, same values): max|Δ|/max|ref| ≤
+    REL_TOL each."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.models.restorers import tile_layout
+    from ciaosr_torch.ops.kernels import csa_stencil as k4
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    _, hs, ws = tile_layout(IMG, IMG, 4, TILE, OVERLAP)
+    tiles = torch.as_tensor(np.stack(
+        [lq[hi:hi + TILE, wi:wi + TILE] for hi in hs for wi in ws][:b]),
+        device="cuda")
+    net = restorer.generator
+    with torch.inference_mode():
+        feature = net.gen_feature(restorer.normalize(tiles)).contiguous()
+        _, h, w, _ = feature.shape
+        match, keys, embed = net.cs_attn.stencil_inputs(feature, 2,
+                                                        torch.bfloat16)
+        maps = net._kernel_maps(feature, (0.5, 0.5))
+        _, csa, _, _, _, _, pk = maps
+        rat = net._kernel_maps(feature, rational_cell(h, w, h * 5 // 2,
+                                                      w * 5 // 2))
+        tabs = dk.decoder_tables(4, h, w, net.local_size, feature.device)
+        tabs_r = dk.rational_tables(h, w, 5, 2, 5, 2, net.local_size,
+                                    feature.device)
+        ss, cs = net.softmax_scale, net.cs_attn.softmax_scale
+        checks = {
+            "f3p_build": (
+                lambda: dk.f3p_build(feature, csa, pk["wk0"], pk["wvu"],
+                                     pk["wvc"]),
+                lambda: dk.f3p_build_plain(*f32((feature, csa, pk["wk0"],
+                                                 pk["wvu"], pk["wvc"])))),
+            "wt_hoist": (
+                lambda: dk.wt_hoist(feature, pk["wkout"], pk["bkout"]),
+                lambda: dk.wt_hoist_plain(feature.float(),
+                                          *f32((pk["wkout"], pk["bkout"])))),
+            "grid_decode": (
+                lambda: dk.grid_decode(*maps[:6], maps[6], tabs, ss),
+                lambda: dk.grid_decode_plain(*f32(maps[:6]), f32(maps[6]),
+                                             tabs, ss)),
+            "grid_decode_rational": (
+                lambda: dk.grid_decode_rational(*rat[:6], rat[6], tabs_r,
+                                                ss),
+                lambda: dk.grid_decode_rational_plain(
+                    *f32(rat[:6]), f32(rat[6]), tabs_r, ss)),
+            "csa_stencil_fused": (
+                lambda: k4.csa_stencil_fused(match, keys, embed, cs, 2),
+                lambda: k4.csa_stencil_fused_plain(
+                    match.float(), keys.float(), embed.float(), cs, 2))}
+        errs = {}
+        for name, (kern, plain) in checks.items():
+            got, ref = kern(), plain()
+            pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+            errs[name] = max(errors(g, r)[1] for g, r in pairs)
+            del got, ref, pairs
+    log(f"dist (c) kernels at B={b} against their plain versions, "
+        f"max|d|/max|ref| (each output of K2 on its own): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= REL_TOL}
+    if bad:
+        raise AssertionError(f"dist (c) kernels at B={b}: {bad}")
+
+
+def tile_batch_times(restorer, lq: np.ndarray, scale) -> tuple:
+    """(host ms, device ms) a tile of ``predict_tiled`` on the IMG²
+    picture: the host clock around each of DIST_TILE_CALLS calls that end
+    in a synchronize (median), and torch.profiler's CUDA kernel time of
+    one more call, as tools/flagship_tile_time.py splits a tile; each over
+    the picture's tiles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ciaosr_torch.models.restorers import tile_layout
+
+    _, hs, ws = tile_layout(IMG, IMG, scale, TILE, OVERLAP)
+    n = len(hs) * len(ws)
+
+    def call():
+        restorer.predict_tiled(lq, scale, TILE, OVERLAP)
+        torch.cuda.synchronize()
+
+    call()
+    ts = []
+    for _ in range(DIST_TILE_CALLS):
+        t = time.perf_counter()
+        call()
+        ts.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+    dev = sum(e.device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) / 1e3
+    return statistics.median(ts) / n, dev / n, n
+
+
+def dist_tile_batches(drive, kind: str, smi: str, restorer,
+                      lq: np.ndarray) -> tuple[dict, list]:
+    """(c) tile_batch 1, 2 and 4 in this process: the flagship's
+    predict_tiled of the IMG² picture at ×4 and ×2.5, driven with the
+    exact launches its tile groups give; each picture against tile_batch
+    1's (max|Δ|/max|ref| ≤ REL_TOL); the kernels at B = 2 and 4 against
+    their plain versions; the ms a tile, host and device, and the peak
+    memory. Returns the launches by kernel row and tile_batch 1's
+    pictures."""
+    from ciaosr_torch.models.restorers import tile_layout
+    from ciaosr_torch.ops import kernels
+
+    cfg = restorer.test_cfg
+    n_tiles = [len(hs) * len(ws) for _, hs, ws in
+               (tile_layout(IMG, IMG, s, TILE, OVERLAP) for s in DIST_SCALES)]
+    rows: dict = {}
+    ones = None
+    try:
+        for b in DIST_TILE_BATCHES:
+            restorer.test_cfg = dict(cfg, tile_batch=b)
+            groups = [-(-n // b) for n in n_tiles]
+            want = {"f3p_build": sum(groups), "wt_hoist": sum(groups),
+                    "csa_stencil_fused": sum(groups),
+                    "grid_decode": groups[0],
+                    "grid_decode_rational": groups[1]}
+            outs, launches, _ = drive(
+                f"dist (c) tile_batch {b} (want {want})",
+                lambda: [restorer.predict_tiled(lq, s, TILE, OVERLAP)
+                         for s in DIST_SCALES],
+                list(want), [k for k in kernels.LAUNCHES if k not in want])
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"dist (c) tile_batch {b}: launches "
+                                     f"{got}, want {want}")
+            for k, n in want.items():
+                rows[k] = rows.get(k, 0) + n
+            ones = ones or outs
+            for s, o, one in zip(DIST_SCALES, outs, ones):
+                e_abs, e_rel = errors(torch.as_tensor(o),
+                                      torch.as_tensor(one))
+                log(f"dist (c) tile_batch {b} x{s}: against tile_batch 1 "
+                    f"max|d|={e_abs:.3e} max|d|/max|ref|={e_rel:.3e}")
+                if not e_rel <= REL_TOL:
+                    raise AssertionError(f"dist (c) tile_batch {b} x{s}: "
+                                         f"{e_rel:.3e}")
+            if b > 1:
+                batched_kernel_checks(restorer, lq, b)
+            for s in DIST_SCALES:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                host, dev, n = tile_batch_times(restorer, lq, s)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                log(f"e2e ({kind}; {smi}): dist (c) flagship predict_tiled "
+                    f"x{s} {IMG}^2 ({n} tiles of {TILE}), tile_batch {b}: "
+                    f"host {host:.2f} ms/tile (median of {DIST_TILE_CALLS} "
+                    f"calls), device {dev:.2f} ms/tile (profiled kernels of "
+                    f"one call), busy {dev / host:.3f}; peak {peak:.2f} GiB")
+    finally:
+        restorer.test_cfg = cfg
+    return rows, ones
+
+
+def dist_phase(drive, kind: str, smi: str, restorer, lq: np.ndarray) -> dict:
+    """Phase "dist", several GPUs as the machine's one card allows:
+
+    (c) tile_batch 1, 2 and 4 in this process (``dist_tile_batches``);
+    in a temporary working directory with seeded DIV2K-, Set5- and
+    DF2K-shaped folders, each distributed part its own command
+    (``dist_run``; the ranks on the loopback device):
+    (a) one rank over NCCL: tools.train on 001 rdn (``dist_train_checks``)
+        and tools.test --shard-tiles (``dist_eval_checks``), each against
+        the same command without a launcher, bit for bit;
+    (b) two ranks sharing cuda:0 over gloo: the same training at 8 samples
+        a rank, the gathered eval of the 5 pictures, the flagship's
+        sharded tiles (``dist_tiles_check``) and the 002 gan config
+        (``dist_gan_check``).
+
+    Returns the launches of the phase by kernel row (the train kernels by
+    key)."""
+    from ciaosr_torch.data.imageio import imread
+
+    rows, ones = dist_tile_batches(drive, kind, smi, restorer, lq)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_div2k(root)
+        write_set5(root)
+        os.chdir(root)
+        try:
+            derived = root / "001_rdn_dist.py"
+            derived.write_text(Path(config_path(
+                "001_localimplicitsr_rdn_")).read_text()
+                + TRAIN_CLI_OVERRIDES)
+            cfg = Config.fromfile(str(derived))
+            tile = cfg.test_cfg["tile"]
+            val_lrs = [(h // 4, w // 4) for _, (h, w) in CLI_SET5]
+
+            def evals(n):   # n evals' launches by kernel, added into rows
+                want: dict = {}
+                for _ in range(n):
+                    for k, v in cli_expected(val_lrs, 4, tile, 64, 0,
+                                             rows).items():
+                        want[k] = want.get(k, 0) + v
+                return want
+
+            dist_train_checks(kind, smi, root, derived, cfg, evals)
+            test_lrs = [imread(f"data/Classical/Set5/LRbicx4/{n}.png"
+                               ).shape[:2] for n, _ in CLI_SET5]
+            dist_eval_checks(root, derived, cfg.model["generator"],
+                             lambda: cli_expected(test_lrs, 4, tile, 64, 0,
+                                                  rows))
+            dist_tiles_check(restorer, lq, root, ones, rows)
+            rows.update(dist_gan_check(root))
+        finally:
+            os.chdir(cwd)
+    return rows
+
+
 def drive(name, fn, ran, idle):
     """fn() as one path: every launch count set to 0 just before it and
     read just after; each kernel of ``ran`` launched, none of ``idle``.
@@ -4355,12 +4946,15 @@ def main() -> int:
     """``--full-image``: build, then only time_full_images;
     ``--kernel-times``: build, then only time_kernels; ``--train-cli``:
     build, then only phase train_cli; ``--gan``: build, then only phase
-    gan; ``--basic``: only phase basic, which needs no kernel (none prints
-    a result line)."""
+    gan; ``--basic``: only phase basic, which needs no kernel;
+    ``--dist``: build, then only phase dist (none prints a result line);
+    ``--dist-worker``: one process of phase dist."""
     t_start = time.perf_counter()
     flags = sys.argv[1:]
+    if flags[:1] == ["--dist-worker"]:
+        return dist_worker(flags[1:])
     if flags not in ([], ["--full-image"], ["--kernel-times"],
-                     ["--train-cli"], ["--gan"], ["--basic"]):
+                     ["--train-cli"], ["--gan"], ["--basic"], ["--dist"]):
         print(f"chip_smoke: unknown arguments {flags}", file=sys.stderr)
         return 2
     full_only = flags == ["--full-image"]
@@ -4418,6 +5012,11 @@ def main() -> int:
     def lr(hw):
         return lq[:hw[0], :hw[1]]
 
+    if flags == ["--dist"]:
+        log(f"dist launches by kernel row (the train kernels by key): "
+            f"{dist_phase(drive, kind, smi, restorer, lq)}")
+        mark("the dist phase")
+        return 0
     big = np.random.default_rng(1).random((192, 1024, 3), dtype=np.float32)
     if full_only:
         time_full_images(restorer, big)
@@ -4950,6 +5549,23 @@ def main() -> int:
     # ---- the fixed-scale restorer: no kernel of the port on its path
     basic_phase(drive, kind, smi)
     mark("the basic phase")
+
+    # ---- several GPUs: NCCL at world 1, two ranks on the card over gloo,
+    # tile groups in this process
+    dist_launches = dist_phase(drive, kind, smi, restorer, lq)
+    bwd_row["launches_gsum"] += dist_launches.pop("swin_block_gsum")
+    dist_rows = {train_row.get(k, k): n for k, n in dist_launches.items()}
+    unrowed = set(dist_rows) - {r["name"] for r in rows}
+    if unrowed:
+        raise AssertionError(f"the dist phase launched {unrowed}, which no "
+                             "kernel row holds")
+    for r in rows:
+        if r["name"] in dist_rows:
+            r["launches_dist"] = dist_rows[r["name"]]
+            r["launches"] += r["launches_dist"]
+            log(f"kernel {r['name']}: launches={r['launches']} (+ "
+                f"{r['launches_dist']} dist)")
+    mark("the dist phase")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

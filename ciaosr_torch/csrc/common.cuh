@@ -25,7 +25,10 @@ __device__ __forceinline__ uint4 ld8(const bf16* p) {
 }
 __device__ __forceinline__ uint4 zero8() { return make_uint4(0, 0, 0, 0); }
 
-// Raise the dynamic shared-memory cap of a kernel once per process.
+// Raise the dynamic shared-memory cap of a kernel once per process, on the
+// device current at the first launch (the callers keep the result in a
+// static). The port runs one process per GPU, and the launch helpers raise
+// on a tensor of another device (ops/kernels/_build.py::stream_ptr).
 template <typename K>
 __host__ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,

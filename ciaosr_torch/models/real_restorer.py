@@ -37,6 +37,7 @@ from ciaosr_torch.config.registry import (COMPONENTS, LOSSES, MODELS,
                                           build_from_cfg)
 from ciaosr_torch.models.builder import init_weights_
 from ciaosr_torch.models.restorers import CiaoSRRestorer
+from ciaosr_torch.parallel.mesh import all_reduce_grads
 import ciaosr_torch.losses.gan  # noqa: F401  (registers the losses)
 import ciaosr_torch.losses.perceptual  # noqa: F401
 import ciaosr_torch.models.discriminator  # noqa: F401  (registers D)
@@ -155,15 +156,19 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
 
     def make_gan_train_step(self, g_opt: torch.optim.Optimizer,
                             d_opt: torch.optim.Optimizer | None,
-                            schedulers: tuple) -> Callable:
+                            schedulers: tuple, mesh=None) -> Callable:
         """``train_step(state, batch) -> (state, metrics)``; ``batch``:
         lq (B, H, W, 3), gt and optionally gt_unsharp (B, ns, 3), coord and
         cell (B, ns, 2) on the device; ``schedulers``: (the generator's,
-        the discriminator's or None). Metrics are device tensors."""
+        the discriminator's or None). Metrics are device tensors. Under a
+        ``mesh`` (parallel/mesh.py) each optimizer steps on the gradients'
+        mean over the ranks, so the weights, and with them the EMA copy and
+        the spectral norms' ``u``, stay equal on every rank."""
         g_sched, d_sched = schedulers
         gen, ema, disc = self.generator, self.generator_ema, \
             self.discriminator
         live_p, ema_p = list(gen.parameters()), list(ema.parameters())
+        disc_p = list(disc.parameters()) if disc is not None else []
         m = self.ema_momentum
 
         def train_step(state: GANTrainState, batch: dict):
@@ -179,6 +184,7 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
                 g_opt.zero_grad(set_to_none=True)
                 total, losses, pred_img = self.generator_losses(batch)
                 total.backward()
+                all_reduce_grads(mesh, live_p)
                 g_opt.step()
                 g_sched.step()
                 losses = {k: v.detach() for k, v in losses.items()}
@@ -202,6 +208,7 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
                                                update_stats=True),
                                           False, is_disc=True)
                 (loss_real + loss_fake).backward()
+                all_reduce_grads(mesh, disc_p)
                 d_opt.step()
                 d_sched.step()
                 losses["loss_d_real"] = loss_real.detach()
@@ -216,15 +223,15 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
 
         return train_step
 
-    def forward_test(self, lq, target_shape=None, scale=None):
+    def forward_test(self, lq, target_shape=None, scale=None, mesh=None):
         """``CiaoSRRestorer.forward_test`` of the EMA copy when
         ``is_use_ema`` (the reference's inference), else of the
         generator."""
         if not self.is_use_ema:
-            return super().forward_test(lq, target_shape, scale)
+            return super().forward_test(lq, target_shape, scale, mesh)
         live = self.generator
         self.generator = self.generator_ema
         try:
-            return super().forward_test(lq, target_shape, scale)
+            return super().forward_test(lq, target_shape, scale, mesh)
         finally:
             self.generator = live

@@ -22,6 +22,7 @@ from ciaosr_torch.core.color import tensor2img
 from ciaosr_torch.core.coords import make_coord_cell
 from ciaosr_torch.core.metrics import psnr, ssim
 from ciaosr_torch.models.builder import build_generator
+from ciaosr_torch.parallel.mesh import all_reduce_sum_
 
 # phase-count ceilings of the dense rational decode: the plain route
 # loops over the phases in Python (JAX's XLA ceiling); the kernel grids
@@ -164,7 +165,7 @@ class CiaoSRRestorer:
 
     @torch.inference_mode()
     def predict_tiled(self, lq: np.ndarray, scale, tile: int,
-                      tile_overlap: int = 32) -> np.ndarray:
+                      tile_overlap: int = 32, mesh=None) -> np.ndarray:
         """Overlap-average tiling with fixed (tile, tile) LR tiles at scale
         p/q. For q > 1 the image is reflect-padded to a multiple of q, the
         tile size and starts snap down to multiples of q (so every HR tile
@@ -172,7 +173,14 @@ class CiaoSRRestorer:
         round(h·p/q) × round(w·p/q). The tile outputs are averaged on the
         device and clamped once, after the average (a per-tile clamp would
         disagree wherever a prediction leaves [0, 1] under one tile but
-        not its neighbour)."""
+        not its neighbour).
+
+        Tiles are decoded in groups of ``test_cfg["tile_batch"]`` (default
+        1), one decode a group, in JAX's raster order. Under a ``mesh``
+        (parallel/mesh.py) of N ranks a group is widened to
+        max(1, tile_batch // N)·N tiles and rank r decodes its r-th share
+        of each group into its own sums, which one all-reduce a picture
+        adds up before the average: every rank returns the whole picture."""
         scale = as_scale_fraction(scale)
         p, q = scale.numerator, scale.denominator
         h, w = lq.shape[:2]
@@ -183,30 +191,40 @@ class CiaoSRRestorer:
                         mode="reflect")
             h, w = hp, wp
         tile, hs, ws = tile_layout(h, w, scale, tile, tile_overlap)
+        tiles = [(hi, wi) for hi in hs for wi in ws]
+        n, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+        share = max(1, int(self.test_cfg.get("tile_batch", 1)) // n)
         out_t = tile * p // q
         lq_t = self._to_device(lq)
-        acc = torch.zeros(h * p // q, w * p // q, 3, device=self.device)
-        cnt = torch.zeros(h * p // q, w * p // q, 1, device=self.device)
-        for hi in hs:
-            for wi in ws:
-                out = self._decode(lq_t[None, hi:hi + tile, wi:wi + tile],
-                                   scale)
+        # the sums of the tile outputs (channels 0-2) and their count (3)
+        sums = torch.zeros(h * p // q, w * p // q, 4, device=self.device)
+        acc, cnt = sums[..., :3], sums[..., 3:]
+        for i in range(0, len(tiles), share * n):
+            mine = tiles[i + rank * share:i + (rank + 1) * share]
+            if not mine:    # the last group may leave a rank nothing
+                continue
+            outs = self._decode(torch.stack(
+                [lq_t[hi:hi + tile, wi:wi + tile] for hi, wi in mine]), scale)
+            for (hi, wi), out in zip(mine, outs):
                 y0, x0 = hi * p // q, wi * p // q
-                acc[y0:y0 + out_t, x0:x0 + out_t] += out[0]
+                acc[y0:y0 + out_t, x0:x0 + out_t] += out
                 cnt[y0:y0 + out_t, x0:x0 + out_t] += 1.0
+        all_reduce_sum_(mesh, sums)
         out = torch.clamp(acc / cnt, 0.0, 1.0).cpu().numpy()
         return out[:th, :tw]
 
     def forward_test(self, lq: np.ndarray, target_shape=None,
-                     scale=None) -> np.ndarray:
-        """Tiled when test_cfg.tile is set, otherwise full-image; scales
-        may be int, float, str ('7/3') or Fraction."""
+                     scale=None, mesh=None) -> np.ndarray:
+        """Tiled when test_cfg.tile is set (the tiles sharded over
+        ``mesh``'s ranks), otherwise full-image; scales may be int, float,
+        str ('7/3') or Fraction."""
         cfg = self.test_cfg
         scale = scale if scale is not None else cfg.get("scale")
         if cfg.get("tile"):
             return self.predict_tiled(lq, as_scale_fraction(scale),
                                       int(cfg["tile"]),
-                                      int(cfg.get("tile_overlap", 32)))
+                                      int(cfg.get("tile_overlap", 32)),
+                                      mesh=mesh)
         if target_shape is None:
             s = float(as_scale_fraction(scale))
             target_shape = (round(lq.shape[0] * s), round(lq.shape[1] * s))
@@ -270,7 +288,9 @@ class BasicRestorer:
         return sr[:h * s, :w * s].cpu().numpy()
 
     def forward_test(self, lq: np.ndarray, target_shape=None,
-                     scale=None) -> np.ndarray:
+                     scale=None, mesh=None) -> np.ndarray:
+        """The full-image ``predict``: nothing tiles, so ``mesh`` changes
+        nothing (as in the JAX package)."""
         return self.predict(lq)
 
     evaluate = CiaoSRRestorer.evaluate

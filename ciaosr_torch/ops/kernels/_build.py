@@ -114,4 +114,16 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+    """The current stream of ``device``, the launch's tensors' device;
+    raises unless it is the current device. The kernels' shared-memory
+    attributes and SM counts are set once per process on the current
+    device (``allow_smem``, csrc/common.cuh), so a process runs on one GPU:
+    its launches must not go to another."""
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise RuntimeError(
+            f"kernel launch on {device} while the current device is "
+            f"cuda:{current}: the port runs one process per GPU; call "
+            f"torch.cuda.set_device({device.index}) first")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -3,7 +3,7 @@ tools/inference.py:
 
     python3 -m ciaosr_torch.tools.inference CONFIG CHECKPOINT --img LQ.png
         --scale 4 [--out SR.png] [--tile 192] [--tile-overlap 32]
-        [--device cpu]
+        [--device cpu] [--launcher {none,pytorch}] [--shard-tiles]
 
 CHECKPOINT is handled as by ``ciaosr_torch.tools.test``. An integer scale
 on an image larger than the tile runs the overlap-average tiling; any
@@ -11,7 +11,9 @@ other scale (integer or not) a full-image ``predict`` at
 round(H·s) × round(W·s). A ``BasicRestorer`` config upscales by its
 generator's own factor, full-image only: ``--tile 0``, or an image that
 fits in the tile (a larger one raises). Without OpenCV the images are
-PNG files.
+PNG files. Under ``--launcher pytorch`` (one process per GPU, started by
+``python3 -m torch.distributed.run``) every rank upscales every image,
+``--shard-tiles`` shards the tiles over the ranks, and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import numpy as np
 from ciaosr_torch.config.config import Config
 from ciaosr_torch.data.imageio import imread, imwrite
 from ciaosr_torch.models.builder import build_model
+from ciaosr_torch.parallel.mesh import (add_launcher_args, close_mesh,
+                                        mesh_from_args)
 from ciaosr_torch.tools.test import load_weights
 
 _EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
@@ -44,7 +48,9 @@ def parse_args(argv=None):
                    help="LR tile size for integer scales (0 = untiled)")
     p.add_argument("--tile-overlap", type=int, default=32)
     p.add_argument("--shard-tiles", action="store_true",
-                   help="not ported: raises (ROADMAP queue 1 item 8(b))")
+                   help="shard each image's tiles over the ranks (with one "
+                        "process it changes nothing)")
+    add_launcher_args(p)
     p.add_argument("--pallas", action="store_true",
                    help="accepted for parity with the JAX CLI and changes "
                         "nothing: on a CUDA device the port always runs "
@@ -65,24 +71,33 @@ def _iter_images(path):
 
 
 def main(argv=None) -> list[str]:
-    """Upscale each image; returns the paths written."""
+    """Upscale each image; returns the paths written (rank 0's)."""
     args = parse_args(argv)
-    if args.shard_tiles:
-        raise NotImplementedError("--shard-tiles: several GPUs are not "
-                                  "ported yet (ROADMAP queue 1 item 8(b))")
+    mesh = mesh_from_args(args)
+    try:
+        return upscale(args, mesh)
+    finally:
+        close_mesh(mesh)
+
+
+def upscale(args, mesh) -> list[str]:
+    """The images of parsed ``args`` on this process's ``mesh``."""
     cfg = Config.fromfile(args.config)
     model = build_model(cfg.model, test_cfg=cfg.get("test_cfg"),
-                        device=args.device)
+                        device=mesh.device)
     load_weights(model, args.checkpoint, cfg)
 
     scale = args.scale
     int_scale = scale == int(scale)
     out_dir_mode = os.path.isdir(args.img)
-    if out_dir_mode and args.out:
+    if out_dir_mode and args.out and mesh.is_main:
         os.makedirs(args.out, exist_ok=True)
 
+    # every rank lists the images before rank 0 writes next to them
+    images = list(_iter_images(args.img))
+    mesh.barrier()
     written = []
-    for path in _iter_images(args.img):
+    for path in images:
         lq = imread(path).astype(np.float32) / 255.0
         h, w = lq.shape[:2]
         if int_scale and args.tile and (h > args.tile or w > args.tile):
@@ -92,10 +107,13 @@ def main(argv=None) -> list[str]:
                     f"{h}x{w} image exceeds --tile {args.tile}; run with "
                     "--tile 0 for a full-image predict")
             sr = model.predict_tiled(lq, int(scale), args.tile,
-                                     args.tile_overlap)
+                                     args.tile_overlap,
+                                     mesh=mesh if args.shard_tiles else None)
         else:
             sr = model.predict(lq, (int(round(h * scale)),
                                     int(round(w * scale))))
+        if not mesh.is_main:
+            continue
         sr8 = np.clip(np.asarray(sr) * 255.0 + 0.5, 0, 255).astype(np.uint8)
         if args.out:
             out = (os.path.join(args.out, os.path.basename(path))

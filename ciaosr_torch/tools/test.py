@@ -2,6 +2,7 @@
 
     python3 -m ciaosr_torch.tools.test CONFIG CHECKPOINT [--out M.json]
         [--save-path DIR] [--split {test,val}] [--device cpu]
+        [--launcher {none,pytorch}] [--shard-tiles]
 
 CHECKPOINT is a reference ``.pth`` / ``.pt`` file (the mmcv meta dict, a
 full restorer checkpoint or a raw SwinIR-family one); a training run of
@@ -11,6 +12,13 @@ newest checkpoint); ``None`` (the config's ``test_checkpoint_path``,
 ``<work_dir>/latest`` in the shipped configs); or ``random`` (seeded
 random weights, a smoke run). The model runs on the CUDA device through the port's
 kernels unless ``--device cpu`` asks for the plain PyTorch path.
+
+On N GPUs, one process each (``python3 -m torch.distributed.run
+--standalone --nproc_per_node N -m ciaosr_torch.tools.test ...
+--launcher pytorch``), the images are strided over the ranks and their
+metrics gathered; with ``--shard-tiles`` every rank takes every image and
+the tiles of each are sharded over the ranks. Rank 0 prints and writes
+``--out``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from ciaosr_torch.config.config import Config
 from ciaosr_torch.data.datasets import build_dataset
 from ciaosr_torch.eval.evaluator import evaluate_dataset
 from ciaosr_torch.models.builder import build_model
+from ciaosr_torch.parallel.mesh import (add_launcher_args, close_mesh,
+                                        mesh_from_args)
 from ciaosr_torch.train.checkpoint import (load_staged_generator,
                                            resolve_checkpoint)
 
@@ -44,18 +54,16 @@ def parse_args(argv=None):
                         "and make cuDNN pick deterministic algorithms")
     p.add_argument("--out", help="write metrics JSON here")
     p.add_argument("--save-path", help="save predicted PNGs here")
-    p.add_argument("--launcher", default="none", choices=["none"],
-                   help="one process; several GPUs are not ported yet")
+    add_launcher_args(p)
     p.add_argument("--gpu-collect", action="store_true",
-                   help="accepted for reference-CLI parity; one process "
-                        "gathers nothing")
-    p.add_argument("--local_rank", type=int, default=0,
-                   help="accepted for reference-CLI parity; unused")
+                   help="accepted for reference-CLI parity; the results "
+                        "are always gathered by a collective")
     p.add_argument("--tmpdir", help="accepted for reference-CLI parity; "
                    "unused")
     p.add_argument("--split", default="test", choices=["test", "val"])
     p.add_argument("--shard-tiles", action="store_true",
-                   help="not ported: raises (ROADMAP queue 1 item 8(b))")
+                   help="shard each image's tiles over the ranks (with one "
+                        "process it changes nothing)")
     p.add_argument("--pallas", action="store_true",
                    help="accepted for parity with the JAX CLI and changes "
                         "nothing: on a CUDA device the port always runs "
@@ -106,9 +114,15 @@ def load_weights(restorer, checkpoint: str, cfg) -> None:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.shard_tiles:
-        raise NotImplementedError("--shard-tiles: several GPUs are not "
-                                  "ported yet (ROADMAP queue 1 item 8(b))")
+    mesh = mesh_from_args(args)
+    try:
+        return evaluate(args, mesh)
+    finally:
+        close_mesh(mesh)
+
+
+def evaluate(args, mesh) -> dict:
+    """The eval of parsed ``args`` on this process's ``mesh``."""
     cfg = Config.fromfile(args.config)
     seed = args.seed or 0
     if args.seed is not None or args.deterministic:
@@ -121,9 +135,12 @@ def main(argv=None) -> dict:
 
     dataset = build_dataset(cfg.data[args.split])
     model = build_model(cfg.model, test_cfg=cfg.test_cfg,
-                        device=args.device, seed=seed)
+                        device=mesh.device, seed=seed)
     load_weights(model, args.checkpoint, cfg)
-    results = evaluate_dataset(model, dataset, save_path=args.save_path)
+    results = evaluate_dataset(model, dataset, save_path=args.save_path,
+                               mesh=mesh, shard_tiles=args.shard_tiles)
+    if not mesh.is_main:
+        return results
     print("Eval results:")
     for k, v in results.items():
         print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}")

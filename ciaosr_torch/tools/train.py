@@ -3,6 +3,16 @@
     python3 -m ciaosr_torch.tools.train CONFIG [--work-dir D]
         [--resume-from CKPT] [--no-auto-resume] [--seed N] [--deterministic]
         [--autoscale-lr] [--total-iters N] [--bf16] [--device cpu]
+        [--launcher {none,pytorch}] [--dist-backend {nccl,gloo}]
+
+On N GPUs of one machine, one process each:
+
+    python3 -m torch.distributed.run --standalone --nproc_per_node N \
+        -m ciaosr_torch.tools.train CONFIG --launcher pytorch
+
+The config's ``samples_per_gpu`` is then the global batch, split over the
+ranks as the JAX package splits it over its devices (it must divide by
+N), and ``--autoscale-lr`` scales the lr by N / 8.
 
 Training of a ``CiaoSR`` or ``BasicRestorer`` config (classical, L1: the
 ``Trainer`` loop) or a ``RealCiaoSR`` config (real-world GAN: the
@@ -36,12 +46,10 @@ from ciaosr_torch.data.datasets import build_dataset
 from ciaosr_torch.data.loader import build_dataloader
 from ciaosr_torch.eval.evaluator import evaluate_dataset
 from ciaosr_torch.models.builder import build_model
+from ciaosr_torch.parallel.mesh import (Mesh, add_launcher_args, close_mesh,
+                                        mesh_from_args)
 from ciaosr_torch.train.gan_trainer import GANTrainer
 from ciaosr_torch.train.trainer import Trainer
-
-# the processes of one run, each training on one device: several GPUs are
-# not ported yet (ROADMAP queue 1 item 8(b))
-N_DEVICES = 1
 
 
 def parse_args(argv=None):
@@ -59,21 +67,21 @@ def parse_args(argv=None):
                         "every op that has a deterministic implementation "
                         "use it (the others warn), for the run")
     p.add_argument("--autoscale-lr", action="store_true",
-                   help="linear LR scaling: lr x (devices trained on) / 8")
+                   help="linear LR scaling: lr x (GPUs trained on) / 8")
     p.add_argument("--total-iters", type=int, default=None,
                    help="override config total_iters")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute (f32 params): generator dtype 'bf16'")
-    p.add_argument("--launcher", default="none", choices=["none"],
-                   help="one process; several GPUs are not ported yet")
+    add_launcher_args(p)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device; 'cpu' "
                         "runs the plain PyTorch path)")
     return p.parse_args(argv)
 
 
-def environment(device: torch.device) -> dict:
-    """The run's environment record (env.json)."""
+def environment(device: torch.device, world: int) -> dict:
+    """The run's environment record (env.json): rank 0's device and the
+    number of processes, one GPU each."""
     cuda = device.type == "cuda"
     return {
         "python": platform.python_version(),
@@ -82,14 +90,23 @@ def environment(device: torch.device) -> dict:
         "cuda": torch.version.cuda,
         "device": str(device),
         "devices": [torch.cuda.get_device_name(device) if cuda else "cpu"],
-        "n_devices": N_DEVICES,
+        "n_devices": world,
     }
 
 
 def main(argv=None) -> Trainer:
     args = parse_args(argv)
+    mesh = mesh_from_args(args)
+    try:
+        return seeded_train(args, mesh)
+    finally:
+        close_mesh(mesh)
+
+
+def seeded_train(args, mesh: Mesh) -> Trainer:
+    """``train``, under ``--deterministic``'s seeds and settings."""
     if not args.deterministic:
-        return train(args)
+        return train(args, mesh)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -106,20 +123,22 @@ def main(argv=None) -> Trainer:
     # and runs as it is, so that no config stops at its first backward
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        return train(args)
+        return train(args, mesh)
     finally:
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = saved[2:]
 
 
-def train(args) -> Trainer:
-    """The run of parsed ``args`` (``main``'s, after its seeding)."""
+def train(args, mesh: Mesh) -> Trainer:
+    """The run of parsed ``args`` on this process's ``mesh`` (``main``'s,
+    after its seeding); only rank 0 writes the dumps."""
     cfg = Config.fromfile(args.config)
     work_dir = args.work_dir or cfg.work_dir
     os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
-        f.write(cfg.text)
+    if mesh.is_main:
+        with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
+            f.write(cfg.text)
 
     if args.autoscale_lr:
         if "lr" not in cfg.optimizers:
@@ -131,18 +150,19 @@ def train(args) -> Trainer:
                 f"({sorted(cfg.optimizers)}), for which no scaling rule "
                 "is defined")
         cfg.optimizers = dict(cfg.optimizers,
-                              lr=cfg.optimizers["lr"] * N_DEVICES / 8)
+                              lr=cfg.optimizers["lr"] * mesh.world / 8)
     if args.bf16:
         cfg.model = dict(cfg.model, generator=dict(cfg.model["generator"],
                                                    dtype="bf16"))
     model = build_model(cfg.model, train_cfg=cfg.get("train_cfg"),
-                        test_cfg=cfg.get("test_cfg"), device=args.device,
+                        test_cfg=cfg.get("test_cfg"), device=mesh.device,
                         seed=args.seed)
 
-    env = environment(model.device)
-    print("Environment:", env, flush=True)
-    with open(os.path.join(work_dir, "env.json"), "w") as f:
-        json.dump(env, f, indent=2)
+    if mesh.is_main:
+        env = environment(model.device, mesh.world)
+        print("Environment:", env, flush=True)
+        with open(os.path.join(work_dir, "env.json"), "w") as f:
+            json.dump(env, f, indent=2)
 
     train_ds = build_dataset(cfg.data["train"])
     loader_cfg = cfg.data.get("train_dataloader") or {}
@@ -157,14 +177,14 @@ def train(args) -> Trainer:
         val_ds = build_dataset(cfg.data["val"])
 
         def eval_fn():
-            return evaluate_dataset(model, val_ds)
+            return evaluate_dataset(model, val_ds, mesh=mesh)
 
     mtype = cfg.model["type"]
     cls = GANTrainer if (mtype if isinstance(mtype, str)
                          else mtype.__name__) == "RealCiaoSR" else Trainer
     trainer = cls(restorer=model, cfg=cfg, work_dir=work_dir,
                   resume_from=args.resume_from,
-                  auto_resume=not args.no_auto_resume)
+                  auto_resume=not args.no_auto_resume, mesh=mesh)
     trainer.run(loader, total_iters=args.total_iters or cfg.total_iters,
                 eval_fn=eval_fn, eval_interval=eval_interval)
     return trainer

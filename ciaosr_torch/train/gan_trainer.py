@@ -7,7 +7,10 @@ auto-resume, ``resume_from``) over ``RealCiaoSRRestorer.
 make_gan_train_step``, with ``cfg.optimizers.generator`` and
 ``.discriminator`` (the generator's when absent; none without a
 discriminator, where the JAX package inits optax on an empty tree), both
-on ``lr_config``'s schedule. Before resuming it seeds the generator and
+on ``lr_config``'s schedule, data-parallel over the ``Trainer``'s mesh
+(the generator's and the discriminator's gradients each averaged over
+the ranks before their optimizer steps; the three modules broadcast from
+rank 0 after the resume). Before resuming it seeds the generator and
 its EMA copy from ``cfg.load_from`` (train/checkpoint.py::
 load_staged_generator). Its checkpoints hold ``generator.``,
 ``generator_ema.`` and ``discriminator.`` tensors, and ``optimizer`` and
@@ -48,7 +51,7 @@ class GANTrainer(Trainer):
                               self.scheduler, self.d_scheduler)
         return state, r.make_gan_train_step(
             self.optimizer, self.d_optimizer,
-            (self.scheduler, self.d_scheduler))
+            (self.scheduler, self.d_scheduler), self.mesh)
 
     def _modules(self) -> dict:
         r = self.restorer

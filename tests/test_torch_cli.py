@@ -140,7 +140,7 @@ def test_cli_metrics_match_jax_with_csa(tmp_path_factory, monkeypatch,
 def test_cli_checkpoint_resolution(case, tmp_path):
     """'None' reads the config's test_checkpoint_path; 'random' keeps the
     seeded weights of build_model; a directory (JAX's orbax format)
-    raises; --shard-tiles raises."""
+    raises; --shard-tiles in one process changes nothing."""
     cfg, ckpt = case
     by_path = port_test.main([cfg, ckpt, "--device", "cpu"])
     by_none = port_test.main([cfg, "None", "--device", "cpu"])
@@ -158,8 +158,9 @@ def test_cli_checkpoint_resolution(case, tmp_path):
     np.testing.assert_array_equal(saved, want)
     with pytest.raises(ValueError, match="orbax"):
         port_test.main([cfg, str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="8\\(b\\)"):
-        port_test.main([cfg, ckpt, "--device", "cpu", "--shard-tiles"])
+    sharded = port_test.main([cfg, ckpt, "--device", "cpu", "--shard-tiles"])
+    assert {k: sharded[k] for k in ("PSNR", "SSIM", "n_images")} == \
+        {k: by_path[k] for k in ("PSNR", "SSIM", "n_images")}
 
 
 def test_inference_writes_expected_image(case, tmp_path):

@@ -15,7 +15,8 @@ on key grids smaller than or off its tiles and at spread logits, the same
 bits from call to call and from every entry point, row 7 also on seeded
 banks at the edges of its tiles and of its online softmax, row 8 (row 7's
 kernel and the paste) the same bits twice, and the paste alone at ≤ 1e-6
-of its plain version; the Swin block
+of its plain version (and its refusal of a tensor off the current
+device); the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
 ≤ 2e-2; its weight-gradient kernel alone ≤ 1e-3 against its plain
 version, padded partials exactly 0), K1-K3 at SwinIR-CiaoSR's 180 channels without CSA, and the
@@ -471,6 +472,25 @@ def test_plane_overlap_add(hp, wp):
     assert torch.equal(got, ca.plane_overlap_add(k_pm, hp, wp, 2))
     with pytest.raises(ValueError, match="float32"):
         ca.plane_overlap_add(k_pm.to(torch.bfloat16), hp, wp, 2)
+
+
+@torch.inference_mode()
+def test_launch_refuses_a_tensor_off_the_current_device(monkeypatch):
+    """The port runs one process per GPU (the kernels set their
+    shared-memory attributes once per process): a wrapper launches on its
+    tensors' device only when that is the current device, and otherwise
+    raises and launches nothing."""
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import csa_attention as ca
+    k_pm = torch.zeros((1, 15, 2304), device="cuda")
+    n0 = kernels.LAUNCHES["plane_overlap_add"]
+    ca.plane_overlap_add(k_pm, 3, 5, 2)
+    assert kernels.LAUNCHES["plane_overlap_add"] == n0 + 1
+    other = k_pm.device.index + 1
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: other)
+    with pytest.raises(RuntimeError, match="one process per GPU"):
+        ca.plane_overlap_add(k_pm, 3, 5, 2)
+    assert kernels.LAUNCHES["plane_overlap_add"] == n0 + 1
 
 
 # row 7 on seeded banks: fewer than 64 queries and 48 keys (the kernel's

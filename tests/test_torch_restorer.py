@@ -1,6 +1,8 @@
 """Port restorer: tiled eval against a composition of JAX per-tile decodes,
 the metric protocol against ciaosr_tpu.core.metrics, and the device rule."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,29 +34,37 @@ def _tile_starts(n, tile, overlap):
     return sorted(set(list(range(0, n - tile, stride)) + [n - tile]))
 
 
+@partial(jax.jit, static_argnums=(0, 3))
+def _jax_tile(jnet, p, t, scale: int):
+    tn = t - MEAN
+    feat = jnet.apply(p, tn, method="gen_feature")
+    return jnet.apply(p, feat, tn, scale, method="query_rgb_grid") + MEAN
+
+
+def jax_composition(jnet, params, lq, scale: int, tile: int,
+                    overlap: int) -> np.ndarray:
+    """The oracle of tiled eval: JAX's per-tile encoder and grid decode
+    (f32, XLA), overlap-averaged in float64 and clamped."""
+    h, w = lq.shape[:2]
+    acc = np.zeros((h * scale, w * scale, 3), np.float64)
+    cnt = np.zeros((h * scale, w * scale, 1), np.float64)
+    for hi in _tile_starts(h, tile, overlap):
+        for wi in _tile_starts(w, tile, overlap):
+            out = np.asarray(_jax_tile(jnet, params, jnp.asarray(
+                lq[None, hi:hi + tile, wi:wi + tile]), scale))[0]
+            sl = (slice(hi * scale, (hi + tile) * scale),
+                  slice(wi * scale, (wi + tile) * scale))
+            acc[sl] += out
+            cnt[sl] += 1
+    return np.clip(acc / cnt, 0.0, 1.0)
+
+
 @pytest.mark.parametrize("scale", [2, 4])
 def test_predict_tiled_matches_jax_composition(models, scale):
     jnet, params, restorer = models
     lq = np.random.default_rng(scale).random((24, 20, 3), dtype=np.float32)
     tile, overlap = 16, 4
-
-    @jax.jit
-    def decode(p, t):
-        tn = t - MEAN
-        feat = jnet.apply(p, tn, method="gen_feature")
-        return jnet.apply(p, feat, tn, scale, method="query_rgb_grid") + MEAN
-
-    acc = np.zeros((24 * scale, 20 * scale, 3), np.float64)
-    cnt = np.zeros((24 * scale, 20 * scale, 1), np.float64)
-    for hi in _tile_starts(24, tile, overlap):
-        for wi in _tile_starts(20, tile, overlap):
-            out = np.asarray(decode(params, jnp.asarray(
-                lq[None, hi:hi + tile, wi:wi + tile])))[0]
-            sl = (slice(hi * scale, (hi + tile) * scale),
-                  slice(wi * scale, (wi + tile) * scale))
-            acc[sl] += out
-            cnt[sl] += 1
-    ref = np.clip(acc / cnt, 0.0, 1.0)
+    ref = jax_composition(jnet, params, lq, scale, tile, overlap)
     got = restorer.predict_tiled(lq, scale, tile=tile, tile_overlap=overlap)
     assert got.shape == (24 * scale, 20 * scale, 3)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)

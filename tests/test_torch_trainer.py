@@ -441,7 +441,9 @@ def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path,
     (chip_smoke.py phase basic's, its net cut) trains an iteration in
     bf16; a RealCiaoSR config with the shipped 002 train pipeline
     (degradation chain, a narrow generator, 2 process workers) trains an
-    iteration; --launcher takes 'none' only."""
+    iteration; --launcher pytorch with torchrun's environment for one
+    process on the CPU (a gloo group) trains as --launcher none does and
+    destroys its group; an unknown launcher is refused."""
     _, write = cli_config
     cfg = write()
     trainer = port_train.main([cfg, "--device", "cpu", "--bf16",
@@ -478,8 +480,21 @@ def test_train_cli_bf16_and_what_is_not_ported(cli_config, tmp_path,
         assert trainer.state.step == 1
         assert trainer.restorer.generator.dtype == torch.bfloat16
         assert np.isfinite(logged(tmp_path / mtype, "loss_pix")).all()
+    plain = port_train.main([cfg, "--device", "cpu", "--total-iters", "2",
+                             "--work-dir", str(tmp_path / "plain")])
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT="0").items():
+        monkeypatch.setenv(k, v)
+    launched = port_train.main([cfg, "--device", "cpu", "--total-iters", "2",
+                                "--launcher", "pytorch", "--work-dir",
+                                str(tmp_path / "launched")])
+    assert not torch.distributed.is_initialized()
+    assert launched.mesh.world == 1 and launched.mesh.group is not None
+    assert logged(tmp_path / "launched") == logged(tmp_path / "plain")
+    for k, v in plain.restorer.generator.state_dict().items():
+        assert torch.equal(launched.restorer.generator.state_dict()[k], v), k
     with pytest.raises(SystemExit):
-        port_train.main([cfg, "--launcher", "pytorch"])
+        port_train.main([cfg, "--launcher", "tpu"])
 
 
 def test_entry_points_import_no_jax():
