@@ -3,7 +3,11 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It
   1. prints the card (torch and nvidia-smi: name, power limit);
-  2. builds the CUDA kernels from ciaosr_torch/csrc with nvcc;
+  2. builds the CUDA kernels from ciaosr_torch/csrc with nvcc; checks the
+     host code this machine runs without OpenCV, Pillow or tensorboard:
+     the native MATLAB bicubic (native/bicubic.cpp built with g++, taken
+     by ``imresize_np`` by default, within 1e-6 of its numpy path, both
+     timed) and ``RandomDownSampling(backend="pillow")``;
   3. holds each kernel (bf16) against its plain PyTorch version (f32, same
      inputs) at the flagship shapes (the decode kernel's rational mode at
      ×2.5 on a 192 tile: 25 phases of 96²; its integer mode once more at
@@ -67,7 +71,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      256², ×4 on 60×47, ×2.5 on 256² and 72², and one f32-model request on
      a 192² tile: the one-tap instances of K1, K2, K3, row 9 and row 10,
      each also held against its plain version), every request with its
-     exact launches and against the plain f32 route; f32
+     exact launches and against the plain f32 route; then phase
+     swinir_u1, the SwinIR generators without the unfold (the 002
+     generator and config 001 swinir's, full width and depth, bf16): the
+     one-tap instances at C = 192 (K1, K2 and K3 at (C, DC) = (192, 0) and
+     (192, 192), row 9 at 47², row 10 at x2.5) held against their plain
+     versions at 180 channels, and ``forward_test`` through each config's
+     test_cfg (002: x4 and x2.5 on 384², 4 tiles of 256; 001: x4 and x2.5
+     on 256², 4 tiles of 192, x4 on 60 x 47), each with its exact
+     launches and against the plain f32 route; f32
      models (no dtype in their config, as every shipped config) through
      their kernels against their plain f32 route: a flagship ×4 192² tile,
      the SwinIR 70² request and the 001 swinir 72² request at ×4 and
@@ -120,7 +132,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      ``swin_block@10x48x48``, ``swin_block_bwd@10x48x48``,
      ``swin_block_wgrad@10x48x48``), with exactly 36 × 3 launches of rows
      11 and 12 and both reduction kernels and no other; 001 edsr trains 2
-     iterations under ``--deterministic``, no kernel; finite losses and every parameter with a
+     iterations under ``--deterministic``, no kernel; 001 rdn's ``tb/``
+     TensorBoard events read back by the port's reader equal to its JSONL
+     means; finite losses and every parameter with a
      gradient changed; per config the warm time an iteration, samples/s,
      the peak memory, the loader's share of the loop and the loader alone
      (batches/s); one step's gradients of 001 swinir's generator, kernel
@@ -356,6 +370,23 @@ U1_REQUESTS = (("x4", (256, 256), 4, "tiled"),
                ("x4", (60, 47), 4, "full"),
                ("x2.5", (256, 256), 2.5, "tiled"),
                ("x2.5", (72, 72), 2.5, "tiled"))
+# the SwinIR generators without the unfold (LIIF's "-u" ablation at 180
+# channels): the 002 generator (one-tap K1, K2, K3 at (C, DC) = (192, 0))
+# and config 001 swinir's (CSA at Cr = 90; one-tap K1, K3 at (192, 192)),
+# full width and depth, each through its config's test_cfg (forward_test,
+# tiles of 256 and 192, overlap 32). Their requests, (generator, name, LR
+# shape, scale): 002 x4 and x2.5 on SWIN_IMG² (4 tiles of 256: K3, row 10);
+# 001 x4 and x2.5 on SWIN_001_IMG² (4 tiles of 192: K4, K3, row 10) and x4
+# on 60 x 47 (two 47² tiles: row 9's odd width). The kernel rows are held
+# on the first tile of each request (SWIN_U1_TILES)
+SWIN_002_U1 = dict(SWIN_002, feat_unfold=False)
+SWIN_001_U1 = dict(SWIN_001, feat_unfold=False)
+SWIN_U1_ODD = (60, 47)
+SWIN_U1_REQUESTS = (("002", "x4", (SWIN_IMG, SWIN_IMG), 4),
+                    ("002", "x2.5", (SWIN_IMG, SWIN_IMG), 2.5),
+                    ("001", "x4", (SWIN_001_IMG, SWIN_001_IMG), 4),
+                    ("001", "x4", SWIN_U1_ODD, 4),
+                    ("001", "x2.5", (SWIN_001_IMG, SWIN_001_IMG), 2.5))
 
 # the 002 recipe's training (configs/002_real_wogan_*: samples_per_gpu 6,
 # lq_patch_size 64, sample_quantity 4096 (a 64 × 64 block of one HR grid,
@@ -900,7 +931,8 @@ def breakdown(restorer, lq_tile: torch.Tensor) -> None:
 def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
                  lq_s: np.ndarray, big: np.ndarray,
                  sw1_ms: dict | None = None, edsr=None, u1=None,
-                 u1_ms: dict | None = None) -> None:
+                 u1_ms: dict | None = None, swin_u1: dict | None = None,
+                 swin_u1_ms: dict | None = None) -> None:
     """CUDA-event times (median of several after warm-up) of the kernels
     redesigned for Hopper (K1, K2 and K3's integer mode at both widths, K3 at
     row 9's odd width, row 7, K4 and row 6, row 11: the Swin block shifted
@@ -922,7 +954,9 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
     edsr's one-tap instances (``u1_ms`` from check_u1_kernels in the
     normal run, else timed here), a TILE² x4 tile of config 001 edsr and
     of its generator without the unfold (``edsr``, ``u1``), and the
-    latter's tile at x2.5."""
+    latter's tile at x2.5; then the SwinIR generators' one-tap C = 192
+    instances (``swin_u1_ms`` from check_swin_u1_kernels, else timed
+    here) and an x4 tile of each (``swin_u1``: their kernel routes)."""
     from ciaosr_torch.models.ciaosr import rational_cell
     from ciaosr_torch.ops.kernels import csa_attention as ca
     from ciaosr_torch.ops.kernels import csa_stencil as st
@@ -1060,6 +1094,16 @@ def time_kernels(label: str, restorer, swin, sw1, lq: np.ndarray,
                 lambda: r.grid_predict(tile, 4), reps=3, warm=1)
         times[f"001 edsr_u1 x2.5 {TILE} tile (grid_predict)"] = time_ms(
             lambda: u1.grid_predict(tile, Fraction(5, 2)), reps=3, warm=1)
+    if swin_u1 is not None:
+        if swin_u1_ms is not None:
+            times.update(swin_u1_ms)
+        else:
+            time_swin_u1_kernels(times, {k: [g] for k, g in swin_u1.items()},
+                                 lq_s)
+        for key, t in (("002", SWIN_TILE), ("001", SWIN_001_TILE)):
+            lr_t = torch.as_tensor(lq_s[:t, :t], device="cuda")[None]
+            times[f"{key} swinir_u1 x4 {t} tile (grid_predict)"] = time_ms(
+                lambda: swin_u1[key].grid_predict(lr_t, 4), reps=3, warm=1)
     log(f"kernel times ({label}): " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in times.items()))
 
@@ -1925,6 +1969,245 @@ def edsr_phases(drive, check_image,
         restorers[phase] = gens[0]
         del gens
     return u1_rows, row_launches, restorers
+
+
+def swin_u1_restorers(plain: bool = True) -> dict:
+    """The SwinIR generators without the unfold, seeded, each with its
+    config's test_cfg: {"002": [kernel route, plain f32 route], "001":
+    [...]} (the plain route only with ``plain``)."""
+    from ciaosr_torch.models.restorers import CiaoSRRestorer
+
+    kws = [{}] + ([dict(dtype=None, use_kernels=False)] if plain else [])
+    return {key: [CiaoSRRestorer(dict(cfg, **kw), rgb_mean=RGB_MEAN,
+                                 test_cfg=test_cfg, device="cuda", seed=0)
+                  for kw in kws]
+            for key, cfg, test_cfg in (
+                ("002", SWIN_002_U1, SWIN_TEST_CFG),
+                ("001", SWIN_001_U1, SWIN_001_TEST_CFG))}
+
+
+def swin_u1_row(kernel: str, key: str, kind: str = "int") -> str:
+    """The kernel row of a one-tap C = 192 instance: ``kernel`` on
+    generator ``key``'s tile (K3 with ``kind`` "rat": its rational mode;
+    "odd": its odd-width request)."""
+    name = "grid_decode_rational" if kind == "rat" else kernel
+    name += "@C180@u1" if key == "002" else "@C180+csa@u1"
+    return name + ("@{}x{}".format(*SWIN_U1_ODD) if kind == "odd" else "")
+
+
+def swin_u1_inputs(gens: dict, lq_s: np.ndarray) -> dict:
+    """The one-tap C = 192 kernels' inputs on the first tile of each
+    SWIN_U1_REQUESTS request: {(generator, kind): (maps, tables)}, kind
+    "int" (x4) and "rat" (x2.5: 25 phases of (H/2) x (W/2)) on the 002
+    SWIN_TILE² and the 001 SWIN_001_TILE² tile, "odd" (x4) on the 60 x 47
+    request's first 47² tile; the maps as ``_kernel_maps`` gives them
+    (zero-padded to (192, 0) and (192, 192))."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    out = {}
+    with torch.inference_mode():
+        for key, t, kinds in (("002", SWIN_TILE, ("int", "rat")),
+                              ("001", SWIN_001_TILE, ("int", "rat")),
+                              ("001", min(SWIN_U1_ODD), ("odd",))):
+            r = gens[key][0]
+            net, ls = r.generator, r.generator.local_size
+            feat = net.gen_feature(r.normalize(torch.as_tensor(
+                lq_s[:t, :t], device="cuda")[None])).contiguous()
+            for kind in kinds:
+                if kind == "rat":
+                    out[key, kind] = (
+                        net._kernel_maps(feat, rational_cell(
+                            t, t, t * 5 // 2, t * 5 // 2)),
+                        dk.rational_tables(t, t, 5, 2, 5, 2, ls,
+                                           feat.device))
+                else:
+                    out[key, kind] = (
+                        net._kernel_maps(feat, (0.5, 0.5)),
+                        dk.decoder_tables(4, t, t, ls, feat.device))
+    return out
+
+
+def check_swin_u1_kernels(gens: dict, inputs: dict) -> list[dict]:
+    """The one-tap instances at C = 192 on the SwinIR generators' path
+    tensors (``swin_u1_inputs``): K1 and K2 on the x4 tile of each, K3 on
+    it, row 9 on the 001 generator's 47² tile, row 10 on each x2.5 tile.
+    Each kernel (bf16, on the zero-padded maps) against its plain version
+    (f32, same values) at the real widths (the kernels' bf16 weights
+    packed at 180 channels, the maps cropped); bounds count the function's
+    work there. K1's library yardstick is one matmul of [feature | csa] by
+    [[W_k0, W_vu], [0, W_vc]]: at one tap K1 is nothing else."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    hid, dt, c = 256, torch.bfloat16, 180
+    at = "ciaosr_tpu/ops/pallas/decoder_kernel.py:"
+    rows = []
+    for key in ("002", "001"):
+        net = gens[key][0].generator
+        ss = net.softmax_scale
+
+        def packed(cell):   # the kernels' bf16 weights at 180 channels
+            return f32(dk.pack_decoder(net.imnet_k, net.imnet_v,
+                                       net.imnet_q, c, cell, dt))
+
+        (feat_p, csa_p, _, _, _, _, pk), _ = inputs[key, "int"]
+        dc = 0 if csa_p is None else c
+        m = feat_p.shape[0] * feat_p.shape[1] * feat_p.shape[2]
+        feat_r = feat_p[..., :c].float()
+        csa_r = None if csa_p is None else csa_p[..., :c].float()
+        pk_r = packed((0.5, 0.5))
+        fp = feat_p.shape[-1]
+        x_lib = feat_p if csa_p is None else torch.cat([feat_p, csa_p], -1)
+        w_lib = torch.zeros(x_lib.shape[-1], 2 * hid, device="cuda",
+                            dtype=dt)
+        w_lib[:fp, :hid], w_lib[:fp, hid:] = pk["wk0"], pk["wvu"]
+        w_lib[fp:, hid:] = pk["wvc"]
+        rows.append(kernel_row(
+            swin_u1_row("f3p_build", key), "ciaosr_torch/csrc/f3p_build.cu",
+            at + "623 (_build_f3p; _f3p_kernel u_map mode :561)",
+            lambda: dk.f3p_build(feat_p, csa_p, pk["wk0"], pk["wvu"],
+                                 pk["wvc"]),
+            lambda: dk.f3p_build_plain(feat_r, csa_r, pk_r["wk0"],
+                                       pk_r["wvu"], pk_r["wvc"]),
+            2 * m * (c * 2 * hid + dc * hid),
+            m * (c + dc) * 2 + (2 * c + dc) * hid * 2 + m * 2 * hid * 2,
+            lambda: torch.matmul(x_lib, w_lib)))
+        rows.append(wt_row(swin_u1_row("wt_hoist", key), feat_p, pk, feat_r,
+                           pk_r, at + "762 (_wt_hoist_planes, dk = C)"))
+        del x_lib, w_lib
+        for kind in (("int", "rat") if key == "002" else
+                     ("int", "odd", "rat")):
+            (fp_, cp_, gk, gv, wt, ck, pk_), tabs = inputs[key, kind]
+            fb, fh, fw, _ = fp_.shape
+            m_ = fb * fh * fw
+            if kind == "rat":
+                kern, plain = dk.grid_decode_rational, \
+                    dk.grid_decode_rational_plain
+                pk_c = packed(rational_cell(fh, fw, fh * 5 // 2,
+                                            fw * 5 // 2))
+                n_phase, n_shift = 25, tabs["yk"].shape[1]
+                m_out = fb * (fh // 2) * (fw // 2)
+                replaces = DECODE_REPLACES[True]
+            else:
+                kern, plain, pk_c = dk.grid_decode, dk.grid_decode_plain, \
+                    pk_r
+                (n_phase, n_shift), m_out = tabs["dys"].shape, m_
+                replaces = DECODE_REPLACES["odd" if kind == "odd" else False]
+            dv = c + dc
+            mlp = n_shift * (6 * hid * hid + hid * dv + hid) + dv * hid \
+                + 3 * hid * hid + hid * 3
+            weights = (9 * hid * hid + 2 * hid * dv) * 2
+            tab_bytes = sum(t.numel() * t.element_size()
+                            for t in tabs.values())
+            rows.append(kernel_row(
+                swin_u1_row("grid_decode", key, kind),
+                "ciaosr_torch/csrc/grid_decode_sm90.cu", replaces,
+                lambda: kern(fp_, cp_, gk, gv, wt, ck, pk_, tabs, ss),
+                lambda: plain(fp_[..., :c].float(),
+                              None if cp_ is None else cp_[..., :c].float(),
+                              gk.float(), gv.float(), wt.float(), ck, pk_c,
+                              tabs, ss),
+                2 * n_phase * m_out * mlp,
+                m_ * ((c + dc) * 2 + 2 * hid * 2 + 9 * (hid * 2 + 4))
+                + weights + tab_bytes + n_phase * m_out * 3 * 4, None,
+                reps=3, same_bits=True))
+    return rows
+
+
+def time_swin_u1_kernels(times: dict, gens: dict, lq_s: np.ndarray) -> None:
+    """The one-tap C = 192 instances' times into ``times``, on the maps
+    check_swin_u1_kernels holds."""
+    from ciaosr_torch.ops.kernels import decoder as dk
+
+    inputs = swin_u1_inputs(gens, lq_s)
+    with torch.inference_mode():
+        for key in ("002", "001"):
+            (feat_p, csa_p, _, _, _, _, pk), _ = inputs[key, "int"]
+            times[swin_u1_row("f3p_build", key)] = time_ms(
+                lambda: dk.f3p_build(feat_p, csa_p, pk["wk0"], pk["wvu"],
+                                     pk["wvc"]), reps=20)
+            times[swin_u1_row("wt_hoist", key)] = time_ms(
+                lambda: dk.wt_hoist(feat_p, pk["wkout"], pk["bkout"]),
+                reps=20)
+        for (key, kind), (maps, tabs) in inputs.items():
+            fn = dk.grid_decode_rational if kind == "rat" else \
+                dk.grid_decode
+            ss = gens[key][0].generator.softmax_scale
+            times[swin_u1_row("grid_decode", key, kind)] = time_ms(
+                lambda: fn(*maps, tabs, ss), reps=3, warm=1)
+
+
+def swin_u1_phase(drive, check_image,
+                  lq_s: np.ndarray) -> tuple[list, dict, dict]:
+    """The SwinIR generators without the unfold (phase "swinir_u1"), full
+    width and depth, bf16, seeded random weights: the one-tap C = 192
+    kernel rows (check_swin_u1_kernels), then each SWIN_U1_REQUESTS
+    request through forward_test and its config's test_cfg with exactly
+    the launches its tiling gives (36 Swin blocks, K1, K2 and K3's integer
+    or rational mode a tile; for the 001 generator the CSA middle
+    csa_route picks) and no other, its output checked and held against
+    the plain f32 route of the same weights (max|d|/max|ref| <= REL_TOL).
+    Returns the rows, the launches by kernel row (the 002 tiles' Swin
+    blocks under row 11's 256² row; the 001 tiles' 192² and 47² Swin
+    blocks have no row of their shape) and the kernel-route restorers."""
+    from ciaosr_torch.models.restorers import tile_layout
+    from ciaosr_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    gens = swin_u1_restorers()
+    rows = check_swin_u1_kernels(gens, swin_u1_inputs(gens, lq_s))
+    log(f"phase swinir_u1: kernel rows {time.perf_counter() - t0:.1f} s")
+    n_blocks = len(swin_blocks(gens["002"][0].generator))
+    csa_rows = {"csa_stencil_fused": "csa_stencil_fused@C180",
+                "csa_attention": "csa_attention@C180"}
+    by_row: dict = {}
+    for key, name, hw, scale in SWIN_U1_REQUESTS:
+        kern_r, plain_r = gens[key]
+        cfg = kern_r.test_cfg
+        t, hs, ws = tile_layout(*hw, scale, cfg["tile"], cfg["tile_overlap"])
+        if key == "001":
+            want = swin001_expected([hw], scale, True, n_blocks)
+        else:
+            decode = "grid_decode" if scale == 4 else "grid_decode_rational"
+            n = len(hs) * len(ws)
+            want = {"swin_block": n_blocks * n, "f3p_build": n,
+                    "wt_hoist": n, decode: n}
+        img = lq_s[:hw[0], :hw[1]]
+        label = "swinir_u1 {} {} {}x{} ({} tiles of {})".format(
+            key, name, *hw, len(hs) * len(ws), t)
+        out, launches, secs = drive(
+            f"{label}, want {want}",
+            lambda: kern_r.forward_test(img, scale=scale), list(want),
+            [k for k in kernels.LAUNCHES if k not in want])
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"path {label}: launches {got}, want "
+                                 f"{want}")
+        check_image(label, out, hr(hw, scale))
+        a, r = errors(torch.as_tensor(out), torch.as_tensor(
+            plain_r.forward_test(img, scale=scale)))
+        hw_out = hr(hw, scale)
+        log(f"e2e {label}: {secs * 1e3:.1f} ms, "
+            f"{hw_out[0] * hw_out[1] / 1e3 / (secs * 1e3):.3f} MP/s (the "
+            f"path's call); kernel route (bf16) vs plain route (f32) "
+            f"max|d|={a:.3e} max|d|/max|ref|={r:.3e}")
+        if not r <= REL_TOL:
+            raise AssertionError(f"{label}: kernel route disagrees: "
+                                 f"{r:.3e}")
+        for k, n in got.items():
+            if k == "swin_block":
+                row = f"swin_block@{t}x{t}" if key == "002" else None
+            elif k in csa_rows:
+                row = csa_rows[k]
+            else:   # row 9's odd width: K3's launches at W % 8 != 0
+                odd = k == "grid_decode" and t % 8
+                row = swin_u1_row(k, key, "odd" if odd else "int")
+            if row:
+                by_row[row] = by_row.get(row, 0) + n
+    log(f"phase swinir_u1: {time.perf_counter() - t0:.1f} s for "
+        f"{len(SWIN_U1_REQUESTS)} requests, kernel and plain routes")
+    return rows, by_row, {key: g[0] for key, g in gens.items()}
 
 
 def hr(hw, s=4):
@@ -2817,6 +3100,30 @@ def changed_parameters(gen, before: dict) -> None:
                              f"not change: {same}")
 
 
+def tb_events_check(label: str, work: Path) -> None:
+    """The TensorBoard scalars of a tools.train work_dir (``tb/``), read
+    back by the port's reader, equal to the JSONL records' means at their
+    steps: the losses and the evals' ``val_*``, without the extra fields
+    (``lr``, ``iters_per_s``), as float32."""
+    from ciaosr_torch.train.tb_events import read_scalars
+
+    want: dict = {}
+    with open(work / "train_log.jsonl") as f:
+        for r in map(json.loads, f):
+            for k, v in r.items():
+                if k not in ("step", "time", "lr", "iters_per_s"):
+                    want.setdefault(k, []).append((r["step"],
+                                                   float(np.float32(v))))
+    got = read_scalars(str(work / "tb"))
+    files = sorted(p.name for p in (work / "tb").glob("events.out.tfevents.*"))
+    steps = sorted({step for v in got.values() for step, _ in v})
+    log(f"train_cli {label}: tb/ {files}: {sum(map(len, got.values()))} "
+        f"scalars of {sorted(got)} at steps {steps}")
+    if not want.get("loss_pix") or got != want:
+        raise AssertionError(f"train_cli {label}: tb/ events {got}, want "
+                             f"the JSONL means {want}")
+
+
 def train_cli_run(drive, probe, label: str, argv: list, want: dict):
     """``ciaosr_torch.tools.train.main(argv)`` with exactly the launches
     ``want`` (every other kernel idle), its losses finite. Returns the
@@ -3008,6 +3315,7 @@ def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
             ckpts = list_steps(str(work / "checkpoints"))
             if ckpts != [2, 4, 6]:
                 raise AssertionError(f"train_cli rdn: checkpoints {ckpts}")
+            tb_events_check("rdn", work)
             train_cli_report(kind, smi, "rdn", cfg, probe, trainer,
                              max(peak, peak2), hooks={2, 4, 6})
             del trainer, saved
@@ -4919,6 +5227,89 @@ def dist_phase(drive, kind: str, smi: str, restorer, lq: np.ndarray) -> dict:
     return rows
 
 
+# the native MATLAB bicubic's cases: (name, HR shape, scale); the 002
+# configs' eval LR (a 480 x 512 picture at x1/4) and the train pipelines'
+# patch (192² to 48²)
+NATIVE_CASES = (("480x512 x1/4", (480, 512, 3), 0.25),
+                ("192x192 x1/4", (192, 192, 3), 0.25))
+NATIVE_TOL = 1e-6
+
+
+def host_checks(kind: str, smi: str) -> None:
+    """The host code this machine runs without OpenCV, Pillow or
+    tensorboard: the native MATLAB bicubic (data/native.py: built with
+    g++ from native/bicubic.cpp, taken by ``imresize_np`` by default,
+    within NATIVE_TOL of the numpy path of ``CIAOSR_NATIVE=0``; both timed,
+    median of 5 after one call) and ``RandomDownSampling(backend=
+    "pillow")`` (core/pilresize.py: the LR patch's shape, dtype and
+    range). The TensorBoard events are checked in phase train_cli."""
+    from ciaosr_torch.core import resize
+    from ciaosr_torch.data import native
+    from ciaosr_torch.data.pipelines import RandomDownSampling
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"host native resize: {lib.name} in {lib.parent.name} built or "
+        f"found in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(12)
+    env = os.environ.get("CIAOSR_NATIVE")
+    calls = []
+    resize_native = native.bicubic_resize
+
+    def counted(*a, **k):
+        calls.append(1)
+        return resize_native(*a, **k)
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    native.bicubic_resize = counted
+    try:
+        for name, shape, scale in NATIVE_CASES:
+            img = rng.random(shape, dtype=np.float32)
+            os.environ.pop("CIAOSR_NATIVE", None)
+            n0 = len(calls)
+            got = resize.imresize_np(img, scale=scale)
+            used = len(calls) - n0
+            ms_native = ms(lambda: resize.imresize_np(img, scale=scale))
+            os.environ["CIAOSR_NATIVE"] = "0"
+            ref = resize.imresize_np(img, scale=scale)
+            ms_numpy = ms(lambda: resize.imresize_np(img, scale=scale))
+            err = float(np.abs(got - ref).max())
+            log(f"host native resize {name} ({kind}; {smi}; "
+                f"{os.cpu_count()} CPUs): max|d| vs numpy {err:.3e}, "
+                f"native {ms_native:.3f} ms, numpy {ms_numpy:.3f} ms "
+                f"({ms_numpy / ms_native:.1f}x)")
+            if used != 1 or got.shape != ref.shape or not err <= NATIVE_TOL:
+                raise AssertionError(f"native resize {name}: {used} native "
+                                     f"calls, error {err:.3e}")
+    finally:
+        native.bicubic_resize = resize_native
+        if env is None:
+            os.environ.pop("CIAOSR_NATIVE", None)
+        else:
+            os.environ["CIAOSR_NATIVE"] = env
+    op = RandomDownSampling(scale_min=2.0, scale_max=4.0, patch_size=48,
+                            backend="pillow")
+    res = op({"gt": rng.random((256, 256, 3), dtype=np.float32),
+              "_rng": np.random.default_rng(3)})
+    lq, gt = res["lq"], res["gt"]
+    log(f"host RandomDownSampling(backend='pillow'): scale "
+        f"{res['scale']:.4f}, gt {gt.shape} -> lq {lq.shape} {lq.dtype}, "
+        f"range [{lq.min():.4f}, {lq.max():.4f}]")
+    if lq.shape != (48, 48, 3) or lq.dtype != np.float32 or \
+            gt.shape != (round(48 * res["scale"]),) * 2 + (3,) or \
+            not 0 <= lq.min() <= lq.max() <= 1:
+        raise AssertionError("RandomDownSampling(backend='pillow'): bad "
+                             f"output {lq.shape} {lq.dtype}")
+
+
 def drive(name, fn, ran, idle):
     """fn() as one path: every launch count set to 0 just before it and
     read just after; each kernel of ``ran`` launched, none of ``idle``.
@@ -4991,6 +5382,8 @@ def main() -> int:
         mark("the basic phase")
         return 0
     log(f"build: {_build.build_all():.2f} s ({_build.build_dir()})")
+    if not flags:
+        host_checks(kind, smi)
 
     if flags == ["--train-cli"]:
         launches, train_rows = train_cli_phase(drive, kind, smi)
@@ -5034,7 +5427,8 @@ def main() -> int:
                                    test_cfg=EDSR_TEST_CFG, device="cuda",
                                    seed=0) for cfg in (EDSR_001, EDSR_U1))
         time_kernels(tree, restorer, swin, sw1, lq, lq_s, big, edsr=edsr,
-                     u1=u1)
+                     u1=u1, swin_u1={k: g[0] for k, g in
+                                     swin_u1_restorers(False).items()})
         return 0
 
     def full(hw):
@@ -5449,14 +5843,36 @@ def main() -> int:
             f"tflops={r['tflops']:.1f}")
     rows += u1_rows
     mark("the 001 edsr phases")
+
+    # ---- the SwinIR generators without the unfold: the one-tap C = 192
+    # instances
+    su1_rows, su1_launches, su1_gens = swin_u1_phase(drive, check_image,
+                                                     lq_s)
+    unrowed = set(su1_launches) - {r["name"] for r in rows + su1_rows}
+    if unrowed:
+        raise AssertionError(f"phase swinir_u1 launched {unrowed}, which no "
+                             "kernel row holds")
+    for r in rows + su1_rows:
+        if r["name"] in su1_launches:
+            r["launches_swinir_u1"] = su1_launches[r["name"]]
+            r["launches"] += r["launches_swinir_u1"]
+    for r in su1_rows:
+        log(f"kernel {r['name']}: max|d|={r['max_abs_err']:.3e} "
+            f"max|d|/max|ref|={r['max_rel_err']:.3e} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']} "
+            f"launches={r['launches']} tflops={r['tflops']:.1f}")
+    rows += su1_rows
+    mark("the swinir_u1 phase")
     f32_model_checks(drive, lq, lq_s)
     swin_breakdown(swin, swin_tile)
     mark("the f32 models and the SwinIR breakdown")
     time_kernels(tree, restorer, swin, sw1, lq, lq_s, big,
                  {r["name"]: r["ms"] for r in sw1_rows},
                  edsr_gens["edsr"], edsr_gens["edsr_u1"],
-                 {r["name"]: r["ms"] for r in u1_rows})
-    del sw1, edsr_gens
+                 {r["name"]: r["ms"] for r in u1_rows}, su1_gens,
+                 {r["name"]: r["ms"] for r in su1_rows})
+    del sw1, edsr_gens, su1_gens
     mark("time_kernels")
 
     # ---- training the 002 generator: rows 11 and 12 at the batch's

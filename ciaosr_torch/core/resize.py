@@ -5,13 +5,15 @@ Counterpart of ciaosr_tpu/core/resize.py (``cubic_kernel``,
 kernel widened by 1/scale on downscale (antialiasing), per-row weight
 normalization and symmetric (edge-inclusive mirror) boundaries. An
 (out, P) index / weight table per axis is applied as one gather and one
-einsum in float64. The JAX package's C++ fast path gives the same
-numbers; this module has only the numpy path.
+einsum in float64. ``imresize_np`` takes the native C++ library of the
+same numerics (``data/native.py``) unless ``CIAOSR_NATIVE=0``, the
+switch the JAX package reads.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -73,7 +75,10 @@ def imresize_np(img: np.ndarray, size=None, scale: float | None = None,
     """Resize an HWC (or HW) float image with MATLAB bicubic semantics.
 
     Either ``size=(out_h, out_w)`` with an explicit ``scale`` factor, or just
-    ``scale`` (output = ceil(in * scale)). Returns float32.
+    ``scale`` (output = ceil(in * scale)). Returns float32. By default the
+    native library resizes a float32 copy of the image, as the JAX
+    package's ``imresize_np`` does; ``CIAOSR_NATIVE=0`` takes the numpy
+    path (the two agree within 1e-6).
     """
     squeeze = img.ndim == 2
     if squeeze:
@@ -87,6 +92,11 @@ def imresize_np(img: np.ndarray, size=None, scale: float | None = None,
         out_h, out_w = size
         if scale is None:
             scale = out_h / in_h
+    if os.environ.get("CIAOSR_NATIVE", "1") != "0":
+        from ciaosr_torch.data.native import bicubic_resize
+        out = bicubic_resize(img.astype(np.float32), out_h, out_w,
+                             float(scale), antialiasing)
+        return out[..., 0] if squeeze else out
     idx_h, w_h = resize_table(in_h, out_h, float(scale), antialiasing)
     idx_w, w_w = resize_table(in_w, out_w, float(scale), antialiasing)
     out = _apply_axis_np(img.astype(np.float64), idx_h, w_h, axis=0)

@@ -41,7 +41,9 @@
 // the TPU kernel with u_map = feature) u is the feature itself: the
 // unfold's nine K chunks a channel slice become one, at the centre, and
 // the weight maps have C rows. Compiled so at (64, 64): g_k is one
-// K = 64 product and g_v two (feature, CSA).
+// K = 64 product and g_v two (feature, CSA); and at (192, 0) and
+// (192, 192), SwinIR-CiaoSR without the unfold: g_k is three K chunks
+// (the centre's channel slices), g_v three more of the CSA map with it.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -244,5 +246,11 @@ extern "C" int f3p_build(const void* feat, const void* csa, const void* wk,
   if (C == 64 && DC == 64 && taps == 1)
     return launch<64, 64, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
                              stream);
+  if (C == 192 && DC == 0 && taps == 1)
+    return launch<192, 0, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                             stream);
+  if (C == 192 && DC == 192 && taps == 1)
+    return launch<192, 192, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                               stream);
   return (int)cudaErrorInvalidValue;
 }

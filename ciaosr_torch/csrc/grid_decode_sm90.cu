@@ -83,8 +83,12 @@
 // u_map = feature) u is the feature itself, DK = C: compiled so at
 // (64, 64), DV = 128 is one blend chunk of two slabs, the first read
 // from the feature at q, the second from the CSA map; imnet_q's first
-// layer is K = 128. The MLP layers, the ring and the shared memory are
-// the nine-tap instance's. Both modes are compiled at all four widths.
+// layer is K = 128; and at (192, 0) and (192, 192), SwinIR-CiaoSR
+// without the unfold: DV = 192 is one 128-column chunk and a 64-column
+// half chunk, DV = 384 three chunks, the DK = 192 boundary on slab 3 in
+// chunk 2 (imnet_q's first layer K = 192 or 384). The MLP layers, the
+// ring and the shared memory are the nine-tap instance's. Both modes are
+// compiled at all six widths.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -748,6 +752,10 @@ int dispatch(int C, int DC, int taps, void* const* ptrs, const Prm& P,
     return launch<192, 192, 9>(ptrs, P, pixels, stream);
   if (C == 64 && DC == 64 && taps == 1)
     return launch<64, 64, 1>(ptrs, P, pixels, stream);
+  if (C == 192 && DC == 0 && taps == 1)
+    return launch<192, 0, 1>(ptrs, P, pixels, stream);
+  if (C == 192 && DC == 192 && taps == 1)
+    return launch<192, 192, 1>(ptrs, P, pixels, stream);
   return (int)cudaErrorInvalidValue;
 }
 

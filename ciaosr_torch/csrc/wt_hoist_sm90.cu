@@ -61,7 +61,7 @@
 // (<= 227 KB), the same at every instance (at C = 192 the window is one
 // slab of three at a time).
 // Compiled for C = 64 (the flagship) and C = 192 with the unfold, and for
-// C = 64 without it.
+// C = 64 and C = 192 without it (one tap: a K chunk a slab).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -182,7 +182,16 @@ __device__ __forceinline__ void form_at(uint32_t (&f)[4][4],
 // rotate through named sets, so that chunk j + 1's fragments are formed
 // while chunk j's products run, also across a slab boundary (three sets:
 // with nine taps the next slab's first chunk takes set 0 again). The slab
-// loop is not unrolled: 27 unrolled chunks at C = 192 spilled.
+// loop is not unrolled: 27 unrolled chunks at C = 192 spilled. At one tap
+// a chunk is a slab, the fragments one set, and chunk j + 1's are formed
+// only once chunk j's products are done; and both consumer warpgroups
+// start each item together (an item of three chunks is the weight ring's
+// depth, so one could otherwise run a whole item ahead of the other). At
+// C = 192, on CTAs that walk several items: with three rotating sets and
+// neither rule some wt rows were wrong; with the first rule alone a few
+// pixels in the first rows of a patch's first item (wt and ck) still
+// changed from launch to launch. The cause is not found; ptxas reported
+// no spill, and the nine-tap instances keep their bits.
 template <int C, int TAPS>
 __device__ __forceinline__ void consume(unsigned char* smem,
                                         const CUtensorMap* tm_out,
@@ -217,11 +226,12 @@ __device__ __forceinline__ void consume(unsigned char* smem,
   for (int i = 0; i < 4; ++i) cka[i] = 0.f;
   // fragment sets: three where a slab's last tap forms the next slab's
   // first, two for one slab of nine taps, one for one tap
-  constexpr int NSET = CS > 1 ? 3 : TAPS > 1 ? 2 : 1;
+  constexpr int NSET = TAPS == 1 ? 1 : CS > 1 ? 3 : 2;
   uint32_t a[NSET][4][4];
   int kc = 0, ws = 0;  // chunks and window slabs before this item
   for (long long it = i0; it < i1; ++it, kc += NCH, ws += CS) {
     const Item m = item_at(it, g, r, xm);
+    if constexpr (TAPS == 1) bar_sync(1, CONSUMERS * 128);
     form_at<C, TAPS>(a[0], smem, ws, 0, 0, rq, m.rk, hi);
 #pragma unroll 1
     for (int cs = 0; cs < CS; ++cs) {
@@ -248,8 +258,12 @@ __device__ __forceinline__ void consume(unsigned char* smem,
         wgmma_commit();
         fence_regs(acc);
         fence_regs(cka);
-        // chunk j - 1's products are done: release its stage
-        wgmma_wait<1>();
+        // chunk j - 1's products are done: release its stage (at one tap
+        // chunk j's are done too before the next fragments are formed)
+        if constexpr (TAPS == 1)
+          wgmma_wait<0>();
+        else
+          wgmma_wait<1>();
         if (j > 0) mbar_arrive(&empty[(kc + j - 1) % STAGES]);
         if (t + 1 < TAPS)
           form_at<C, TAPS>(a[(t + 1) % NSET], smem, ws, t + 1, cs, rq,
@@ -428,5 +442,7 @@ extern "C" int wt_hoist(const void* feat, const void* wkt, const void* bk,
     return launch<192, 9>(feat, wkt, bk, wt, ck, B, H, W, stream);
   if (C == 64 && taps == 1)
     return launch<64, 1>(feat, wkt, bk, wt, ck, B, H, W, stream);
+  if (C == 192 && taps == 1)
+    return launch<192, 1>(feat, wkt, bk, wt, ck, B, H, W, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,7 @@ import numpy as np
 
 from ciaosr_torch.config.registry import PIPELINES, build_from_cfg
 from ciaosr_torch.core.cvresize import resize as cvresize
+from ciaosr_torch.core.pilresize import resize_bicubic
 from ciaosr_torch.core.resize import imresize_np
 from ciaosr_torch.data.imageio import imread
 
@@ -82,18 +83,19 @@ class RandomDownSampling:
     """LQ synthesis: scale ∈ [min, max) uniform; crop an HR patch of
     round(patch·s) and bicubic-downsample it to the LR patch, or (no
     ``patch_size``, eval) the whole image cut to an integer LR grid.
-    Backends: 'matlab' (MATLAB-exact bicubic) and 'cv2' (cv2.resize's
-    INTER_CUBIC, from core/cvresize.py); 'pillow' is not ported."""
+    Backends: 'matlab' (MATLAB-exact bicubic), 'pillow' (Pillow's
+    bicubic on the image clipped to [0, 1] in 8 bits, from
+    core/pilresize.py) and 'cv2' (cv2.resize's INTER_CUBIC, from
+    core/cvresize.py)."""
 
     def __init__(self, scale_min=1.0, scale_max=4.0, patch_size=None,
                  interpolation="bicubic", backend="matlab"):
         if scale_max < scale_min:
             raise ValueError(f"scale_max {scale_max} < scale_min "
                              f"{scale_min}")
-        if backend not in ("matlab", "cv2"):
-            raise NotImplementedError(
-                f"RandomDownSampling backend {backend!r} is not ported "
-                "(ROADMAP queue 1 item 6(a)); use 'matlab' or 'cv2'")
+        if backend not in ("matlab", "pillow", "cv2"):
+            raise ValueError(f"RandomDownSampling backend {backend!r}: "
+                             "use 'matlab', 'pillow' or 'cv2'")
         self.scale_min = scale_min
         self.scale_max = scale_max
         self.patch_size = patch_size
@@ -103,6 +105,10 @@ class RandomDownSampling:
     def _resize(self, img, size, scale):
         if self.backend == "matlab":
             return imresize_np(img, size=size, scale=1.0 / scale)
+        if self.backend == "pillow":
+            lq = resize_bicubic((np.clip(img, 0, 1) * 255).astype(np.uint8),
+                                *size)
+            return lq.astype(np.float32) / 255.0
         return cvresize(img, size, "bicubic")
 
     def __call__(self, results):

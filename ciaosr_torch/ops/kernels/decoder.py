@@ -32,11 +32,13 @@ CiaoSR without CSA (DC = 0, csa None) at C = 192 and SwinIR-CiaoSR with
 CSA (config 001 swinir) at (192, 192), its 180 feature and CSA channels
 zero-padded (``padded_widths``; ``pack_decoder(c_pad=..., dc_pad=...)``
 puts zero rows and columns at the padded channels of every unfold block
-and of the CSA block, so the padding changes no result), all with the
-unfold; and (64, 64) without it (config 001 edsr's generator with
-``feat_unfold=False``). The wrappers read C and DC from their tensors and
-raise for any other triple; both modes of K3 take all four (the kernel
-blends the value in 128-column chunks: at one tap DV = 128 is one chunk).
+and of the CSA block, so the padding changes no result), each with the
+unfold and without it (``feat_unfold=False``: config 001 edsr's
+generator at (64, 64), the SwinIR generators at (192, 0) and (192,
+192)). The wrappers read C and DC from their tensors and raise for any
+other triple; both modes of K3 take all six (the kernel blends the value
+in 128-column chunks: at one tap DV = 128, 192 or 384 is one, one and a
+half or three chunks).
 """
 
 from __future__ import annotations
@@ -54,10 +56,9 @@ from ciaosr_torch.ops.neighborhood import (shift_edge, tap_major_perm,
                                            unfold_nhwc)
 
 # the (C, DC, taps) triples the kernels are compiled for, and the MLP widths
-INSTANCES = ((64, 64, 9), (192, 0, 9), (192, 192, 9), (64, 64, 1))
+INSTANCES = ((64, 64, 9), (192, 0, 9), (192, 192, 9), (64, 64, 1),
+             (192, 0, 1), (192, 192, 1))
 HID, N_HIDDEN = 256, 4
-# where the one-tap widths that have no instance are queued
-ONE_TAP_ITEM = "ROADMAP.md queue 2 item 3"
 # the decode kernel blends its shifts in groups of 4 at every width, but
 # takes 9 (local_size 3) only at C = 64, the one width where that case is
 # held to its plain version on the card; at C = 192 both modes take at
@@ -101,11 +102,8 @@ def _check_instance(c: int, dc: int, taps: int | None, name: str) -> None:
     is, at some tap count."""
     if (c, dc) not in {p[:2] for p in INSTANCES} or (
             taps is not None and (c, dc, taps) not in INSTANCES):
-        where = f"; the other one-tap widths are {ONE_TAP_ITEM}" \
-            if taps == 1 else ""
         raise ValueError(f"{name}: the kernels are compiled for (C, DC, "
-                         f"taps) in {INSTANCES}, got ({c}, {dc}, {taps})"
-                         + where)
+                         f"taps) in {INSTANCES}, got ({c}, {dc}, {taps})")
 
 # the 3×3 edge-clamped shifts d = (dy, dx) in the order of the wt planes
 SHIFTS9 = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -383,10 +381,8 @@ def wt_hoist(feature, wkout, bkout):
     taps = taps_of(wkout.shape[0], c, "wt_hoist") \
         if c in (ci for ci, _ in built) else None
     if (c, taps) not in built:
-        where = f"; the other one-tap widths are {ONE_TAP_ITEM}" \
-            if taps == 1 else ""
         raise ValueError(f"wt_hoist: the kernel is compiled for (C, taps) "
-                         f"in {built}, got ({c}, {taps})" + where)
+                         f"in {built}, got ({c}, {taps})")
     _build.check_tensor(feature, (b, h, w, c), "feature")
     _build.check_tensor(wkout, (taps * c, HID), "wkout")
     _build.check_tensor(bkout, (taps * c,), "bkout", torch.float32)

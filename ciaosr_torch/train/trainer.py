@@ -1,8 +1,9 @@
 """Classical (L1) training: the train step, the logger and the Trainer loop.
 
 Counterpart of ciaosr_tpu/train/trainer.py: ``make_train_step`` and
-``TrainState``, ``MetricLogger`` (the JSONL records and the printed line;
-no TensorBoard output) and ``Trainer``, the iteration-based loop with its
+``TrainState``, ``MetricLogger`` (the JSONL records, TensorBoard scalars
+under ``<work_dir>/tb/`` and the printed line) and ``Trainer``, the
+iteration-based loop with its
 hooks: log every ``log_config.interval``, eval every
 ``evaluation.interval``, a checkpoint every ``checkpoint_config.interval``
 and once at the end (train/checkpoint.py), auto-resume from the run's own
@@ -42,6 +43,7 @@ from ciaosr_torch.parallel.mesh import (Mesh, all_reduce_grads,
                                         shard_batch)
 from ciaosr_torch.train.checkpoint import CheckpointManager, restore_external
 from ciaosr_torch.train.optim import build_optimizer
+from ciaosr_torch.train.tb_events import EventWriter
 
 BATCH_KEYS = ("lq", "gt", "coord", "cell")
 
@@ -93,11 +95,14 @@ def _mean(vals: list, mesh: Mesh | None = None) -> float:
 
 
 class MetricLogger:
-    """JSONL logging (the TextLoggerHook's records): every ``interval``
-    steps one record ``{"step", <interval means>, <extra>, "time"}`` in
-    ``<work_dir>/train_log.jsonl`` and the line ``[iter N] k=v ...``.
-    Under a ``mesh`` every rank computes the record (its means are over
-    the ranks) and only rank 0 writes and prints it."""
+    """JSONL and TensorBoard logging (the TextLoggerHook's records): every
+    ``interval`` steps one record ``{"step", <interval means>, <extra>,
+    "time"}`` in ``<work_dir>/train_log.jsonl``, the interval means as
+    TensorBoard scalars (tag = metric, at the step; not the extra fields)
+    in an event file under ``<work_dir>/tb/`` (``train/tb_events.py``),
+    and the line ``[iter N] k=v ...``. Under a ``mesh`` every rank
+    computes the record (its means are over the ranks) and only rank 0
+    writes and prints it."""
 
     def __init__(self, work_dir: str, interval: int = 100, progress=print,
                  mesh: Mesh | None = None):
@@ -106,6 +111,9 @@ class MetricLogger:
         self.path = os.path.join(work_dir, "train_log.jsonl")
         self.progress = progress
         self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        self.tb = EventWriter(os.path.join(work_dir, "tb")) if self.main \
+            else None
         self._acc: dict[str, list] = {}
 
     def log(self, step: int, metrics: dict,
@@ -118,9 +126,10 @@ class MetricLogger:
         means = {k: _mean(v, self.mesh) for k, v in self._acc.items()}
         self._acc.clear()
         rec = {"step": step, **means, **(extra or {}), "time": time.time()}
-        if self.mesh is None or self.mesh.is_main:
+        if self.main:
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+            self.tb.add_scalars(means, step)
             msg = " ".join(f"{k}={v:.4g}" for k, v in means.items())
             self.progress(f"[iter {step}] {msg}")
         return rec

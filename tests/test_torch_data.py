@@ -180,11 +180,13 @@ def test_ops_without_a_generator_raise():
     op = port_pl.RandomDownSampling(scale_min=1, scale_max=4)
     with pytest.raises(KeyError, match="_rng"):
         op({"gt": np.zeros((16, 16, 3), np.float32)})
-    with pytest.raises(NotImplementedError, match="6\\(a\\)"):
-        port_pl.RandomDownSampling(backend="pillow")
-    op = port_pl.RandomDownSampling(scale_min=1, scale_max=4, backend="cv2")
-    with pytest.raises(KeyError, match="_rng"):
-        op({"gt": np.zeros((16, 16, 3), np.float32)})
+    with pytest.raises(ValueError, match="'matlab', 'pillow' or 'cv2'"):
+        port_pl.RandomDownSampling(backend="area")
+    for backend in ("pillow", "cv2"):
+        op = port_pl.RandomDownSampling(scale_min=1, scale_max=4,
+                                        backend=backend)
+        with pytest.raises(KeyError, match="_rng"):
+            op({"gt": np.zeros((16, 16, 3), np.float32)})
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS_001))

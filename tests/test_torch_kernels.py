@@ -20,9 +20,10 @@ device); the Swin block
 (row 11), its backward (row 12: dx - dy ≤ 1e-2, each packed gradient
 ≤ 2e-2; its weight-gradient kernel alone ≤ 1e-3 against its plain
 version, padded partials exactly 0), K1-K3 at SwinIR-CiaoSR's 180 channels without CSA, and the
-one-tap instances of K1, K2, K3 (row 9) and row 10 (feat_unfold=False,
-(C, DC) = (64, 64)) on an EDSR generator, every other one-tap width
-raising. Needs a
+one-tap instances of K1, K2, K3 (row 9) and row 10 (feat_unfold=False)
+at (C, DC) = (64, 64) on an EDSR generator and at (192, 0) and (192, 192)
+on the SwinIR generators, a one-tap width without an instance raising.
+Needs a
 CUDA card (marked ``cuda``; skips without one); on the card run
 ``python -m pytest --noconftest -q tests/test_torch_kernels.py`` (this file
 imports no JAX). Shapes are flagship widths (C = 64, hidden 256) at small,
@@ -139,9 +140,10 @@ def _wt_inputs(rng, b, h, w, c, taps, real):
              bk[:, :real].reshape(-1)))
 
 
-# K2 at its three instances: (C, taps) = (64, 9), the flagship; (192, 9),
+# K2 at its four instances: (C, taps) = (64, 9), the flagship; (192, 9),
 # SwinIR-CiaoSR's 180 channels zero-padded, held against the plain
-# version at the 180 real channels; (64, 1), without the unfold. Shapes
+# version at the 180 real channels; (64, 1) and (192, 1), without the
+# unfold (at 192 three K chunks a patch and shift). Shapes
 # off the kernel's 16 x 8 patch grid (at (64, 9) and 21 x 37 the
 # network's own maps), B = 2 and maps one pixel high or wide (both edge
 # clamps of an axis at every pixel); wt and ck each ≤ 1e-2, the same bits
@@ -152,8 +154,9 @@ def _wt_inputs(rng, b, h, w, c, taps, real):
                          ids=["21x37_B2", "13x29_B2", "60x47", "57x57",
                               "72x72", "1x40_B2", "33x1"])
 @pytest.mark.parametrize("c,real,taps", [(64, 64, 9), (192, 180, 9),
-                                         (64, 64, 1)],
-                         ids=["C64", "C180pad192", "C64_1tap"])
+                                         (64, 64, 1), (192, 180, 1)],
+                         ids=["C64", "C180pad192", "C64_1tap",
+                              "C180pad192_1tap"])
 @torch.inference_mode()
 def test_wt_hoist(case, c, real, taps, hw):
     from ciaosr_torch.ops import kernels
@@ -179,6 +182,26 @@ def test_wt_hoist(case, c, real, taps, hw):
     wt2, ck2 = dk.wt_hoist(*args)
     assert kernels.LAUNCHES["wt_hoist"] == n0 + 2
     assert torch.equal(wt, wt2) and torch.equal(ck, ck2)
+
+
+# K2 <192, 1> on the SwinIR tiles' maps (256² and 192²: each CTA walks
+# tens of items); at one tap a CTA's consumer warpgroups could drift a
+# whole item apart, which gave other bits on some launches
+@pytest.mark.parametrize("hw", [(1, 256, 256), (1, 192, 192)],
+                         ids=["256x256", "192x192"])
+@torch.inference_mode()
+def test_wt_hoist_one_tap_c192_same_bits(case, hw):
+    from ciaosr_torch.ops import kernels
+    dk = case[3]
+    args, plain = _wt_inputs(np.random.default_rng(hw[1]), *hw, 192, 1, 180)
+    n0 = kernels.LAUNCHES["wt_hoist"]
+    wt, ck = dk.wt_hoist(*args)
+    ref_wt, ref_ck = dk.wt_hoist_plain(*plain)
+    assert _rel(wt, ref_wt) <= REL_TOL and _rel(ck, ref_ck) <= REL_TOL
+    for _ in range(20):
+        wt2, ck2 = dk.wt_hoist(*args)
+        assert torch.equal(wt, wt2) and torch.equal(ck, ck2)
+    assert kernels.LAUNCHES["wt_hoist"] == n0 + 21
 
 
 # K3 at s = 2, 3, 4 with 1, 4 and 9 shifts (9: two groups of 4 and one
@@ -1394,22 +1417,118 @@ def test_one_tap_route_matches_plain_route(u1_case):
 
 @torch.inference_mode()
 def test_one_tap_other_widths_raise(u1_case):
-    """A one-tap decode at (C, DC) = (192, 192) or (192, 0) has no instance:
-    every wrapper raises before a launch, naming its ROADMAP.md item."""
+    """A one-tap decode at a width no instance holds, (C, DC) = (128, 128)
+    or (128, 0): every wrapper raises before a launch, naming the compiled
+    triples."""
     from ciaosr_torch.ops import kernels
     from ciaosr_torch.ops.kernels import decoder as dk
     rng = np.random.default_rng(2)
     n0 = dict(kernels.LAUNCHES)
-    for dc in (192, 0):
-        feat = _bf16(rng, 1, 8, 16, 192)
+    for dc in (128, 0):
+        feat = _bf16(rng, 1, 8, 16, 128)
         csa = _bf16(rng, 1, 8, 16, dc) if dc else None
-        w0 = _bf16(rng, 192, 256)
-        with pytest.raises(ValueError, match="queue 2 item 3"):
+        w0 = _bf16(rng, 128, 256)
+        with pytest.raises(ValueError, match="compiled for"):
             dk.f3p_build(feat, csa, w0, w0, _bf16(rng, dc, 256))
-        with pytest.raises(ValueError, match="queue 2 item 3"):
-            dk.wt_hoist(feat, w0, torch.zeros(192, device="cuda"))
+        with pytest.raises(ValueError, match="compiled for"):
+            dk.wt_hoist(feat, w0, torch.zeros(128, device="cuda"))
         tabs = dk.decoder_tables(2, 8, 16, 2, feat.device)
-        with pytest.raises(ValueError, match="queue 2 item 3"):
+        with pytest.raises(ValueError, match="compiled for"):
             dk.grid_decode(feat, csa, None, None, None, None, {"wk0": w0},
                            tabs, 1.0)
     assert kernels.LAUNCHES == n0
+
+
+# ---- SwinIR-CiaoSR without the unfold: the one-tap instances at C = 192,
+# (C, DC) = (192, 0) (the 002 generator) and (192, 192) (config 001
+# swinir's, CSA at Cr = 90), their 180 channels zero-padded; full width,
+# depth cut to one group of two blocks
+
+@pytest.fixture(scope="module")
+def swin_u1_cases():
+    from ciaosr_torch.models.builder import build_generator
+    return {csa: build_generator(dict(SWIN_CSA_CFG if csa else SWIN_CFG,
+                                      feat_unfold=False),
+                                 device="cuda", seed=6 + csa)
+            for csa in (False, True)}
+
+
+# ×4 on 21 × 37, row 9's odd width 60 × 47, ×2.5 (row 10) on 20 × 38
+@pytest.mark.parametrize("scale,hw", [(4, (21, 37)), (4, (60, 47)),
+                                      (2.5, (20, 38))],
+                         ids=["x4", "60x47", "x2.5"])
+@pytest.mark.parametrize("csa", [False, True], ids=["C180", "C180_csa"])
+@torch.inference_mode()
+def test_one_tap_c180(swin_u1_cases, csa, scale, hw):
+    """K1, K2 and K3 (its integer or rational mode) on the padded maps of
+    a one-tap SwinIR generator, each against its plain version at the
+    real 180 channels (the kernels' bf16 weights, packed unpadded); K2
+    and K3 the same bits on a second launch, one launch a call."""
+    from ciaosr_torch.models.ciaosr import rational_cell
+    from ciaosr_torch.ops import kernels
+    from ciaosr_torch.ops.kernels import decoder as dk
+    net = swin_u1_cases[csa]
+    h, w = hw
+    x = torch.as_tensor(np.random.default_rng(h + w).random(
+        (1, *hw, 3), dtype=np.float32), device="cuda") - 0.45
+    feat = net.gen_feature(x).contiguous()
+    rational = scale != 4
+    cell = rational_cell(h, w, h * 5 // 2, w * 5 // 2) if rational \
+        else (0.5, 0.5)
+    n0 = dict(kernels.LAUNCHES)
+    feat_p, csa_p, gk, gv, wt, ck, pk = net._kernel_maps(feat, cell)
+    assert dk.widths(feat_p, csa_p) == (192, 192 if csa else 0)
+    assert pk["wk0"].shape == (192, 256)
+    assert kernels.LAUNCHES["f3p_build"] == n0["f3p_build"] + 1
+    assert kernels.LAUNCHES["wt_hoist"] == n0["wt_hoist"] + 1
+    feat_r = feat_p[..., :180].float()
+    csa_r = csa_p[..., :180].float() if csa else None
+    pk_r = _f32(dk.pack_decoder(net.imnet_k, net.imnet_v, net.imnet_q, 180,
+                                cell, torch.bfloat16))
+    assert _rel((gk, gv), dk.f3p_build_plain(
+        feat_r, csa_r, pk_r["wk0"], pk_r["wvu"], pk_r["wvc"])) <= REL_TOL
+    assert _rel((wt, ck), dk.wt_hoist_plain(feat_r, pk_r["wkout"],
+                                            pk_r["bkout"])) <= REL_TOL
+    wt2, ck2 = dk.wt_hoist(feat_p, pk["wkout"], pk["bkout"])
+    assert torch.equal(wt, wt2) and torch.equal(ck, ck2)
+    if rational:
+        tabs = dk.rational_tables(h, w, 5, 2, 5, 2, net.local_size,
+                                  x.device)
+        kern, plain, key = (dk.grid_decode_rational,
+                            dk.grid_decode_rational_plain,
+                            "grid_decode_rational")
+        shape = (1, 25, h // 2, w // 2, 3)
+    else:
+        tabs = dk.decoder_tables(4, h, w, net.local_size, x.device)
+        kern, plain, key = dk.grid_decode, dk.grid_decode_plain, \
+            "grid_decode"
+        shape = (1, 16, h, w, 3)
+    n0 = kernels.LAUNCHES[key]
+    maps = (feat_p, csa_p, gk, gv, wt, ck, pk)
+    got = kern(*maps, tabs, net.softmax_scale)
+    assert kernels.LAUNCHES[key] == n0 + 1
+    assert torch.equal(got, kern(*maps, tabs, net.softmax_scale))
+    ref = plain(feat_r, csa_r, gk.float(), gv.float(), wt.float(), ck, pk_r,
+                tabs, net.softmax_scale)
+    assert got.shape == ref.shape == shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("csa", [False, True], ids=["C180", "C180_csa"])
+@torch.inference_mode()
+def test_one_tap_c180_route_matches_plain_route(swin_u1_cases, csa):
+    """The one-tap SwinIR kernel route (Swin block kernels, CSA, K1-K3,
+    bf16) ×4 and ×2.5 against the plain f32 route of the same weights."""
+    net = swin_u1_cases[csa]
+    x = torch.as_tensor(np.random.default_rng(9).random(
+        (1, 24, 40, 3), dtype=np.float32), device="cuda") - 0.45
+    for scale, out in ((4, (96, 160)), (2.5, (60, 100))):
+        got = net.decode_grid(x, scale)
+        net.dtype, net.use_kernels = torch.float32, False
+        try:
+            ref = net.decode_grid(x, scale)
+        finally:
+            net.dtype, net.use_kernels = torch.bfloat16, True
+        assert got.shape == ref.shape == (1, *out, 3)
+        assert _rel(got, ref) <= REL_TOL

@@ -5,7 +5,8 @@
   ``imresize_np`` takes its C++ fast path for NIQE's 2-D image where the
   library is built, which first casts the float64 image to float32 (one
   float32 step apart); the reference here is its numpy path
-  (``CIAOSR_NATIVE=0``), the numerics the port's ``imresize_np`` has.
+  (``CIAOSR_NATIVE=0``), which the port's takes too
+  (tests/test_torch_native.py holds both default, native, paths).
 * ``_fit_aggd`` and ``_compute_niqe_feature`` against JAX's, bit for bit;
 * the port's copy of the pristine parameters equal to JAX's file, and
   its resolution (explicit path > ``CIAOSR_NIQE_PARAMS`` > the copy);

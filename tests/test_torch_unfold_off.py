@@ -195,25 +195,30 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 def test_one_tap_widths_without_instance_raise():
-    """The one-tap instance is (C, DC) = (64, 64); every other one-tap
-    width raises before any launch, naming its ROADMAP.md item."""
+    """The one-tap instances are (C, DC) = (64, 64), (192, 0) and (192,
+    192), which SwinIR's 180 channels pad to; a one-tap width that no
+    instance holds, such as (128, 0) or (128, 128), raises before any
+    launch, naming the compiled triples."""
     assert dk.padded_widths(C, C, 1) == (64, 64)
     assert dk.padded_widths(64, 64, 1) == (64, 64)
-    assert dk.padded_widths(180, 180, 1) == (180, 180)
+    assert dk.padded_widths(180, 0, 1) == (192, 0)
+    assert dk.padded_widths(180, 180, 1) == (192, 192)
     assert dk.padded_widths(180, 180) == (192, 192)
+    assert dk.padded_widths(200, 0, 1) == (200, 0)
     n0 = dict(kernels.LAUNCHES)
-    for c, dc in ((192, 192), (192, 0)):
+    compiled = "compiled for .* in .*\\(192, 192, 1\\)"
+    for c, dc in ((128, 0), (128, 128)):
         csa = _meta(1, 4, 6, dc) if dc else None
-        with pytest.raises(ValueError, match="queue 2 item 3"):
+        with pytest.raises(ValueError, match=compiled):
             dk.f3p_build(_meta(1, 4, 6, c), csa, _meta(c, 256),
                          _meta(c, 256), _meta(dc, 256))
-        with pytest.raises(ValueError, match="queue 2 item 3"):
+        with pytest.raises(ValueError, match="compiled for .* \\(192, 1\\)"):
             dk.wt_hoist(_meta(1, 4, 6, c), _meta(c, 256),
                         _meta(c, dtype=torch.float32))
         pk = {"wk0": _meta(c, 256)}
         maps = (_meta(1, 4, 6, c), csa) + (None,) * 4
         for fn in (dk.grid_decode, dk.grid_decode_rational):
-            with pytest.raises(ValueError, match="queue 2 item 3"):
+            with pytest.raises(ValueError, match=compiled):
                 fn(*maps, pk, {"dys": _meta(16, 4, dtype=torch.int32),
                                "yk": _meta(5, 4, 2, dtype=torch.int32),
                                "xk": _meta(5, 4, 3, dtype=torch.int32)},

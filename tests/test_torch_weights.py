@@ -6,6 +6,7 @@ flagship configs, seeded JAX params, the JAX per-query oracle, and the cap
 on torch's CPU threads (below).
 """
 
+import ast
 import re
 import subprocess
 import sys
@@ -154,3 +155,49 @@ def test_port_sources_import_no_jax():
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+# what the card's machine lacks and only the CPU tests use as oracles
+HOST_ORACLES = ("PIL", "cv2", "tensorboardX", "tensorboard", "google")
+# the one deferred use: the image codec's non-PNG files through OpenCV
+# where it is installed (data/imageio.py::_cv2 raises without it)
+HOST_ORACLE_ALLOWED = {("ciaosr_torch/data/imageio.py", "_cv2", "cv2")}
+
+
+def _imports(tree):
+    """(enclosing function or "", imported root module) of every import
+    statement of a module's syntax tree."""
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            name = fn
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                name = child.name
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield name, a.name.split(".")[0]
+            elif isinstance(child, ast.ImportFrom) and child.module:
+                yield name, child.module.split(".")[0]
+            yield from walk(child, name)
+    return list(walk(tree, ""))
+
+
+def test_port_sources_import_no_host_oracles():
+    """No import statement of ciaosr_torch/ or chip_smoke.py names Pillow,
+    OpenCV, tensorboardX, tensorboard or protobuf (google.protobuf) but
+    the codec's deferred OpenCV path; and every module of the port imports
+    with all of them unimportable."""
+    files = sorted((ROOT / "ciaosr_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    found = {(str(f.relative_to(ROOT)), fn, mod)
+             for f in files for fn, mod in _imports(ast.parse(f.read_text()))
+             if mod in HOST_ORACLES}
+    assert found == HOST_ORACLE_ALLOWED
+    mods = sorted(".".join(f.relative_to(ROOT).with_suffix("").parts)
+                  for f in files[:-1])
+    code = ("import importlib, sys\n"
+            f"for name in {HOST_ORACLES!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {[m.removesuffix('.__init__') for m in mods]!r}:\n"
+            "    importlib.import_module(m)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=300)
