@@ -70,13 +70,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      flagship's kernels) and without the unfold (feat_unfold=False: ×4 on
      256², ×4 on 60×47, ×2.5 on 256² and 72², and one f32-model request on
      a 192² tile: the one-tap instances of K1, K2, K3, row 9 and row 10,
-     each also held against its plain version), every request with its
+     each also held against its plain version; K1 also the same bits on
+     two launches, and its device time by torch.profiler beside its
+     batched event time and its matmul's), every request with its
      exact launches and against the plain f32 route; then phase
      swinir_u1, the SwinIR generators without the unfold (the 002
      generator and config 001 swinir's, full width and depth, bf16): the
      one-tap instances at C = 192 (K1, K2 and K3 at (C, DC) = (192, 0) and
      (192, 192), row 9 at 47², row 10 at x2.5) held against their plain
-     versions at 180 channels, and ``forward_test`` through each config's
+     versions at 180 channels (K1 as at C = 64: same bits, device time),
+     and ``forward_test`` through each config's
      test_cfg (002: x4 and x2.5 on 384², 4 tiles of 256; 001: x4 and x2.5
      on 256², 4 tiles of 192, x4 on 60 x 47), each with its exact
      launches and against the plain f32 route; f32
@@ -526,6 +529,55 @@ def kernel_row(name, source, replaces, kern, plain, flops, nbytes,
     if same_bits:
         row["reproducible"] = True
     return row
+
+
+def device_ms(fn, key: str | None, calls: int = 20,
+              rounds: int = 3) -> float | None:
+    """torch.profiler's CUDA time a call of ``fn``'s kernels whose name
+    holds ``key`` (None: every kernel of the call), median of ``rounds``
+    profiles of ``calls`` calls, each after as many calls with the
+    profiler warming up. The profiler can miss launches, so a profile
+    whose launches are not a whole number a call is taken again, up to
+    SPLIT_TRIES times; None if no profile saw them all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen, per = {}, []
+    for _ in range(rounds):
+        for _ in range(SPLIT_TRIES):
+            with torch.inference_mode(), profile(
+                    activities=[ProfilerActivity.CUDA],
+                    on_trace_ready=lambda p: seen.update(
+                        evs=p.key_averages()),
+                    schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                for _ in range(2):
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            evs = [e for e in seen["evs"] if e.device_type == DeviceType.CUDA
+                   and (key is None or key in e.key)]
+            n = sum(e.count for e in evs)
+            if n and n % calls == 0:
+                per.append(sum(e.device_time_total for e in evs) / 1e3
+                           / calls)
+                break
+    return statistics.median(per) if per else None
+
+
+def k1_device_split(row: dict, kern, library) -> None:
+    """A one-tap K1 row's device time a launch (profiler) beside its
+    batched event time, and its library call's both ways: logged, and kept
+    in the row (``device_ms``, ``library_device_ms``)."""
+    row["device_ms"] = device_ms(kern, "f3p")
+    row["library_device_ms"] = device_ms(library, None)
+
+    def ms(t):
+        return "launches missed" if t is None else f"{t:.4f} ms"
+    log(f"kernel {row['name']} device {ms(row['device_ms'])} a launch "
+        f"(profiler), events {row['ms']:.4f} ms (10 back to back); library "
+        f"device {ms(row['library_device_ms'])} a call, events "
+        f"{row['library_ms']:.4f} ms")
 
 
 def check_kernels(restorer, lq_tile: torch.Tensor,
@@ -1836,15 +1888,22 @@ def check_u1_kernels(u1, lq: np.ndarray) -> list[dict]:
     w_lib[c:, hid:] = pk["wvc"]
     x_lib = torch.cat([feature, csa], -1)
     at = "ciaosr_tpu/ops/pallas/decoder_kernel.py:"
+
+    def k1():
+        return dk.f3p_build(feature, csa, pk["wk0"], pk["wvu"], pk["wvc"])
+
+    def k1_library():
+        return torch.matmul(x_lib, w_lib)
+
     rows = [kernel_row(
         "f3p_build@u1", "ciaosr_torch/csrc/f3p_build.cu",
-        at + "623 (_build_f3p; _f3p_kernel u_map mode :561)",
-        lambda: dk.f3p_build(feature, csa, pk["wk0"], pk["wvu"], pk["wvc"]),
+        at + "623 (_build_f3p; _f3p_kernel u_map mode :561)", k1,
         lambda: dk.f3p_build_plain(*f32((feature, csa, pk["wk0"], pk["wvu"],
                                          pk["wvc"]))),
         2 * m * (c * 2 * hid + dc * hid),
         m * (c + dc) * 2 + (2 * c + dc) * hid * 2 + m * 2 * hid * 2,
-        lambda: torch.matmul(x_lib, w_lib))]
+        k1_library, same_bits=True)]
+    k1_device_split(rows[0], k1, k1_library)
     rows.append(wt_row("wt_hoist@u1", feature, pk, feature.float(), f32(pk),
                        at + "762 (_wt_hoist_planes, dk = C)"))
     rows.append(decode_row("grid_decode@u1", DECODE_REPLACES[False],
@@ -2063,16 +2122,22 @@ def check_swin_u1_kernels(gens: dict, inputs: dict) -> list[dict]:
                             dtype=dt)
         w_lib[:fp, :hid], w_lib[:fp, hid:] = pk["wk0"], pk["wvu"]
         w_lib[fp:, hid:] = pk["wvc"]
+        def k1():
+            return dk.f3p_build(feat_p, csa_p, pk["wk0"], pk["wvu"],
+                                pk["wvc"])
+
+        def k1_library():
+            return torch.matmul(x_lib, w_lib)
+
         rows.append(kernel_row(
             swin_u1_row("f3p_build", key), "ciaosr_torch/csrc/f3p_build.cu",
-            at + "623 (_build_f3p; _f3p_kernel u_map mode :561)",
-            lambda: dk.f3p_build(feat_p, csa_p, pk["wk0"], pk["wvu"],
-                                 pk["wvc"]),
+            at + "623 (_build_f3p; _f3p_kernel u_map mode :561)", k1,
             lambda: dk.f3p_build_plain(feat_r, csa_r, pk_r["wk0"],
                                        pk_r["wvu"], pk_r["wvc"]),
             2 * m * (c * 2 * hid + dc * hid),
             m * (c + dc) * 2 + (2 * c + dc) * hid * 2 + m * 2 * hid * 2,
-            lambda: torch.matmul(x_lib, w_lib)))
+            k1_library, same_bits=True))
+        k1_device_split(rows[-1], k1, k1_library)
         rows.append(wt_row(swin_u1_row("wt_hoist", key), feat_p, pk, feat_r,
                            pk_r, at + "762 (_wt_hoist_planes, dk = C)"))
         del x_lib, w_lib

@@ -36,14 +36,29 @@
 // Compiled for (C, DC) = (64, 64), the flagship, (192, 0), SwinIR-CiaoSR
 // without CSA, and (192, 192), SwinIR-CiaoSR with CSA (config 001 swinir:
 // its 180 feature and CSA channels zero-padded to 192 on the host, so the
-// CSA map's 64-channel chunks are three and TMA rows 384 bytes). Without
-// the unfold (feat_unfold=False: TAPS = 1, the from_feature=False mode of
-// the TPU kernel with u_map = feature) u is the feature itself: the
-// unfold's nine K chunks a channel slice become one, at the centre, and
-// the weight maps have C rows. Compiled so at (64, 64): g_k is one
-// K = 64 product and g_v two (feature, CSA); and at (192, 0) and
-// (192, 192), SwinIR-CiaoSR without the unfold: g_k is three K chunks
-// (the centre's channel slices), g_v three more of the CSA map with it.
+// CSA map's 64-channel chunks are three and TMA rows 384 bytes).
+//
+// One tap (feat_unfold=False: the from_feature=False mode of the TPU
+// kernel with u_map = feature) has a kernel of its own, f3p_u1_kernel, at
+// the same three (C, DC). u is the feature itself, so K1 is one GEMM of
+// M = B*H*W pixel rows, K = C (g_k) or C + DC (g_v) and N = 2 x 256, and
+// device-memory bytes bound it: the outputs are 57-80% of them, and the
+// products take a quarter (C = 64) to a half (C = 192) of the bytes' time.
+// The nine-tap design ran it as 1-6 K chunks a block behind barrier set-up
+// and ahead of an epilogue that ended the block (one block an SM), so
+// loads, products and stores ran in series. Here a persistent block an SM
+// walks a contiguous run of items, an item being 128 rows of the flat
+// (M, ch) maps and one output (g_k, then g_v of the same rows: the second
+// read of the feature chunks comes from L2). Two producer threads stream
+// the run's chunks without stopping between items: the A tiles (feature or
+// CSA, from device memory) through an 8-deep ring (4 at (192, 192)), the B
+// tiles (weights, from L2) through a 3-deep one; a shared 2-deep ring of
+// both had measured 7-17% slower than 3-deep, so the depth of the
+// device-memory reads is what the kernel was short of. The epilogue stores
+// from the registers (a quad transpose gives
+// each lane 16 contiguous bytes of a row), so no shared memory goes to a
+// staging tile and the stores do not queue behind the loads in the TMA
+// unit. Pixel rows past M load as zeros and are not stored.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -66,7 +81,7 @@ constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 static_assert(CONSUMERS * HID * 64 * 2 <= STAGES * STAGE_BYTES,
               "the epilogue tiles overlay the ring");
 
-template <int C, int DC, int TAPS>
+template <int C, int DC>
 __global__ void __launch_bounds__(THREADS, 1)
 f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
            const __grid_constant__ CUtensorMap tm_csa,
@@ -76,7 +91,7 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
            const __grid_constant__ CUtensorMap tm_gk,
            const __grid_constant__ CUtensorMap tm_gv) {
   constexpr int CS = C / KC;    // channel slices a tap
-  constexpr int NKU = TAPS * CS;  // K chunks of the unfold (of u)
+  constexpr int NKU = 9 * CS;   // K chunks of the unfold (of u)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -107,8 +122,8 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
         unsigned char* bt = a + A_BYTES;
         mbar_expect_tx(&full[s], STAGE_BYTES);
         if (kc < NKU) {
-          // the tap's shifted box; at one tap the centre
-          const int t = TAPS == 9 ? kc / CS : 4, cs = kc % CS;
+          // the tap's shifted box
+          const int t = kc / CS, cs = kc % CS;
           tma_load_4d(a, &tm_feat, &full[s], cs * KC, x0 + t % 3 - 1,
                       y0 + t / 3 - 1, b);
           for (int j = 0; j < HID / 64; ++j)
@@ -181,8 +196,182 @@ f3p_kernel(const __grid_constant__ CUtensorMap tm_feat,
   }
 }
 
+// ------------------------------------------------------------ one tap --
+// Two rings: A tiles (128 pixel rows x 64 channels, 16 KB) come from device
+// memory, eight deep (four at (192, 192), where 4-5 measured fastest and 8
+// 8% slower, against 8 best at the other two); B tiles (64 rows x 256
+// columns of a weight matrix, 32 KB) from L2, three deep. No staging
+// buffer: the outputs leave from the registers.
+constexpr int U1_ASTAGES = 8, U1_ASTAGES_CSA = 4, U1_BSTAGES = 3;
+constexpr int U1_THREADS = CONSUMERS * 128 + 64;  // + an A and a B producer
+
+template <int DC>
+struct U1Smem {
+  static constexpr int ASTAGES = DC == 192 ? U1_ASTAGES_CSA : U1_ASTAGES;
+  static constexpr int B_OFF = ASTAGES * A_BYTES;
+  static constexpr int BAR_OFF = B_OFF + U1_BSTAGES * B_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 2 * (ASTAGES + U1_BSTAGES) * 8;
+};
+
+// The 4 x 4 transpose of 32-bit words inside a quad of lanes (q = lane % 4):
+// on entry v[d] is this lane's word for lane d, on exit v[s] is lane s's
+// word for this lane. Two butterfly rounds of two shuffles each.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+  const bool o1 = q & 1, o2 = q & 2;
+  // round 1, partner q ^ 1: keep the words for lanes of this lane's parity
+  const uint32_t x0 = __shfl_xor_sync(0xffffffffu, o1 ? v[0] : v[1], 1);
+  const uint32_t x1 = __shfl_xor_sync(0xffffffffu, o1 ? v[2] : v[3], 1);
+  const uint32_t a0 = o1 ? v[1] : v[0], a1 = o1 ? v[3] : v[2];
+  // now a0, a1: own words for lanes q & 1 and 2 + (q & 1); x0, x1: the
+  // partner's. Round 2, partner q ^ 2: keep the pair for this lane
+  const uint32_t y0 = __shfl_xor_sync(0xffffffffu, o2 ? a0 : a1, 2);
+  const uint32_t y1 = __shfl_xor_sync(0xffffffffu, o2 ? x0 : x1, 2);
+  // the words from lanes q, q ^ 1, q ^ 2, q ^ 3, put at their sources
+  const uint32_t w0 = o2 ? a1 : a0, w1 = o2 ? x1 : x0;
+  v[0] = o1 ? (o2 ? y1 : w1) : (o2 ? y0 : w0);
+  v[1] = o1 ? (o2 ? y0 : w0) : (o2 ? y1 : w1);
+  v[2] = o1 ? (o2 ? w1 : y1) : (o2 ? w0 : y0);
+  v[3] = o1 ? (o2 ? w0 : y0) : (o2 ? w1 : y1);
+}
+
+// Items [i0, i1) of a block: item i is pixel rows 128 (i / 2) .. + 127 and
+// output i % 2 (0: g_k from C / 64 chunks of the feature and W_k0; 1: g_v,
+// the same chunks with W_vu, then DC / 64 of the CSA map with W_vc).
+template <int C, int DC>
+__global__ void __launch_bounds__(U1_THREADS, 1)
+f3p_u1_kernel(const __grid_constant__ CUtensorMap tm_feat,
+              const __grid_constant__ CUtensorMap tm_csa,
+              const __grid_constant__ CUtensorMap tm_wk,
+              const __grid_constant__ CUtensorMap tm_wvu,
+              const __grid_constant__ CUtensorMap tm_wvc, bf16* __restrict__ gk,
+              bf16* __restrict__ gv, int M, long long items) {
+  constexpr int CS = C / KC;
+  constexpr int AST = U1Smem<DC>::ASTAGES, B_OFF = U1Smem<DC>::B_OFF;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* fulla = reinterpret_cast<uint64_t*>(smem + U1Smem<DC>::BAR_OFF);
+  uint64_t* emptya = fulla + AST;
+  uint64_t* fullb = emptya + AST;
+  uint64_t* emptyb = fullb + U1_BSTAGES;
+  const long long i0 = items * blockIdx.x / gridDim.x;
+  const long long i1 = items * (blockIdx.x + 1) / gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < AST; ++s) {
+      mbar_init(&fulla[s], 1);
+      mbar_init(&emptya[s], CONSUMERS * 128);
+    }
+    for (int s = 0; s < U1_BSTAGES; ++s) {
+      mbar_init(&fullb[s], 1);
+      mbar_init(&emptyb[s], CONSUMERS * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {  // two producer warps, one thread each
+    if (lane == 0) {
+      const bool is_a = warp == CONSUMERS * 4;
+      int g = 0;  // chunks of the block so far: the rings' position
+      for (long long it = i0; it < i1; ++it) {
+        const int row0 = (int)(it >> 1) * BM;
+        const bool is_v = it & 1;
+        const int nk = is_v ? CS + DC / KC : CS;
+        for (int kc = 0; kc < nk; ++kc, ++g) {
+          const bool feat = kc < CS;
+          const int c0 = (feat ? kc : kc - CS) * KC;
+          if (is_a) {
+            const int s = g % AST;
+            if (g >= AST)
+              mbar_wait(&emptya[s], (g / AST - 1) & 1);
+            mbar_expect_tx(&fulla[s], A_BYTES);
+            tma_load_2d(smem + s * A_BYTES, feat ? &tm_feat : &tm_csa,
+                        &fulla[s], c0, row0);
+          } else {
+            const int s = g % U1_BSTAGES;
+            if (g >= U1_BSTAGES)
+              mbar_wait(&emptyb[s], (g / U1_BSTAGES - 1) & 1);
+            const CUtensorMap* wmap =
+                !feat ? &tm_wvc : (is_v ? &tm_wvu : &tm_wk);
+            unsigned char* bt = smem + B_OFF + s * B_BYTES;
+            mbar_expect_tx(&fullb[s], B_BYTES);
+            for (int j = 0; j < HID / 64; ++j)
+              tma_load_2d(bt + j * SLAB, wmap, &fullb[s], j * 64, c0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each item
+  const int wg = warp >> 2, w4 = warp & 3, q4 = lane & 3;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int g = 0;
+  for (long long it = i0; it < i1; ++it) {
+    const int row0 = (int)(it >> 1) * BM;
+    const bool is_v = it & 1;
+    const int nk = is_v ? CS + DC / KC : CS;
+    for (int kc = 0; kc < nk; ++kc, ++g) {
+      const int sa = g % AST, sb = g % U1_BSTAGES;
+      mbar_wait(&fulla[sa], (g / AST) & 1);
+      mbar_wait(&fullb[sb], (g / U1_BSTAGES) & 1);
+      const unsigned char* a = smem + sa * A_BYTES + wg * (64 * 128);
+      const unsigned char* bt = smem + B_OFF + sb * B_BYTES;
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int k = 0; k < KC / 16; ++k)  // the item's first step overwrites
+        wgmma_m64n256k16<1>(acc, desc_sw128(a + 32 * k, 16, 1024),
+                            desc_sw128(bt + 2048 * k, SLAB, 1024),
+                            kc > 0 || k > 0);
+      wgmma_commit();
+      fence_regs(acc);
+      // the previous chunk's products are done: release its stages
+      wgmma_wait<1>();
+      if (kc > 0) {
+        mbar_arrive(&emptya[(g - 1) % AST]);
+        mbar_arrive(&emptyb[(g - 1) % U1_BSTAGES]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&emptya[(g - 1) % AST]);
+    mbar_arrive(&emptyb[(g - 1) % U1_BSTAGES]);
+
+    // epilogue, from the registers: the lane holds columns 8j + 2 q4, + 1
+    // of rows r and r + 8; a quad transpose over j = 4t .. 4t + 3 gives it
+    // the 8 columns of j = 4t + q4 whole, so that each row's 512 bytes
+    // leave as 16-byte stores, 64 contiguous bytes a quad
+    bf16* out = is_v ? gv : gk;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 64 * wg + 16 * w4 + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int t = 0; t < HID / 32; ++t) {
+        uint32_t v[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const __nv_bfloat162 p = __floats2bfloat162_rn(
+              acc[4 * (4 * t + d) + 2 * h], acc[4 * (4 * t + d) + 2 * h + 1]);
+          v[d] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        quad_transpose(v, q4);
+        if (r < M)
+          *reinterpret_cast<uint4*>(out + (long long)r * HID +
+                                    8 * (4 * t + q4)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+}
+
 // tensor maps: a (B, H, W, ch) map as (ch, W, H, B) in 64 x 16 x box_h x 1
-// boxes; a (rows, 256) weight matrix as (256, rows) in 64 x 64 boxes
+// boxes; a (rows, 256) weight matrix as (256, rows) in 64 x 64 boxes; a map
+// as flat pixel rows, (M, ch) as (ch, M) in 64 x 128 boxes
 int map_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int ch,
              int box_h) {
   const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)W, (cuuint64_t)H,
@@ -202,16 +391,24 @@ int map_weights(CUtensorMap* m, const void* p, int rows) {
                      box);
 }
 
-template <int C, int DC, int TAPS>
+int map_rows(CUtensorMap* m, const void* p, long long M, int ch) {
+  const cuuint64_t dims[2] = {(cuuint64_t)ch, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)ch * 2};
+  const cuuint32_t box[2] = {KC, BM};
+  return tmap_encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 2, dims, strides,
+                     box);
+}
+
+template <int C, int DC>
 int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
            const void* wvc, void* gk, void* gv, int B, int H, int W,
            void* stream) {
-  static cudaError_t attr = allow_smem(f3p_kernel<C, DC, TAPS>, SMEM);
+  static cudaError_t attr = allow_smem(f3p_kernel<C, DC>, SMEM);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tf, tc, tk, tv, tvc, tok, tov;
   int err = map_nhwc(&tf, feat, B, H, W, C, BH);
-  if (!err) err = map_weights(&tk, wk, TAPS * C);
-  if (!err) err = map_weights(&tv, wvu, TAPS * C);
+  if (!err) err = map_weights(&tk, wk, 9 * C);
+  if (!err) err = map_weights(&tv, wvu, 9 * C);
   if (!err) err = map_nhwc(&tok, gk, B, H, W, HID, BH / CONSUMERS);
   if (!err) err = map_nhwc(&tov, gv, B, H, W, HID, BH / CONSUMERS);
   if (err) return err;
@@ -223,8 +420,44 @@ int launch(const void* feat, const void* csa, const void* wk, const void* wvu,
     tvc = tk;
   }
   const dim3 grid((W + BW - 1) / BW, (H + BH - 1) / BH, 2 * B);
-  f3p_kernel<C, DC, TAPS><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+  f3p_kernel<C, DC><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
       tf, tc, tk, tv, tvc, tok, tov);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int DC>
+int launch_u1(const void* feat, const void* csa, const void* wk,
+              const void* wvu, const void* wvc, void* gk, void* gv, int B,
+              int H, int W, void* stream) {
+  static cudaError_t attr = allow_smem(f3p_u1_kernel<C, DC>, U1Smem<DC>::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long M = (long long)B * H * W;
+  if (M < 1 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  CUtensorMap tf, tc, tk, tv, tvc;
+  int err = map_rows(&tf, feat, M, C);
+  if (!err) err = map_weights(&tk, wk, C);
+  if (!err) err = map_weights(&tv, wvu, C);
+  if (err) return err;
+  if (DC > 0) {
+    if ((err = map_rows(&tc, csa, M, DC))) return err;
+    if ((err = map_weights(&tvc, wvc, DC))) return err;
+  } else {  // never read without CSA
+    tc = tf;
+    tvc = tk;
+  }
+  const long long items = 2 * ((M + BM - 1) / BM);
+  const long long grid = items < sms ? items : sms;
+  f3p_u1_kernel<C, DC><<<(unsigned)grid, U1_THREADS, U1Smem<DC>::BYTES,
+                         (cudaStream_t)stream>>>(
+      tf, tc, tk, tv, tvc, (bf16*)gk, (bf16*)gv, (int)M, items);
   return (int)cudaGetLastError();
 }
 
@@ -234,23 +467,24 @@ extern "C" int f3p_build(const void* feat, const void* csa, const void* wk,
                          const void* wvu, const void* wvc, void* gk, void* gv,
                          int B, int H, int W, int C, int DC, int taps,
                          void* stream) {
-  if (C == 64 && DC == 64 && taps == 9)
-    return launch<64, 64, 9>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
-                             stream);
-  if (C == 192 && DC == 0 && taps == 9)
-    return launch<192, 0, 9>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
-                             stream);
-  if (C == 192 && DC == 192 && taps == 9)
-    return launch<192, 192, 9>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+  if (taps == 9) {
+    if (C == 64 && DC == 64)
+      return launch<64, 64>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
+    if (C == 192 && DC == 0)
+      return launch<192, 0>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W, stream);
+    if (C == 192 && DC == 192)
+      return launch<192, 192>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                              stream);
+  } else if (taps == 1) {
+    if (C == 64 && DC == 64)
+      return launch_u1<64, 64>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
                                stream);
-  if (C == 64 && DC == 64 && taps == 1)
-    return launch<64, 64, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
-                             stream);
-  if (C == 192 && DC == 0 && taps == 1)
-    return launch<192, 0, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
-                             stream);
-  if (C == 192 && DC == 192 && taps == 1)
-    return launch<192, 192, 1>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+    if (C == 192 && DC == 0)
+      return launch_u1<192, 0>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
                                stream);
+    if (C == 192 && DC == 192)
+      return launch_u1<192, 192>(feat, csa, wk, wvu, wvc, gk, gv, B, H, W,
+                                 stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

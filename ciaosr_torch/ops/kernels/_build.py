@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -88,6 +89,19 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def function(lib: str, name: str, argtypes: list):
+    """Library ``lib``'s C entry point ``name`` (built and loaded on first
+    use) returning an int, its ctypes prototype set once: a launch then
+    pays for no ctypes set-up."""
+    key = (lib, name)
+    if key not in _fns:
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[key] = fn
+    return _fns[key]
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err:
@@ -98,11 +112,11 @@ def check_tensor(t, shape: tuple, name: str, dtype=None) -> None:
     """Raise unless t is a contiguous CUDA tensor of this shape and dtype
     (default bf16) — what a kernel takes."""
     dtype = dtype or torch.bfloat16
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
@@ -118,7 +132,9 @@ def stream_ptr(device) -> ctypes.c_void_p:
     raises unless it is the current device. The kernels' shared-memory
     attributes and SM counts are set once per process on the current
     device (``allow_smem``, csrc/common.cuh), so a process runs on one GPU:
-    its launches must not go to another."""
+    its launches must not go to another. The stream is read as a raw
+    pointer: ``torch.cuda.current_stream`` builds a Stream object, which
+    cost 5-10 µs a launch on the H100's host."""
     device = torch.device(device)
     current = torch.cuda.current_device()
     if device.index != current:
@@ -126,4 +142,4 @@ def stream_ptr(device) -> ctypes.c_void_p:
             f"kernel launch on {device} while the current device is "
             f"cuda:{current}: the port runs one process per GPU; call "
             f"torch.cuda.set_device({device.index}) first")
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(current))

@@ -22,7 +22,8 @@ K2 and K3 rebuild it from the raw feature.
 Taps. u is the 3×3 unfold of the feature (9 taps, DK = 9C) or, for a
 generator with ``feat_unfold=False``, the feature itself (1 tap, DK = C):
 the JAX package passes ``u_map = feature`` to the same TPU kernels. K1
-then takes one K chunk a channel slice instead of nine, K2 still forms
+then is one GEMM over the flat pixel rows (a persistent kernel of its
+own in csrc/f3p_build.cu), K2 still forms
 the nine shifted planes (of the feature), and K3's value is [feature |
 csa]. The wrappers read the tap count from the packed weights' rows.
 
@@ -97,10 +98,13 @@ def unfold_taps(feature, taps: int):
     return unfold_nhwc(feature) if taps == 9 else feature
 
 
+_PAIRS = frozenset(p[:2] for p in INSTANCES)
+
+
 def _check_instance(c: int, dc: int, taps: int | None, name: str) -> None:
     """Raise unless (c, dc, taps) is compiled; ``taps`` None: unless (c, dc)
     is, at some tap count."""
-    if (c, dc) not in {p[:2] for p in INSTANCES} or (
+    if (c, dc) not in _PAIRS or (
             taps is not None and (c, dc, taps) not in INSTANCES):
         raise ValueError(f"{name}: the kernels are compiled for (C, DC, "
                          f"taps) in {INSTANCES}, got ({c}, {dc}, {taps})")
@@ -323,11 +327,15 @@ def f3p_build_plain(feature, csa, wk0, wvu, wvc):
     return u @ wk0, gv if csa is None else gv + csa @ wvc
 
 
+# the C entry point's prototype: 7 pointers, B, H, W, C, DC, taps, stream
+F3P_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
 def f3p_build(feature, csa, wk0, wvu, wvc):
     """K1 on CUDA tensors, the plain version on CPU tensors. feature
     (B, H, W, C), csa (B, H, W, DC) or None; W_k0, W_vu: (taps·C, 256);
     W_vc: (DC, 256). Returns g_k, g_v (B, H, W, 256)."""
-    if feature.device.type == "cpu":
+    if feature.is_cpu:
         return f3p_build_plain(feature, csa, wk0, wvu, wvc)
     b, h, w, _ = feature.shape
     c, dc = widths(feature, csa)
@@ -340,15 +348,12 @@ def f3p_build(feature, csa, wk0, wvu, wvc):
     _build.check_tensor(wk0, (taps * c, HID), "wk0")
     _build.check_tensor(wvu, (taps * c, HID), "wvu")
     _build.check_tensor(wvc, (dc, HID), "wvc")
-    gk = torch.empty(b, h, w, HID, device=feature.device,
-                     dtype=torch.bfloat16)
-    gv = torch.empty_like(gk)
-    fn = _build.load("f3p_build").f3p_build
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    err = fn(*(_ptr(t) for t in (feature, csa, wk0, wvu, wvc, gk, gv)),
-             b, h, w, c, dc, taps, _build.stream_ptr(feature.device))
+    # one allocation for both outputs (each a contiguous view of it)
+    gk, gv = feature.new_empty((2, b, h, w, HID)).unbind(0)
+    fn = _build.function("f3p_build", "f3p_build", F3P_ARGTYPES)
+    err = fn(feature.data_ptr(), _ptr(csa), wk0.data_ptr(), wvu.data_ptr(),
+             wvc.data_ptr(), gk.data_ptr(), gv.data_ptr(), b, h, w, c, dc,
+             taps, _build.stream_ptr(feature.device))
     kernels.LAUNCHES["f3p_build"] += 1
     _build.check(err, "f3p_build")
     return gk, gv

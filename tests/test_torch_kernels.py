@@ -4,7 +4,8 @@ JAX kernels hold. Config 001 swinir's instances (K4 and row 7 at (Cr, C)
 = (96, 192), K1 and K3 at (C, DC) = (192, 192): its 90 and 180 channels
 zero-padded) are held against the plain versions at the real widths,
 beside a flagship case of each. K1 is held at patch-ragged shapes at
-both widths; the decode kernel at integer scales and, in its rational
+both widths, its one-tap kernel also where a block walks several items
+(ten launches the same bits); the decode kernel at integer scales and, in its rational
 mode (an index mode of the same Hopper kernel), at ×2.5, ×7/3, ×1.5,
 5/3 × 7/2, an odd width and on 3 images at 3/2 × 5/3 (output pixels off
 the 32-pixel blocks and off the LR pixel count by a factor of 6), with
@@ -122,6 +123,33 @@ def test_f3p_build(case, b, h, w, c, dc):
     assert kernels.LAUNCHES["f3p_build"] == n0 + 1
     assert got[0].shape == got[1].shape == (b, h, w, 256)
     assert _rel(got, dk.f3p_build_plain(*_f32(args))) <= REL_TOL
+
+
+# K1's one-tap kernel (a persistent GEMM over the maps' flat pixel rows) at
+# its three instances: on a map of fewer 128-row items than blocks, and on
+# one where each block walks two or three items and the last item is cut
+# (B·H·W not a multiple of 128); ten launches give the same bits
+@pytest.mark.parametrize("b,h,w", [(2, 13, 47), (2, 101, 95)],
+                         ids=["13x47", "101x95"])
+@pytest.mark.parametrize("c,dc", [(64, 64), (192, 0), (192, 192)],
+                         ids=["C64", "C192", "C192_DC192"])
+@torch.inference_mode()
+def test_f3p_build_one_tap(case, b, h, w, c, dc):
+    from ciaosr_torch.ops import kernels
+    dk = case[-1]
+    rng = np.random.default_rng(h * w + c + dc)
+    args = (_bf16(rng, b, h, w, c), _bf16(rng, b, h, w, dc) if dc else None,
+            _bf16(rng, c, 256, scale=0.05), _bf16(rng, c, 256, scale=0.05),
+            _bf16(rng, dc, 256, scale=0.05))
+    n0 = kernels.LAUNCHES["f3p_build"]
+    got = dk.f3p_build(*args)
+    for _ in range(9):
+        again = dk.f3p_build(*args)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert kernels.LAUNCHES["f3p_build"] == n0 + 10
+    assert got[0].shape == got[1].shape == (b, h, w, 256)
+    for g, r in zip(got, dk.f3p_build_plain(*_f32(args))):
+        assert _rel(g, r) <= REL_TOL
 
 
 def _wt_inputs(rng, b, h, w, c, taps, real):

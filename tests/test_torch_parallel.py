@@ -314,8 +314,6 @@ def test_launch_refuses_a_tensor_off_the_current_device(monkeypatch):
     with pytest.raises(RuntimeError, match="one process per GPU"):
         _build.stream_ptr(torch.device("cuda", 1))
 
-    class Stream:
-        cuda_stream = 1234
-
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: Stream)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda d: 1234 + d, raising=False)
     assert _build.stream_ptr(torch.device("cuda", 0)).value == 1234
