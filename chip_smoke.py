@@ -180,7 +180,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      for bit, the iteration, a warm step, the loader's share and peak
      memory; NIQE and the matting metrics in a Python where ``import
      cv2`` fails. No launch count moves in any of it;
- 12. phase "dist", several GPUs (ciaosr_torch/parallel/mesh.py) as one
+ 12. phase "aux", the JAX package's last public pieces in the port, plain
+     PyTorch on the card, f32 with TF32 off: ``imresize_torch`` (the
+     MATLAB bicubic on the device) of a seeded 256² RGB picture at ×1/4,
+     ×1/3 and ×2.5 against the same call on the CPU (max|Δ| ≤ 1e-5) and
+     ``imresize_np`` (≤ 1e-4); ``grid_sample_nearest`` on a (2, 192, 192,
+     64) map at 4096 queries, exact half-pixel ties and coords off the map
+     among them, the same bits as the CPU and ``F.grid_sample``; a
+     ``PosMLPRefiner`` and a registry-built ``MLPRefiner`` (act sin) on
+     (16, 4096, 64) against the same weights on the CPU (max|Δ|/max|ref| ≤
+     1e-5); every generator config of configs/ with its encoder from
+     ``BACKBONES`` on the meta device, its parameter shapes those of the
+     encoder's class. Each with its warm ms; no launch count moves;
+ 13. phase "dist", several GPUs (ciaosr_torch/parallel/mesh.py) as one
      card allows: (c) the flagship's predict_tiled of the 256² picture at
      ×4 and ×2.5 with tile_batch 1, 2 and 4 in this process (exact
      launches a tile group, each picture within 1e-2 max|Δ|/max|ref| of
@@ -204,7 +216,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      EMA copy and discriminator bit for bit on both ranks); every command
      with its exact launches, its iterations and each rank's peak memory.
      Its launches add to the kernel rows (``launches_dist``);
- 13. prints the script's total time, the kernels line (each row with its
+ 14. prints the script's total time, the kernels line (each row with its
      achieved TFLOP/s: the function's own FLOPs over its time), the card
      line, and the result line last.
 The f32 references run with TF32 off in matmuls and cuDNN.
@@ -212,7 +224,8 @@ The f32 references run with TF32 off in matmuls and cuDNN.
 the full-image requests; ``--kernel-times`` builds them and only prints
 the ``time_kernels`` line; ``--train-cli`` builds them and only runs
 phase "train_cli"; ``--gan`` builds them and only runs phase "gan";
-``--basic`` only runs phase "basic", without a build; ``--dist`` builds
+``--basic`` only runs phase "basic", without a build; ``--aux`` only
+runs phase "aux", without a build; ``--dist`` builds
 them and only runs phase "dist" (none prints a result line). Copied into
 another checkout (e.g. the parent commit from ``git archive``), either
 times that tree the same way, in the same call.
@@ -224,6 +237,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4725,6 +4739,151 @@ def basic_phase(drive, kind: str, smi: str) -> None:
             os.chdir(cwd)
 
 
+# ---- phase "aux": the JAX package's last public pieces in the port, plain
+# PyTorch on the card (no kernel of the port), f32 with TF32 off
+AUX_IMG, AUX_SCALES = 256, (0.25, 1 / 3, 2.5)
+AUX_MAP, AUX_QUERIES = (2, 192, 192, 64), 4096
+AUX_MLP_INPUT = (16, 4096, 64)
+AUX_MLPS = (dict(type="PosMLPRefiner", in_dim=64, out_dim=64,
+                 hidden_list=[256, 256]),
+            dict(type="MLPRefiner", in_dim=64, out_dim=3,
+                 hidden_list=[256] * 4, act="sin"))
+# the card against the same call on the CPU: the resize max|d| (pixels in
+# [0, 1]), the MLPs max|d|/max|ref|; the resize against imresize_np
+# max|d| (as tests/test_torch_aux.py holds it against the JAX package)
+AUX_CPU_TOL, AUX_NP_TOL = 1e-5, 1e-4
+
+
+def aux_checks(kind: str, smi: str) -> None:
+    """The body of phase "aux" (``aux_phase`` drives it)."""
+    import torch.nn.functional as F
+
+    from ciaosr_torch.config.registry import (BACKBONES, COMPONENTS,
+                                              build_from_cfg)
+    from ciaosr_torch.convert.load import generator_shapes
+    from ciaosr_torch.core.device import resolve_device
+    from ciaosr_torch.core.resize import imresize_np, imresize_torch
+    from ciaosr_torch.models.builder import init_weights_, make_generator
+    from ciaosr_torch.ops.sampling import grid_sample_nearest
+
+    dev = resolve_device("cuda")        # TF32 off
+    rng = np.random.default_rng(29)
+
+    def report(name, err, limit, what, ms, extra=""):
+        log(f"aux {name} ({kind}; {smi}): {what} {err:.3e} (limit "
+            f"{limit:g}), warm {ms:.4f} ms{extra}")
+        if not err <= limit:
+            raise AssertionError(f"aux {name}: {what} {err} > {limit}")
+
+    # imresize_torch: the MATLAB bicubic on the card
+    img = rng.random((AUX_IMG, AUX_IMG, 3), dtype=np.float32)
+    card = torch.as_tensor(img, device=dev)
+    for s in AUX_SCALES:
+        size = (math.ceil(AUX_IMG * s),) * 2
+        got = imresize_torch(card, size, s).cpu()
+        cpu = imresize_torch(torch.from_numpy(img), size, s)
+        ref = imresize_np(img, scale=s)
+        if got.shape != (*size, 3) or not torch.isfinite(got).all():
+            raise AssertionError(f"aux imresize_torch x{s:.4g}: "
+                                 f"{tuple(got.shape)}")
+        name = f"imresize_torch {AUX_IMG}x{AUX_IMG}x3 x{s:.4g} -> {size}"
+        ms = time_ms(lambda: imresize_torch(card, size, s))
+        report(name, float((got - cpu).abs().max()), AUX_CPU_TOL,
+               "max|d| vs the CPU", ms)
+        report(name, float(np.abs(got.numpy() - ref).max()), AUX_NP_TOL,
+               "max|d| vs imresize_np", ms)
+
+    # grid_sample_nearest: coords k / 4096 - 1 are exact at every step of
+    # the unnormalize in f32 (so F.grid_sample rounds none of them
+    # otherwise); k a multiple of 128 puts the source on an exact
+    # half-pixel of the 192 map; they reach past -1 and 1
+    b, h, w, c = AUX_MAP
+    k = rng.integers(-450, 8642, (b, AUX_QUERIES, 2))
+    k[:, ::4] = 128 * rng.integers(-3, 68, (b, AUX_QUERIES // 4, 2))
+    coord = torch.as_tensor(k / 4096 - 1, dtype=torch.float32)
+    feat = torch.as_tensor(rng.standard_normal(AUX_MAP, dtype=np.float32))
+    cfeat, ccoord = feat.to(dev), coord.to(dev)
+    grid = ccoord.flip(-1)[:, None]                 # (x, y), (B, 1, Q, 2)
+    nchw = cfeat.permute(0, 3, 1, 2)
+
+    def library():
+        return F.grid_sample(nchw, grid, mode="nearest",
+                             align_corners=False)[:, :, 0].permute(0, 2, 1)
+
+    got = grid_sample_nearest(cfeat, ccoord)
+    off = int((coord.abs() > 1).any(-1).sum())
+    ties = int((k % 128 == 0).all(-1).sum())
+    if not (torch.equal(got.cpu(), grid_sample_nearest(feat, coord))
+            and torch.equal(got, library()) and off and ties):
+        raise AssertionError("aux grid_sample_nearest: not the same bits as "
+                             "the CPU and F.grid_sample")
+    ms = time_ms(lambda: grid_sample_nearest(cfeat, ccoord))
+    report(f"grid_sample_nearest {AUX_MAP} at {AUX_QUERIES} queries "
+           f"({ties} on exact half-pixels in both axes, {off} off the map)",
+           0.0, 0.0, "max|d| vs the CPU and F.grid_sample (the same bits)",
+           ms, f", library F.grid_sample {time_ms(library):.4f} ms")
+
+    # the refiners from COMPONENTS: the card against the same weights on
+    # the CPU
+    x = torch.as_tensor(rng.standard_normal(AUX_MLP_INPUT,
+                                            dtype=np.float32))
+    cx = x.to(dev)
+    for i, cfg in enumerate(AUX_MLPS):
+        net = build_from_cfg(cfg, COMPONENTS)
+        init_weights_(net, seed=i)
+        on_card = copy.deepcopy(net).to(dev)
+        with torch.inference_mode():
+            ref = net(x)
+            got = on_card(cx).cpu()
+            ms = time_ms(lambda: on_card(cx))
+        if got.shape != (*AUX_MLP_INPUT[:2], cfg["out_dim"]) or \
+                not torch.isfinite(got).all():
+            raise AssertionError(f"aux {cfg['type']}: {tuple(got.shape)}")
+        report(f"{cfg} on {AUX_MLP_INPUT}", float(
+            (got - ref).abs().max() / ref.abs().max()), AUX_CPU_TOL,
+            "max|d|/max|ref| vs the CPU", ms)
+
+    # every generator config: the encoder from BACKBONES, the parameter
+    # shapes those of its class called directly
+    for path in sorted((Path(__file__).resolve().parent / "configs").glob(
+            "*.py")):
+        gen = dict(Config.fromfile(str(path)).model["generator"])
+        enc_cfg = dict(gen["encoder"])
+        cls = BACKBONES.get(enc_cfg.pop("type"))
+        if "window_size" in gen:
+            enc_cfg.setdefault("window_size", gen["window_size"])
+        with torch.device("meta"):
+            net = make_generator(gen)
+            want = {k: tuple(v.shape)
+                    for k, v in cls(**enc_cfg).state_dict().items()}
+        shapes = generator_shapes(gen)
+        if type(net.encoder) is not cls or \
+                {k: shapes.get(k) for k in want} != want:
+            raise AssertionError(f"aux {path.name}: the encoder from "
+                                 "BACKBONES is not its class's")
+        n = sum(math.prod(v) for v in shapes.values())
+        log(f"aux {path.name}: {gen['type']}, encoder {cls.__name__} from "
+            f"BACKBONES, {len(shapes)} tensors, {n} parameters")
+
+
+def aux_phase(drive, kind: str, smi: str) -> None:
+    """Phase "aux": the JAX package's last public pieces in the port, on
+    the card in f32 with TF32 off, at the sizes a user calls them:
+    ``imresize_torch`` of a seeded 256² RGB picture at ×1/4, ×1/3 and
+    ×2.5 against the same call on the CPU and ``imresize_np``;
+    ``grid_sample_nearest`` on a (2, 192, 192, 64) map at 4096 queries
+    (exact half-pixel ties, coords off the map) against the CPU and
+    ``F.grid_sample``, the same bits; a ``PosMLPRefiner`` (64 → [256,
+    256] → 64) and a registry-built ``MLPRefiner`` (act sin, 64 → [256] ×
+    4 → 3) on (16, 4096, 64) against the same weights on the CPU; every
+    generator config of configs/ built on the meta device with its
+    encoder from ``BACKBONES``. Each with its error and warm ms. Driven
+    with every launch count at 0: none may move."""
+    from ciaosr_torch.ops import kernels
+
+    drive("aux", lambda: aux_checks(kind, smi), [], list(kernels.LAUNCHES))
+
+
 # ---- several GPUs (phase "dist"): one process per GPU on torch.distributed
 # (ciaosr_torch/parallel/mesh.py). The smoke run's machine has one card: (a)
 # runs one rank over NCCL, (b) two ranks that share cuda:0 over gloo (NCCL
@@ -5403,6 +5562,7 @@ def main() -> int:
     ``--kernel-times``: build, then only time_kernels; ``--train-cli``:
     build, then only phase train_cli; ``--gan``: build, then only phase
     gan; ``--basic``: only phase basic, which needs no kernel;
+    ``--aux``: only phase aux, which needs none either;
     ``--dist``: build, then only phase dist (none prints a result line);
     ``--dist-worker``: one process of phase dist."""
     t_start = time.perf_counter()
@@ -5410,7 +5570,8 @@ def main() -> int:
     if flags[:1] == ["--dist-worker"]:
         return dist_worker(flags[1:])
     if flags not in ([], ["--full-image"], ["--kernel-times"],
-                     ["--train-cli"], ["--gan"], ["--basic"], ["--dist"]):
+                     ["--train-cli"], ["--gan"], ["--basic"], ["--aux"],
+                     ["--dist"]):
         print(f"chip_smoke: unknown arguments {flags}", file=sys.stderr)
         return 2
     full_only = flags == ["--full-image"]
@@ -5445,6 +5606,10 @@ def main() -> int:
     if flags == ["--basic"]:
         basic_phase(drive, kind, smi)
         mark("the basic phase")
+        return 0
+    if flags == ["--aux"]:
+        aux_phase(drive, kind, smi)
+        mark("the aux phase")
         return 0
     log(f"build: {_build.build_all():.2f} s ({_build.build_dir()})")
     if not flags:
@@ -6030,6 +6195,10 @@ def main() -> int:
     # ---- the fixed-scale restorer: no kernel of the port on its path
     basic_phase(drive, kind, smi)
     mark("the basic phase")
+
+    # ---- the JAX package's last public pieces: no kernel of the port
+    aux_phase(drive, kind, smi)
+    mark("the aux phase")
 
     # ---- several GPUs: NCCL at world 1, two ranks on the card over gloo,
     # tile groups in this process

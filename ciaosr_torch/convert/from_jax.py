@@ -10,7 +10,10 @@ OIHW; LayerNorm ``scale`` → ``weight``; the PReLU scalar → a (1,) weight;
 ``patch_embed.norm``; ``layers_i/blocks_j/mlp_fc1`` →
 ``layers.i.residual_group.blocks.j.mlp.fc1`` (and the SwinIR
 converter's other block keys); ``cs_attn/*_conv``/``*_prelu``/``down`` →
-``cs_attn.*.0``/``.1``/``down``; and the tap-major → channel-major
+``cs_attn.*.0``/``.1``/``down``; a registry-built ``MLPRefiner``'s
+``layers_i``/``out`` → ``layers.{2i}`` and the last ``layers`` entry
+(``mlp_state_dict_from_jax``), a ``PosMLPRefiner``'s → ``layers.i``/``out``
+(``pos_mlp_state_dict_from_jax``); and the tap-major → channel-major
 permutation of the imnet unfold blocks (none without the unfold). Input:
 nested dicts of arrays (optionally under a top-level "params" key).
 Output: a dict of f32 CPU tensors for
@@ -71,6 +74,28 @@ def _mlp(p: dict, prefix: str, n_hidden: int, sd: dict, in_perm=None,
                 in_perm=in_perm if i == 0 else None)
     _linear(p["out"], f"{prefix}.layers.{2 * n_hidden}", sd,
             in_perm=in_perm if n_hidden == 0 else None, out_perm=out_perm)
+
+
+def mlp_state_dict_from_jax(params: dict) -> dict:
+    """Flax params of an ``MLPRefiner`` (``layers_i``, ``out``) → the
+    port's ImplicitMLP keys (``layers.{2i}``, its last Linear after
+    them)."""
+    p = params.get("params", params)
+    n_hidden = len([k for k in p if k.startswith("layers_")])
+    sd: dict[str, torch.Tensor] = {}
+    _mlp(p, "mlp", n_hidden, sd)
+    return {k[len("mlp."):]: v for k, v in sd.items()}
+
+
+def pos_mlp_state_dict_from_jax(params: dict) -> dict:
+    """Flax params of a ``PosMLPRefiner`` (``layers_i``, ``out``) → the
+    port's keys (``layers.{i}``, ``out``)."""
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(len([k for k in p if k.startswith("layers_")])):
+        _linear(p[f"layers_{i}"], f"layers.{i}", sd)
+    _linear(p["out"], "out", sd)
+    return sd
 
 
 def rdn_state_dict_from_jax(enc: dict) -> dict:

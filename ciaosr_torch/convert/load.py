@@ -64,10 +64,11 @@ def is_port_checkpoint(raw: dict) -> bool:
 
 
 def _fixed_scale(gen_cfg: dict) -> bool:
-    from ciaosr_torch.config.registry import BACKBONES
-    import ciaosr_torch.models.basic_sr  # noqa: F401  (registry)
+    """Whether ``gen_cfg`` is a fixed-scale net (EDSRNet, RDNNet); the
+    encoder trunks in ``BACKBONES`` are not."""
+    from ciaosr_torch.models.basic_sr import FIXED_SCALE
 
-    return gen_cfg.get("type") in BACKBONES
+    return gen_cfg.get("type") in FIXED_SCALE
 
 
 def has_ema(state_dict: dict) -> bool:

@@ -1,7 +1,9 @@
-"""MATLAB-exact bicubic resize (numpy), as a gather + matmul per axis.
+"""MATLAB-exact bicubic resize, as a gather + matmul per axis.
 
 Counterpart of ciaosr_tpu/core/resize.py (``cubic_kernel``,
-``resize_table``, ``imresize_np``): the cubic kernel with a = -0.5, the
+``resize_table``, ``imresize_np``, and ``imresize_torch``, the twin of
+``imresize_jnp``: the same tables applied to a tensor on its own
+device): the cubic kernel with a = -0.5, the
 kernel widened by 1/scale on downscale (antialiasing), per-row weight
 normalization and symmetric (edge-inclusive mirror) boundaries. An
 (out, P) index / weight table per axis is applied as one gather and one
@@ -17,6 +19,7 @@ import os
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 
 def cubic_kernel(x: np.ndarray) -> np.ndarray:
@@ -105,3 +108,27 @@ def imresize_np(img: np.ndarray, size=None, scale: float | None = None,
     if squeeze:
         out = out[..., 0]
     return out
+
+
+def imresize_torch(img: torch.Tensor, size, scale: float,
+                   antialiasing: bool = True) -> torch.Tensor:
+    """MATLAB bicubic of an (..., H, W, C) float tensor to ``size`` =
+    (out_h, out_w), on the tensor's own device: the tables of
+    ``resize_table``, uploaded as f32, applied as one gather and one
+    einsum per axis."""
+    *lead, in_h, in_w, c = img.shape
+    out_h, out_w = size
+    idx_h, w_h = resize_table(in_h, out_h, float(scale), antialiasing)
+    idx_w, w_w = resize_table(in_w, out_w, float(scale), antialiasing)
+    dt = torch.promote_types(img.dtype, torch.float32)
+    img = img.to(dt)
+    w_h = torch.as_tensor(w_h, dtype=torch.float32, device=img.device).to(dt)
+    w_w = torch.as_tensor(w_w, dtype=torch.float32, device=img.device).to(dt)
+    g = img.index_select(-3, torch.as_tensor(
+        idx_h.ravel(), dtype=torch.long, device=img.device))
+    g = g.reshape(*lead, *idx_h.shape, in_w, c)     # (..., out_h, P, W, C)
+    out = torch.einsum("op,...opwc->...owc", w_h, g)
+    g = out.index_select(-2, torch.as_tensor(
+        idx_w.ravel(), dtype=torch.long, device=img.device))
+    g = g.reshape(*lead, out_h, *idx_w.shape, c)    # (..., out_h, out_w, P, C)
+    return torch.einsum("op,...hopc->...hoc", w_w, g)

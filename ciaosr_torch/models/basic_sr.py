@@ -30,6 +30,11 @@ from ciaosr_torch.models.edsr import EDSR
 from ciaosr_torch.models.rdn import RDN, conv
 
 
+# the fixed-scale generators of BACKBONES; its other entries (RDN, EDSR,
+# SwinIR) are the CiaoSR generators' encoder trunks
+FIXED_SCALE = ("EDSRNet", "RDNNet")
+
+
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """NHWC pixel shuffle with torch's channel order: input channel
     c·r² + dy·r + dx → output channel c at offset (dy, dx)."""

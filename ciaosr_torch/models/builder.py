@@ -11,12 +11,13 @@ overwrites them): imnet_k 580 → 576, imnet_v 644 → 640, imnet_q 640 → 3
 at C = 64 with CSA (68 → 64, 132 → 128, 128 → 3 with
 ``feat_unfold=False``). The 002
 configs' decoder knobs with baked-in semantics are accepted and checked
-as in the JAX package. The fixed-scale
-nets ``EDSRNet`` and ``RDNNet`` (models/basic_sr.py, registry
-``BACKBONES``) build from their own keys. ``build_model`` builds a
-restorer from a config's ``model`` dict (``build_model`` at
-ciaosr_tpu/models/builder.py): ``CiaoSR``, ``RealCiaoSR``
-(models/real_restorer.py) or ``BasicRestorer``. Weights are
+as in the JAX package. The encoder is built from ``BACKBONES`` by
+its ``type`` (``RDN``, ``EDSR`` or ``SwinIR``, the JAX package's names).
+The fixed-scale nets ``EDSRNet`` and ``RDNNet`` (models/basic_sr.py,
+``FIXED_SCALE``, also in ``BACKBONES``) build from their own keys.
+``build_model`` builds a restorer from a config's ``model`` dict
+(``build_model`` at ciaosr_tpu/models/builder.py): ``CiaoSR``,
+``RealCiaoSR`` (models/real_restorer.py) or ``BasicRestorer``. Weights are
 random, drawn from an explicit seed with PyTorch's default Linear/Conv2d
 init (U(±1/√fan_in)) and PReLU 0.25;
 the SwinIR trunk then takes the reference's own init (trunc-normal(0.02)
@@ -32,15 +33,12 @@ import warnings
 import torch
 import torch.nn as nn
 
-from ciaosr_torch.config.registry import BACKBONES
+from ciaosr_torch.config.registry import BACKBONES, build_from_cfg
 from ciaosr_torch.core.device import resolve_device, resolve_dtype
-import ciaosr_torch.models.basic_sr  # noqa: F401  (registers the nets)
+from ciaosr_torch.models.basic_sr import FIXED_SCALE
 from ciaosr_torch.models.ciaosr import CiaoSRNet
-from ciaosr_torch.models.edsr import EDSR
-from ciaosr_torch.models.rdn import RDN
 from ciaosr_torch.models.swinir import SwinIR
 
-_BACKBONES = {"RDN": RDN, "EDSR": EDSR, "SwinIR": SwinIR}
 # generator type -> the encoder types it takes (the first is the default)
 _ENCODERS = {"LocalImplicitSRRDN": ("RDN",),
              "LocalImplicitSREDSR": ("EDSR",),
@@ -108,24 +106,23 @@ def make_generator(cfg: dict) -> nn.Module:
     """The generator's modules as ``cfg`` gives them, with PyTorch's own
     initial weights, on the default device (``torch.device("meta")`` as a
     context gives its parameter shapes without storage): a CiaoSR
-    generator, or a fixed-scale net of ``BACKBONES``."""
+    generator, or a fixed-scale net of ``FIXED_SCALE``."""
     cfg = copy.deepcopy(dict(cfg))
     gname = cfg.pop("type")
-    if gname in BACKBONES:
+    if gname in FIXED_SCALE:
         return BACKBONES.get(gname)(**cfg)
     if gname not in _ENCODERS:
         raise KeyError(f"unknown generator type {gname}")
     _check_baked_in(cfg)
     enc_cfg = dict(cfg.pop("encoder"))
-    enc_type = enc_cfg.pop("type", _ENCODERS[gname][0])
-    if enc_type not in _ENCODERS[gname]:
+    enc_cfg.setdefault("type", _ENCODERS[gname][0])
+    if enc_cfg["type"] not in _ENCODERS[gname]:
         raise KeyError(f"{gname} takes a {' or '.join(_ENCODERS[gname])} "
-                       f"encoder, got {enc_type}")
-    enc_cls = _BACKBONES[enc_type]
+                       f"encoder, got {enc_cfg['type']}")
     window_size = cfg.pop("window_size", None)
-    if enc_cls is SwinIR and window_size is not None:
+    if enc_cfg["type"] == "SwinIR" and window_size is not None:
         enc_cfg.setdefault("window_size", window_size)
-    encoder = enc_cls(**enc_cfg)
+    encoder = build_from_cfg(enc_cfg, BACKBONES)
     imnet_q = cfg.pop("imnet_q", None)
     imnet_k = cfg.pop("imnet_k", None)
     imnet_v = cfg.pop("imnet_v", None)

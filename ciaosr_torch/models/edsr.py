@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ciaosr_torch.config.registry import BACKBONES
 from ciaosr_torch.models.rdn import conv
 
 
@@ -29,6 +30,7 @@ class ResidualBlockNoBN(nn.Module):
         return x + y * self.res_scale
 
 
+@BACKBONES.register(name="EDSR")
 class EDSR(nn.Module):
     """EDSR trunk. Takes and returns NHWC; convs run NCHW."""
 

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ciaosr_torch.config.registry import BACKBONES
+
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype,
          **kw) -> torch.Tensor:
@@ -52,6 +54,7 @@ class ResidualDenseBlock(nn.Module):
         return x + conv(feats, self.lff, dtype)
 
 
+@BACKBONES.register(name="RDN")
 class RDN(nn.Module):
     """RDN trunk. Takes and returns NHWC; convs run NCHW."""
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ciaosr_torch.config.registry import BACKBONES
 from ciaosr_torch.models.rdn import conv
 from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels.swin_block import (SwinBlockFunction,
@@ -190,6 +191,7 @@ class PatchEmbed(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5) if patch_norm else None
 
 
+@BACKBONES.register(name="SwinIR")
 class SwinIR(nn.Module):
     """SwinIR trunk for CiaoSR; the upsampler head is never built (the
     reference builds then discards it). Head-only config keys are accepted

@@ -18,6 +18,21 @@ def nearest_index(coord: torch.Tensor, size: int) -> torch.Tensor:
     return torch.round(ix).to(torch.int32)   # torch.round: half to even
 
 
+def grid_sample_nearest(feat: torch.Tensor,
+                        coord: torch.Tensor) -> torch.Tensor:
+    """Nearest grid-sample with 'zeros' padding: out-of-bounds queries
+    return 0. feat (B, H, W, C); coord (B, Q, 2) in (y, x) order (the
+    make_coord convention, not flipped) → (B, Q, C)."""
+    b, h, w, c = feat.shape
+    iy = nearest_index(coord[..., 0], h).long()
+    ix = nearest_index(coord[..., 1], w).long()
+    valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    idx = torch.clamp(iy, 0, h - 1) * w + torch.clamp(ix, 0, w - 1)
+    out = torch.gather(feat.reshape(b, h * w, c), 1,
+                       idx[..., None].expand(-1, -1, c))
+    return out.masked_fill(~valid[..., None], 0)
+
+
 def grid_sample_bilinear_border(feat: torch.Tensor,
                                 coord: torch.Tensor) -> torch.Tensor:
     """Bilinear grid-sample with 'border' padding (coordinate clamping).
