@@ -5305,8 +5305,7 @@ def tile_batch_times(restorer, lq: np.ndarray, scale) -> tuple:
     """(host ms, device ms) a tile of ``predict_tiled`` on the IMG²
     picture: the host clock around each of DIST_TILE_CALLS calls that end
     in a synchronize (median), and torch.profiler's CUDA kernel time of
-    one more call, as tools/flagship_tile_time.py splits a tile; each over
-    the picture's tiles."""
+    one more call; each over the picture's tiles."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

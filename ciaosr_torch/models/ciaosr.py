@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ciaosr_torch.core import trace
 from ciaosr_torch.models.csa import CrossScaleAttention
 from ciaosr_torch.models.mlp import ImplicitMLP
 from ciaosr_torch.models.swinir import SwinIR
@@ -119,9 +120,10 @@ class CiaoSRNet(nn.Module):
         """Encoder trunk features (B, H, W, C) in the compute dtype; the
         SwinIR encoder's blocks take their kernel with ``use_kernels`` (the
         RDN has no kernel of its own: its convs go to cuDNN)."""
-        if isinstance(self.encoder, SwinIR):
-            return self.encoder(x, self.dtype, self.use_kernels)
-        return self.encoder(x, self.dtype)
+        with trace.span("generator.encoder", device=True):
+            if isinstance(self.encoder, SwinIR):
+                return self.encoder(x, self.dtype, self.use_kernels)
+            return self.encoder(x, self.dtype)
 
     def forward(self, x: torch.Tensor, coord: torch.Tensor,
                 cell: torch.Tensor) -> torch.Tensor:
@@ -140,7 +142,8 @@ class CiaoSRNet(nn.Module):
         without non-local attention."""
         if not self.non_local_attn:
             return None
-        return self.cs_attn(feature, use_kernel, self.dtype)
+        with trace.span("generator.csa", device=True):
+            return self.cs_attn(feature, use_kernel, self.dtype)
 
     # ----------------------------------------------------------- per query
     def query_rgb(self, feature: torch.Tensor, x: torch.Tensor,
@@ -298,11 +301,16 @@ class CiaoSRNet(nn.Module):
             csa = csa.contiguous()
         feature = torch.nn.functional.pad(feature.to(dt),
                                           (0, cp - c)).contiguous()
-        pk = dk_ops.pack_decoder(self.imnet_k, self.imnet_v, self.imnet_q,
-                                 c, cell, dt, c_pad=cp, dc_pad=dcp)
-        gk, gv = dk_ops.f3p_build(feature, csa, pk["wk0"], pk["wvu"],
-                                  pk["wvc"])
-        wt, ck = dk_ops.wt_hoist(feature, pk["wkout"], pk["bkout"])
+        with trace.span("decoder.pack"):
+            pk = dk_ops.pack_decoder(self.imnet_k, self.imnet_v,
+                                     self.imnet_q, c, cell, dt, c_pad=cp,
+                                     dc_pad=dcp)
+        trace.count("decoder.packs")
+        with trace.span("decoder.k1"):
+            gk, gv = dk_ops.f3p_build(feature, csa, pk["wk0"], pk["wvu"],
+                                      pk["wvc"])
+        with trace.span("decoder.k2"):
+            wt, ck = dk_ops.wt_hoist(feature, pk["wkout"], pk["bkout"])
         return feature, csa, gk, gv, wt, ck, pk
 
     def query_rgb_grid_kernels(self, feature: torch.Tensor, x: torch.Tensor,
@@ -311,13 +319,17 @@ class CiaoSRNet(nn.Module):
         plain versions on CPU tensors): (B, s·H, s·W, 3)."""
         s = int(scale)
         b, h, w, c = feature.shape
-        tabs = dk_ops.decoder_tables(s, h, w, self.local_size,
-                                     feature.device)
-        phases = dk_ops.grid_decode(
-            *self._kernel_maps(feature, (2.0 / s, 2.0 / s)), tabs,
-            self.softmax_scale)
-        img = pixel_shuffle(phases.float(), s)
-        return img + interpolate_bilinear(x.float(), s * h, s * w)
+        with trace.span("decoder.tables"):
+            tabs = dk_ops.decoder_tables(s, h, w, self.local_size,
+                                         feature.device)
+        trace.count("decoder.table_builds")
+        maps = self._kernel_maps(feature, (2.0 / s, 2.0 / s))
+        with trace.span("decoder.k3"):
+            phases = dk_ops.grid_decode(*maps, tabs, self.softmax_scale)
+        del maps    # K1's and K2's maps go before the shuffle allocates
+        with trace.span("decoder.shuffle"):
+            img = pixel_shuffle(phases.float(), s)
+            return img + interpolate_bilinear(x.float(), s * h, s * w)
 
     # ------------------------------------------------------- rational grid
     def query_rgb_grid_rational(self, feature: torch.Tensor, x: torch.Tensor,
@@ -374,13 +386,18 @@ class CiaoSRNet(nn.Module):
         (B, H·py/qy, W·px/qx, 3)."""
         b, h, w, c = feature.shape
         th, tw = h * py // qy, w * px // qx
-        tabs = dk_ops.rational_tables(h, w, py, qy, px, qx, self.local_size,
-                                      feature.device)
-        phases = dk_ops.grid_decode_rational(
-            *self._kernel_maps(feature, rational_cell(h, w, th, tw)), tabs,
-            self.softmax_scale)
-        img = pixel_shuffle(phases.float(), py, px)
-        return img + interpolate_bilinear(x.float(), th, tw)
+        with trace.span("decoder.tables"):
+            tabs = dk_ops.rational_tables(h, w, py, qy, px, qx,
+                                          self.local_size, feature.device)
+        trace.count("decoder.table_builds")
+        maps = self._kernel_maps(feature, rational_cell(h, w, th, tw))
+        with trace.span("decoder.k3"):
+            phases = dk_ops.grid_decode_rational(*maps, tabs,
+                                                 self.softmax_scale)
+        del maps
+        with trace.span("decoder.shuffle"):
+            img = pixel_shuffle(phases.float(), py, px)
+            return img + interpolate_bilinear(x.float(), th, tw)
 
     def decode_grid(self, x: torch.Tensor, sy, sx=None) -> torch.Tensor:
         """Encoder + dense-grid decode of normalized LR x (B, H, W, 3) at

@@ -35,6 +35,7 @@ import torch
 
 from ciaosr_torch.config.registry import (COMPONENTS, LOSSES, MODELS,
                                           build_from_cfg)
+from ciaosr_torch.core import trace
 from ciaosr_torch.models.builder import init_weights_
 from ciaosr_torch.models.restorers import CiaoSRRestorer
 from ciaosr_torch.parallel.mesh import all_reduce_grads
@@ -173,6 +174,11 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
 
         def train_step(state: GANTrainState, batch: dict):
             step = state.step
+            with trace.span("train.step", request=step):
+                trace.count("train.steps")
+                return phases(state, batch, step)
+
+        def phases(state: GANTrainState, batch: dict, step: int):
             if self.ema_start_iter >= 0 and step == self.ema_start_iter:
                 with torch.no_grad():
                     torch._foreach_copy_(live_p, ema_p)
@@ -182,14 +188,20 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
                 if disc is not None:
                     disc.requires_grad_(False)
                 g_opt.zero_grad(set_to_none=True)
-                total, losses, pred_img = self.generator_losses(batch)
-                total.backward()
-                all_reduce_grads(mesh, live_p)
-                g_opt.step()
-                g_sched.step()
+                with trace.span("train.forward", device=True):
+                    total, losses, pred_img = self.generator_losses(batch)
+                with trace.span("train.backward", device=True):
+                    total.backward()
+                if mesh is not None:
+                    with trace.span("train.all_reduce", device=True):
+                        all_reduce_grads(mesh, live_p)
+                with trace.span("train.optimizer", device=True):
+                    g_opt.step()
+                    g_sched.step()
                 losses = {k: v.detach() for k, v in losses.items()}
             else:
-                with torch.no_grad():
+                with torch.no_grad(), trace.span("train.forward",
+                                                 device=True):
                     pred_img = query_images(self.generator(
                         self.normalize(batch["lq"]), batch["coord"],
                         batch["cell"]))
@@ -198,24 +210,26 @@ class RealCiaoSRRestorer(CiaoSRRestorer):
 
             # ---- discriminator phase
             if self.has_gan:
-                disc.requires_grad_(True)
-                gt, unsharp = self._targets(batch)
-                gt_img = query_images(unsharp if self.use_sharp_gan else gt)
-                d_opt.zero_grad(set_to_none=True)
-                loss_real = self.gan_loss(disc(gt_img, update_stats=True),
-                                          True, is_disc=True)
-                loss_fake = self.gan_loss(disc(pred_img.detach(),
-                                               update_stats=True),
-                                          False, is_disc=True)
-                (loss_real + loss_fake).backward()
-                all_reduce_grads(mesh, disc_p)
-                d_opt.step()
-                d_sched.step()
+                with trace.span("train.disc", device=True):
+                    disc.requires_grad_(True)
+                    gt, unsharp = self._targets(batch)
+                    gt_img = query_images(unsharp if self.use_sharp_gan
+                                          else gt)
+                    d_opt.zero_grad(set_to_none=True)
+                    loss_real = self.gan_loss(disc(gt_img, update_stats=True),
+                                              True, is_disc=True)
+                    loss_fake = self.gan_loss(disc(pred_img.detach(),
+                                                   update_stats=True),
+                                              False, is_disc=True)
+                    (loss_real + loss_fake).backward()
+                    all_reduce_grads(mesh, disc_p)
+                    d_opt.step()
+                    d_sched.step()
                 losses["loss_d_real"] = loss_real.detach()
                 losses["loss_d_fake"] = loss_fake.detach()
 
             # ---- EMA, on every step, in place
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("train.ema", device=True):
                 torch._foreach_mul_(ema_p, m)
                 torch._foreach_add_(ema_p, live_p, alpha=1.0 - m)
             state.step += 1

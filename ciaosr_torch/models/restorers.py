@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ciaosr_torch.config.registry import MODELS
+from ciaosr_torch.core import trace
 from ciaosr_torch.core.color import tensor2img
 from ciaosr_torch.core.coords import make_coord_cell
 from ciaosr_torch.core.metrics import psnr, ssim
@@ -180,38 +181,61 @@ class CiaoSRRestorer:
         (parallel/mesh.py) of N ranks a group is widened to
         max(1, tile_batch // N)·N tiles and rank r decodes its r-th share
         of each group into its own sums, which one all-reduce a picture
-        adds up before the average: every rank returns the whole picture."""
-        scale = as_scale_fraction(scale)
-        p, q = scale.numerator, scale.denominator
-        h, w = lq.shape[:2]
-        th, tw = round(h * p / q), round(w * p / q)
-        if q > 1 and (h % q or w % q):
-            hp, wp = _ceil_to(h, q), _ceil_to(w, q)
-            lq = np.pad(lq, ((0, hp - h), (0, wp - w), (0, 0)),
-                        mode="reflect")
-            h, w = hp, wp
-        tile, hs, ws = tile_layout(h, w, scale, tile, tile_overlap)
-        tiles = [(hi, wi) for hi in hs for wi in ws]
-        n, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
-        share = max(1, int(self.test_cfg.get("tile_batch", 1)) // n)
-        out_t = tile * p // q
-        lq_t = self._to_device(lq)
-        # the sums of the tile outputs (channels 0-2) and their count (3)
-        sums = torch.zeros(h * p // q, w * p // q, 4, device=self.device)
-        acc, cnt = sums[..., :3], sums[..., 3:]
-        for i in range(0, len(tiles), share * n):
-            mine = tiles[i + rank * share:i + (rank + 1) * share]
-            if not mine:    # the last group may leave a rank nothing
-                continue
-            outs = self._decode(torch.stack(
-                [lq_t[hi:hi + tile, wi:wi + tile] for hi, wi in mine]), scale)
-            for (hi, wi), out in zip(mine, outs):
-                y0, x0 = hi * p // q, wi * p // q
-                acc[y0:y0 + out_t, x0:x0 + out_t] += out
-                cnt[y0:y0 + out_t, x0:x0 + out_t] += 1.0
-        all_reduce_sum_(mesh, sums)
-        out = torch.clamp(acc / cnt, 0.0, 1.0).cpu().numpy()
-        return out[:th, :tw]
+        adds up before the average: every rank returns the whole picture.
+
+        Traced (``core/trace.py``): ``restorer.picture`` (a request) over
+        ``restorer.upload``, each group's ``restorer.stack``,
+        ``restorer.decode`` and ``restorer.overlap_add``, and
+        ``restorer.download``, in which, only while tracing is on, the
+        host waits for the device as ``restorer.wait`` before the copy."""
+        with trace.span("restorer.picture"):
+            trace.count("restorer.pictures")
+            scale = as_scale_fraction(scale)
+            p, q = scale.numerator, scale.denominator
+            h, w = lq.shape[:2]
+            th, tw = round(h * p / q), round(w * p / q)
+            if q > 1 and (h % q or w % q):
+                hp, wp = _ceil_to(h, q), _ceil_to(w, q)
+                lq = np.pad(lq, ((0, hp - h), (0, wp - w), (0, 0)),
+                            mode="reflect")
+                h, w = hp, wp
+            tile, hs, ws = tile_layout(h, w, scale, tile, tile_overlap)
+            tiles = [(hi, wi) for hi in hs for wi in ws]
+            n, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+            share = max(1, int(self.test_cfg.get("tile_batch", 1)) // n)
+            out_t = tile * p // q
+            with trace.span("restorer.upload"):
+                lq_t = self._to_device(lq)
+            trace.count("restorer.h2d_bytes", lq.size * 4)
+            # the sums of the tile outputs (channels 0-2) and their count (3)
+            sums = torch.zeros(h * p // q, w * p // q, 4, device=self.device)
+            acc, cnt = sums[..., :3], sums[..., 3:]
+            for i in range(0, len(tiles), share * n):
+                mine = tiles[i + rank * share:i + (rank + 1) * share]
+                if not mine:    # the last group may leave a rank nothing
+                    continue
+                trace.count("restorer.groups")
+                trace.count("restorer.tiles", len(mine))
+                with trace.span("restorer.stack"):
+                    group = torch.stack([lq_t[hi:hi + tile, wi:wi + tile]
+                                         for hi, wi in mine])
+                with trace.span("restorer.decode", device=True):
+                    outs = self._decode(group, scale)
+                with trace.span("restorer.overlap_add"):
+                    for (hi, wi), out in zip(mine, outs):
+                        y0, x0 = hi * p // q, wi * p // q
+                        acc[y0:y0 + out_t, x0:x0 + out_t] += out
+                        cnt[y0:y0 + out_t, x0:x0 + out_t] += 1.0
+            all_reduce_sum_(mesh, sums)
+            with trace.span("restorer.download"):
+                out = torch.clamp(acc / cnt, 0.0, 1.0)
+                if trace.enabled() and out.is_cuda:
+                    # traced only: the host's wait apart from the copy
+                    with trace.span("restorer.wait"):
+                        torch.cuda.current_stream(out.device).synchronize()
+                out = out.cpu().numpy()
+            trace.count("restorer.d2h_bytes", out.nbytes)
+            return out[:th, :tw]
 
     def forward_test(self, lq: np.ndarray, target_shape=None,
                      scale=None, mesh=None) -> np.ndarray:

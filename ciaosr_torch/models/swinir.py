@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ciaosr_torch.config.registry import BACKBONES
+from ciaosr_torch.core import trace
 from ciaosr_torch.models.rdn import conv
 from ciaosr_torch.ops import kernels
 from ciaosr_torch.ops.kernels.swin_block import (SwinBlockFunction,
@@ -121,39 +122,46 @@ class SwinBlock(nn.Module):
         version = tuple((p.data_ptr(), p._version) for p in params)
         hit = self._packed.get(key)
         if hit is None or hit[0] != version:
-            hit = (version, pack_swin_block(self, ws, dtype))
+            with trace.span("swin.pack"):
+                hit = (version, pack_swin_block(self, ws, dtype))
+            trace.count("swin.packs")
             self._packed[key] = hit
+        else:
+            trace.count("swin.pack_hits")
         return hit[1]
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 use_kernels: bool = False) -> torch.Tensor:
         """x: (B, H, W, C) f32 tokens → (B, H, W, C) f32."""
-        b, h, w, c = x.shape
-        ws, shift = self.geometry(h, w)
-        if use_kernels and h % ws == 0 and w % ws == 0:
-            xi = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
-            xi = xi.float().contiguous()
-            # the packing in the route's dtype (bf16 on the card); x is f32
-            kdt = kernels.route_dtype(x.device, dtype)
-            if torch.is_grad_enabled():   # training: rows 11 and 12
-                y = SwinBlockFunction.apply(xi, self, ws, shift, kdt,
-                                            *self.parameters())
-            else:
-                y = swin_block(xi, self.packed(ws, kdt), ws, shift)
-            return torch.roll(y, (shift, shift), (1, 2)) if shift else y
-        # the JAX package's XLA block (its route when the map does not tile
-        # into windows, and whenever kernels are off)
-        y = _layer_norm(x, self.norm1)
-        if shift:
-            y = torch.roll(y, (-shift, -shift), (1, 2))
-        y = window_reverse(self.attn(window_partition(y, ws),
-                                     attn_mask(h, w, ws, shift), dtype),
-                           ws, h, w)
-        if shift:
-            y = torch.roll(y, (shift, shift), (1, 2))
-        x = x + y
-        y = gelu(_linear(_layer_norm(x, self.norm2), self.mlp.fc1, dtype))
-        return x + _linear(y, self.mlp.fc2, dtype)
+        with trace.span("swin.block", device=True):
+            b, h, w, c = x.shape
+            ws, shift = self.geometry(h, w)
+            if use_kernels and h % ws == 0 and w % ws == 0:
+                xi = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+                xi = xi.float().contiguous()
+                # the packing in the route's dtype (bf16 on the card); x is
+                # f32
+                kdt = kernels.route_dtype(x.device, dtype)
+                if torch.is_grad_enabled():   # training: rows 11 and 12
+                    y = SwinBlockFunction.apply(xi, self, ws, shift, kdt,
+                                                *self.parameters())
+                else:
+                    y = swin_block(xi, self.packed(ws, kdt), ws, shift)
+                return torch.roll(y, (shift, shift), (1, 2)) if shift else y
+            # the JAX package's XLA block (its route when the map does not
+            # tile into windows, and whenever kernels are off)
+            y = _layer_norm(x, self.norm1)
+            if shift:
+                y = torch.roll(y, (-shift, -shift), (1, 2))
+            y = window_reverse(self.attn(window_partition(y, ws),
+                                         attn_mask(h, w, ws, shift), dtype),
+                               ws, h, w)
+            if shift:
+                y = torch.roll(y, (shift, shift), (1, 2))
+            x = x + y
+            y = gelu(_linear(_layer_norm(x, self.norm2), self.mlp.fc1,
+                             dtype))
+            return x + _linear(y, self.mlp.fc2, dtype)
 
 
 class BasicLayer(nn.Module):

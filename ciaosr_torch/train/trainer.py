@@ -38,6 +38,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ciaosr_torch.core import trace
 from ciaosr_torch.parallel.mesh import (Mesh, all_reduce_grads,
                                         all_reduce_sum_, replicate,
                                         shard_batch)
@@ -68,14 +69,21 @@ def make_train_step(restorer, optimizer: torch.optim.Optimizer,
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_step(state: TrainState, batch: dict):
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = restorer.train_forward(*(batch[k] for k in keys))
-        loss.backward()
-        all_reduce_grads(mesh, params)
-        optimizer.step()
-        scheduler.step()
-        state.step += 1
-        return state, {"loss_pix": loss.detach()}
+        with trace.span("train.step", request=state.step):
+            trace.count("train.steps")
+            optimizer.zero_grad(set_to_none=True)
+            with trace.span("train.forward", device=True):
+                loss, _ = restorer.train_forward(*(batch[k] for k in keys))
+            with trace.span("train.backward", device=True):
+                loss.backward()
+            if mesh is not None:
+                with trace.span("train.all_reduce", device=True):
+                    all_reduce_grads(mesh, params)
+            with trace.span("train.optimizer", device=True):
+                optimizer.step()
+                scheduler.step()
+            state.step += 1
+            return state, {"loss_pix": loss.detach()}
 
     return train_step
 
