@@ -1300,6 +1300,40 @@ def swin_block_row(swin, lq: torch.Tensor) -> dict:
     return row
 
 
+# the f32 conv kernel's row: the 002 training batch's trunk map
+CONV_ROW = f"conv3x3_f32@{TRAIN_B}x{TRAIN_LR}x{TRAIN_LR}"
+
+
+def conv3x3_row() -> dict:
+    """The f32 conv kernel (csrc/conv3x3_f32_sm90.cu) on a seeded map of the
+    002 training batch's trunk (TRAIN_B × TRAIN_LR² × 180) against its plain
+    version, ``F.conv2d`` in f32 (TF32 off), which is also the library
+    call; the same bits on two launches. The bound is at the f32 peak: the
+    model computes in f32, outside the tensor cores."""
+    from ciaosr_torch.ops.kernels import conv3x3 as c3
+
+    c = SWIN_002["encoder"]["embed_dim"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(TRAIN_B, TRAIN_LR, TRAIN_LR, c, device="cuda",
+                    generator=g)
+    w = (torch.rand(c, c, 3, 3, device="cuda", generator=g) * 2 - 1) \
+        / (9 * c) ** 0.5
+    bias = (torch.rand(c, device="cuda", generator=g) * 2 - 1) / (9 * c) ** 0.5
+    flops = 2 * 9 * c * c * x.shape[0] * TRAIN_LR ** 2
+    nbytes = 4 * (2 * x.numel() + w.numel() + c)
+    row = kernel_row(
+        CONV_ROW, "ciaosr_torch/csrc/conv3x3_f32_sm90.cu",
+        "none: the trunk's nn.Conv (ciaosr_tpu/models/swinir.py:266, :335), "
+        "left to XLA", lambda: c3.conv3x3(x, w, bias),
+        lambda: c3.conv3x3_plain(x, w, bias), flops, nbytes,
+        lambda: c3.conv3x3_plain(x, w, bias), same_bits=True)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations (f32)" if t_ops >= t_bytes else "bytes",
+               reproducible=True)
+    return row
+
+
 def check_swin_kernels(swin, lq_tile: torch.Tensor,
                        lq_odd: torch.Tensor) -> list[dict]:
     """Row 11 (``swin_block_row``) on one SWIN_TILE² tile and on the
@@ -1434,7 +1468,8 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
     got, launches, _ = drive(
         f"f32 flagship x4 {TILE}x{TILE} tile (kernel route)",
         lambda: flag[0].grid_predict(tile, 4), decode + ["csa_stencil_fused"],
-        [k for k in others if k != "csa_stencil_fused"] + ["swin_block"])
+        [k for k in others if k != "csa_stencil_fused"]
+        + ["swin_block", "conv3x3_f32"])
     checks = {f"flagship x4 {TILE}x{TILE}": (got, flag[1].grid_predict(tile,
                                                                        4))}
     del flag
@@ -1442,11 +1477,16 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
     so = lq_s[:SWIN_ODD[0], :SWIN_ODD[1]]
     got, launches, _ = drive(
         "f32 SwinIR x4 {}x{} (kernel route)".format(*SWIN_ODD),
-        lambda: swin[0].forward_test(so), decode + ["swin_block"], others)
+        lambda: swin[0].forward_test(so),
+        decode + ["swin_block", "conv3x3_f32"], others)
     n_blocks = len(swin_blocks(swin[0].generator))
-    if launches["swin_block"] != n_blocks:
+    n_convs = trunk_convs(dict(SWIN_002, dtype=None))
+    if (launches["swin_block"], launches["conv3x3_f32"]) != (n_blocks,
+                                                             n_convs):
         raise AssertionError(f"f32 SwinIR: {launches['swin_block']} Swin "
-                             f"block launches, want {n_blocks}")
+                             f"block launches, want {n_blocks}; "
+                             f"{launches['conv3x3_f32']} f32 conv "
+                             f"launches, want {n_convs}")
     checks["SwinIR x4 {}x{}".format(*SWIN_ODD)] = (
         torch.as_tensor(got), torch.as_tensor(swin[1].forward_test(so)))
     del swin
@@ -1455,24 +1495,31 @@ def f32_model_checks(drive, lq: np.ndarray, lq_s: np.ndarray) -> None:
     got, launches, _ = drive(
         "f32 001 swinir x4 72x72 (kernel route)",
         lambda: s001[0].forward_test(s72),
-        decode + ["swin_block", "csa_attention"],
+        decode + ["swin_block", "csa_attention", "conv3x3_f32"],
         [k for k in others if k != "csa_attention"])
-    if launches["swin_block"] != n_blocks:
+    n_convs = trunk_convs(dict(SWIN_001, dtype=None))
+    if (launches["swin_block"], launches["conv3x3_f32"]) != (n_blocks,
+                                                             n_convs):
         raise AssertionError(f"f32 001 swinir: {launches['swin_block']} "
-                             f"Swin block launches, want {n_blocks}")
+                             f"Swin block launches, want {n_blocks}; "
+                             f"{launches['conv3x3_f32']} f32 conv "
+                             f"launches, want {n_convs}")
     checks["001 swinir x4 72x72"] = (
         torch.as_tensor(got), torch.as_tensor(s001[1].forward_test(s72)))
     got, launches, _ = drive(
         "f32 001 swinir x2.5 72x72 (kernel route)",
         lambda: s001[0].forward_test(s72, scale=2.5),
         ["f3p_build", "wt_hoist", "grid_decode_rational", "swin_block",
-         "csa_attention"],
+         "csa_attention", "conv3x3_f32"],
         [k for k in others if k not in ("csa_attention",
                                         "grid_decode_rational")]
         + ["grid_decode"])
-    if launches["swin_block"] != n_blocks:
+    if (launches["swin_block"], launches["conv3x3_f32"]) != (n_blocks,
+                                                             n_convs):
         raise AssertionError(f"f32 001 swinir x2.5: {launches['swin_block']}"
-                             f" Swin block launches, want {n_blocks}")
+                             f" Swin block launches, want {n_blocks}; "
+                             f"{launches['conv3x3_f32']} f32 conv "
+                             f"launches, want {n_convs}")
     checks["001 swinir x2.5 72x72"] = (
         torch.as_tensor(got),
         torch.as_tensor(s001[1].forward_test(s72, scale=2.5)))
@@ -1816,13 +1863,30 @@ def swin001_route_checks(sw, lq_s: np.ndarray) -> None:
         raise AssertionError(f"001 swinir kernel route disagrees: {bad}")
 
 
+def trunk_convs(gen: dict) -> int:
+    """Launches of the f32 conv kernel (``conv3x3_f32``) a trunk forward of
+    the generator dict ``gen`` on the kernel route: a SwinIR that computes
+    in f32 (no ``dtype``, as every shipped config) takes it for each
+    RSTB's conv and conv_after_body (``models.swinir.trunk_conv``); other
+    generators and dtypes launch none."""
+    from ciaosr_torch.core.device import resolve_dtype
+
+    enc = gen["encoder"]
+    if enc["type"] != "SwinIR" or \
+            resolve_dtype(gen.get("dtype")) != torch.float32:
+        return 0
+    return len(enc["depths"]) + 1
+
+
 def expected_launches(images, scale, tile: int | None, c: int,
-                      n_blocks: int = 0, overlap: int = 32) -> dict:
+                      n_blocks: int = 0, overlap: int = 32,
+                      convs: int = 0) -> dict:
     """Exact launches of requests on LR images of the shapes ``images`` at
     ``scale`` by a CSA generator of C = ``c`` channels (bf16): per LR tile
     (``predict_tiled``'s tiling at ``tile``, ``overlap``; with ``tile``
     None the whole image) ``n_blocks`` Swin block launches (none for a
-    conv encoder); the CSA middle csa_route picks at the tile's geometry
+    conv encoder) and ``convs`` of the f32 conv kernel (``trunk_convs``);
+    the CSA middle csa_route picks at the tile's geometry
     (reflect-padded to even), row 7 once, K4 and rows 5-6 once at the
     flagship's widths or once a block of ``wide_blocks`` at 001 swinir's;
     K1 and K2 once; K3's integer or rational mode once."""
@@ -1844,7 +1908,8 @@ def expected_launches(images, scale, tile: int | None, c: int,
             n_csa = 1 if csa == "csa_attention" or c <= 64 else len(
                 wide_blocks(1, hp, wp))
             for k, n in ((csa, n_csa), ("f3p_build", 1), ("wt_hoist", 1),
-                         (decode, 1), ("swin_block", n_blocks)):
+                         (decode, 1), ("swin_block", n_blocks),
+                         ("conv3x3_f32", convs)):
                 if n:
                     want[k] = want.get(k, 0) + n
     return want
@@ -2817,8 +2882,9 @@ def write_checkpoint(path: Path, gen_cfg: dict, seed: int) -> None:
 def cli_row(kernel: str, c: int, tile_w: int) -> str | None:
     """The kernel row that holds ``kernel``'s launches on a tile of width
     ``tile_w`` by a generator of C = ``c`` channels (None for the Swin
-    block: its rows hold the 002 generator's tiles)."""
-    if kernel == "swin_block":
+    block and the f32 conv: their rows hold the 002 generator's tiles and
+    training batch)."""
+    if kernel in ("swin_block", "conv3x3_f32"):
         return None
     odd = kernel == "grid_decode" and tile_w % 8
     if c <= 64:
@@ -2830,14 +2896,15 @@ def cli_row(kernel: str, c: int, tile_w: int) -> str | None:
 
 
 def cli_expected(images, scale, tile, c: int, n_blocks: int,
-                 rows: dict) -> dict:
+                 rows: dict, convs: int = 0) -> dict:
     """``expected_launches`` of requests on ``images``, summed, each
     image's also added into ``rows`` (kernel row → launches)."""
     from ciaosr_torch.models.restorers import tile_layout
 
     want: dict = {}
     for hw in images:
-        one = expected_launches([hw], scale, tile, c, n_blocks)
+        one = expected_launches([hw], scale, tile, c, n_blocks,
+                                convs=convs)
         tile_w = tile_layout(*hw, scale, tile)[0] if tile else hw[1]
         for k, n in one.items():
             want[k] = want.get(k, 0) + n
@@ -2890,7 +2957,7 @@ def cli_phase(drive, kind: str, smi: str) -> dict:
                 lrs = [imread(f"data/Classical/Set5/LRbicx4/{n}.png").shape[:2]
                        for n, _ in CLI_SET5]
                 want = cli_expected(lrs, test_cfg["scale"], test_cfg["tile"],
-                                    c, n_blocks, rows)
+                                    c, n_blocks, rows, trunk_convs(gen))
                 out_json = root / f"{name}.json"
                 metrics, launches, secs = drive(
                     f"cli {name} tools.test (want {want})",
@@ -3459,6 +3526,7 @@ def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
             iters = TRAIN_CLI_SWINIR
             want = {k: n_blocks * iters for k in ("swin_block",)
                     + BWD_KERNELS}
+            want["conv3x3_f32"] = trunk_convs(gen) * iters
             trainer, peak, _ = train_cli_run(
                 drive, probe, f"swinir {iters} iterations",
                 [path, "--total-iters", str(iters)], want)
@@ -3468,6 +3536,7 @@ def train_cli_phase(drive, kind: str, smi: str) -> tuple[dict, list]:
             del trainer
             torch.cuda.empty_cache()
             rows[fwd_row["name"]] = want["swin_block"]
+            rows[CONV_ROW] = want["conv3x3_f32"]
             rows[bwd_row["name"]] = want["swin_block_bwd"]
             rows[wgrad_row["name"]] = want["swin_block_wgrad"]
             bwd_row["launches_wgrad"] = want["swin_block_wgrad"]
@@ -3706,7 +3775,8 @@ def gan_profile(res, state, bt, top: int = 10) -> None:
 def gan_steps(drive, kind: str, smi: str, cfg) -> dict:
     """GAN_STEPS steps of the shipped 002 gan model's ``make_gan_train_step``
     at the 002 batch with exact launches (rows 11 and 12 and both of row
-    12's reduction kernels 36 times a step, nothing else), finite losses,
+    12's reduction kernels 36 times a step, the f32 conv kernel 7 times,
+    nothing else), finite losses,
     the generator, its EMA copy and the discriminator moved; the warm step,
     samples/s, peak memory and the stage split. Returns the launches."""
     from ciaosr_torch.models.builder import build_model
@@ -3741,17 +3811,18 @@ def gan_steps(drive, kind: str, smi: str, cfg) -> dict:
             metrics.append(m)
         return metrics, secs
 
-    fwd_kernels = ["swin_block", *BWD_KERNELS]
+    fwd_kernels = ["swin_block", *BWD_KERNELS, "conv3x3_f32"]
     (metrics, secs), launches, _ = drive(
         f"gan {GAN_STEPS} GAN steps (batch {TRAIN_B} x {TRAIN_LR}^2, "
         f"{TRAIN_QSIDE ** 2} queries)", run, fwd_kernels,
         [k for k in kernels.LAUNCHES if k not in fwd_kernels])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {k: n_blocks * GAN_STEPS for k in fwd_kernels}
+    want["conv3x3_f32"] = trunk_convs(cfg.model["generator"]) * GAN_STEPS
     got = {k: launches[k] for k in fwd_kernels}
     log(f"gan steps: launches per step "
         f"{ {k: v / GAN_STEPS for k, v in got.items()} } (want "
-        f"{n_blocks} each)")
+        f"{ {k: v / GAN_STEPS for k, v in want.items()} })")
     if got != want:
         raise AssertionError(f"gan steps: launches {got}, want {want}")
     keys = res.loss_keys() + ["loss_d_real", "loss_d_fake"]
@@ -3825,17 +3896,19 @@ def gan_cli(drive, probe, root: Path, rows: dict) -> None:
         copies[name].write_text(shipped.read_text() + GAN_OVERRIDES)
     cfg1 = Config.fromfile(str(copies["wogan"]))
     n_blocks = sum(cfg1.model["generator"]["encoder"]["depths"])
+    n_convs = trunk_convs(cfg1.model["generator"])
     train_keys = ("swin_block",) + BWD_KERNELS
 
     def run(label, argv, iters):
         want = {k: n_blocks * iters for k in train_keys}
+        want["conv3x3_f32"] = n_convs * iters
         trainer, _, secs = train_cli_run(drive, probe, label, argv, want)
         bad = [m for m in probe.metrics if not all(
             bool(torch.isfinite(v)) for v in m.values())]
         if bad:
             raise AssertionError(f"{label}: metrics {bad}")
         probe.metrics.clear()
-        for k in train_keys:
+        for k in train_keys + ("conv3x3_f32",):
             rows[k] = rows.get(k, 0) + want[k]
         return trainer, secs
 
@@ -3932,7 +4005,8 @@ def gan_cli(drive, probe, root: Path, rows: dict) -> None:
     for h, w in test_lrs:
         t, hs, ws = tile_layout(h, w, 4, tc["tile"], tc["tile_overlap"])
         for k, n in (("swin_block", n_blocks), ("f3p_build", 1),
-                     ("wt_hoist", 1), ("grid_decode", 1)):
+                     ("wt_hoist", 1), ("grid_decode", 1),
+                     ("conv3x3_f32", n_convs)):
             want[k] = want.get(k, 0) + n * len(hs) * len(ws)
             row = {"f3p_build": "f3p_build@C180", "wt_hoist": "wt_hoist@C180",
                    "grid_decode": "grid_decode@C180"}.get(k)
@@ -4078,6 +4152,7 @@ def gan_shipped(drive, probe, root: Path, rows: dict, kind: str,
     n_blocks = sum(cfg.model["generator"]["encoder"]["depths"])
     train_keys = ("swin_block",) + BWD_KERNELS
     want = {k: n_blocks * SHIPPED_ITERS for k in train_keys}
+    want["conv3x3_f32"] = trunk_convs(cfg.model["generator"]) * SHIPPED_ITERS
 
     before = {}
     real_resume = GANTrainer._maybe_resume
@@ -4134,7 +4209,7 @@ def gan_shipped(drive, probe, root: Path, rows: dict, kind: str,
                 f"iterations 3-{SHIPPED_ITERS} {share:.3f} (waits "
                 f"{[round(w * 1e3, 1) for w in waits]} ms); peak "
                 f"{peak:.2f} GiB; {secs:.2f} s in all")
-            for k in train_keys:
+            for k in train_keys + ("conv3x3_f32",):
                 rows[k] = rows.get(k, 0) + want[k]
             del trainer, r
             torch.cuda.empty_cache()
@@ -4190,7 +4265,7 @@ def gan_phase(drive, kind: str, smi: str) -> dict:
         cfg = Config.fromfile(config_path("002_real_gan_"))
         t0 = time.perf_counter()
         for k, n in gan_steps(drive, kind, smi, cfg).items():
-            if n and k in ("swin_block",) + BWD_KERNELS:
+            if n and k in ("swin_block", "conv3x3_f32") + BWD_KERNELS:
                 rows[k] = rows.get(k, 0) + n
         torch.cuda.empty_cache()
         log(f"gan steps and split: {time.perf_counter() - t0:.2f} s")
@@ -5188,6 +5263,8 @@ def dist_gan_check(root: Path) -> dict:
                        "--work-dir", str(work), "--launcher", "pytorch"]
                       + DIST_SHARED, env={"CIAOSR_VGG19_SYNTHETIC": "1"})
     want = {k: 2 * n_blocks * DIST_GAN_ITERS for k in TRAIN_KERNELS}
+    want["conv3x3_f32"] = 2 * trunk_convs(cfg.model["generator"]) \
+        * DIST_GAN_ITERS
     dist_launches("002 gan train", res, want)
     same_weights("(b) 002 gan rank 1 against rank 0", res[1]["weights"],
                  res[0]["weights"])
@@ -6133,6 +6210,14 @@ def main() -> int:
         f"launches={wgrad_row['launches']} "
         f"tflops={wgrad_row['tflops']:.1f}")
     rows.append(wgrad_row)
+    conv_row = conv3x3_row()
+    log(f"kernel {conv_row['name']}: max|d|={conv_row['max_abs_err']:.3e} "
+        f"max|d|/max|ref|={conv_row['max_rel_err']:.3e} "
+        f"ms={conv_row['ms']:.4f} plain_ms={conv_row['plain_ms']:.4f} "
+        f"bound_ms={conv_row['bound_ms']:.4f} ({conv_row['bound_by']}) "
+        f"library_ms={conv_row['library_ms']:.4f} "
+        f"tflops={conv_row['tflops']:.1f} reproducible")
+    rows.append(conv_row)
 
     mark("the train path")
 
@@ -6176,7 +6261,8 @@ def main() -> int:
     gan_launches = gan_phase(drive, kind, smi)
     train_row = {"swin_block": fwd_row["name"],
                  "swin_block_bwd": bwd_row["name"],
-                 "swin_block_wgrad": wgrad_row["name"]}
+                 "swin_block_wgrad": wgrad_row["name"],
+                 "conv3x3_f32": CONV_ROW}
     bwd_row["launches_gsum"] += gan_launches.pop("swin_block_gsum")
     gan_rows = {train_row.get(k, k): n for k, n in gan_launches.items()}
     unrowed = set(gan_rows) - {r["name"] for r in rows}

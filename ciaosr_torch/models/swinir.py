@@ -17,7 +17,11 @@ ops/kernels/swin_block.py), and under autograd as ``SwinBlockFunction``,
 whose backward is row 12; otherwise the plain block below, which is the
 JAX package's own XLA route, not a fallback. The residual stream between
 blocks is f32 in both packages; the convs run in the compute dtype
-through cuDNN, as XLA convs in JAX.
+through cuDNN, as XLA convs in JAX, except the square 3×3 convs of the
+trunk (each RSTB's and conv_after_body) in an f32 model with
+``use_kernels``: their forward is the f32 kernel of ops/kernels/conv3x3.py
+(cuDNN's f32 heuristics take an FFT route there), their backward cuDNN's.
+conv_first (3 → C) keeps cuDNN.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ciaosr_torch.config.registry import BACKBONES
 from ciaosr_torch.core import trace
 from ciaosr_torch.models.rdn import conv
 from ciaosr_torch.ops import kernels
+from ciaosr_torch.ops.kernels.conv3x3 import Conv3x3Function
 from ciaosr_torch.ops.kernels.swin_block import (SwinBlockFunction,
                                                  attn_mask, gelu,
                                                  pack_swin_block,
@@ -44,6 +49,16 @@ def _linear(x: torch.Tensor, layer: nn.Linear,
             dtype: torch.dtype) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def trunk_conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype,
+               use_kernels: bool) -> torch.Tensor:
+    """A square 3×3 conv of the trunk on x, the NCHW view of an NHWC map:
+    the f32 kernel's Function in an f32 model with ``use_kernels`` (its
+    plain version, ``F.conv2d``, on the CPU), else ``conv``."""
+    if use_kernels and dtype == torch.float32:
+        return Conv3x3Function.apply(x, layer.weight, layer.bias)
+    return conv(x, layer, dtype)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -189,7 +204,8 @@ class RSTB(nn.Module):
         res = x
         for blk in self.residual_group.blocks:
             x = blk(x, dtype, use_kernels)
-        img = conv(x.permute(0, 3, 1, 2), self.conv, dtype)
+        img = trunk_conv(x.permute(0, 3, 1, 2), self.conv, dtype,
+                         use_kernels)
         return img.permute(0, 2, 3, 1) + res
 
 
@@ -259,11 +275,12 @@ class SwinIR(nn.Module):
         return feat, skip
 
     def head(self, feat: torch.Tensor, skip: torch.Tensor, h0: int, w0: int,
-             dtype: torch.dtype) -> torch.Tensor:
+             dtype: torch.dtype, use_kernels: bool = False) -> torch.Tensor:
         """The last LayerNorm, conv_after_body and the skip, cropped back
         to h0 × w0: (B, h0, w0, C) in ``dtype``."""
         feat = _layer_norm(feat, self.norm).permute(0, 3, 1, 2)
-        out = conv(feat, self.conv_after_body, dtype) + skip
+        out = trunk_conv(feat, self.conv_after_body, dtype,
+                         use_kernels) + skip
         return out[:, :, :h0, :w0].permute(0, 2, 3, 1).contiguous()
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
@@ -272,4 +289,5 @@ class SwinIR(nn.Module):
         feat, skip = self.embed(x, dtype)
         for layer in self.layers:
             feat = layer(feat, dtype, use_kernels)
-        return self.head(feat, skip, x.shape[1], x.shape[2], dtype)
+        return self.head(feat, skip, x.shape[1], x.shape[2], dtype,
+                         use_kernels)

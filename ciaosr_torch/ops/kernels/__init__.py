@@ -18,7 +18,8 @@ LAUNCHES: dict[str, int] = {"f3p_build": 0, "wt_hoist": 0,
                             "csa_attention_overlap_add": 0,
                             "plane_overlap_add": 0,
                             "swin_block": 0, "swin_block_bwd": 0,
-                            "swin_block_wgrad": 0, "swin_block_gsum": 0}
+                            "swin_block_wgrad": 0, "swin_block_gsum": 0,
+                            "conv3x3_f32": 0}
 
 
 def reset_launches() -> None:

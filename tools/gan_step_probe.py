@@ -6,7 +6,10 @@ off, synthetic VGG19) at the 002 batch. The SwinIR encoder hands its
 convs a permuted (B, H, W, C) map, which is channels-last in memory.
 For ``torch.backends.cudnn.benchmark`` False, then True, then False with
 the convs' input made NCHW-contiguous (``models.swinir.conv`` wrapped in
-this process only): the median CUDA-event
+this process only; on the kernel route the trunk's square 3×3 convs take
+the f32 conv kernel and reach ``conv`` no more, so only conv_first does,
+and each setting reports the kernel's launches, ``conv3x3_f32``, beside
+its times): the median CUDA-event
 time of the GAN step and of the generator alone (the L1 forward and
 backward) over the last STEPS - WARM of STEPS seeded batches, and in one
 profiled generator forward and backward the device time of cuDNN's FFT
@@ -95,12 +98,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cs.Config.fromfile(cs.config_path("002_real_gan_"))
-    res = cs.gan_restorer(cfg)
+    # the kernel route, as tools.train builds it on a card (build_model)
+    res = cs.gan_restorer(cfg, dict(cfg.model["generator"],
+                                    use_kernels=True))
     state, step = cs.gan_optimizers(res, cfg)
     rng = np.random.default_rng(7)
     batches = [cs.gan_batch(rng, cs.TRAIN_B, cs.TRAIN_LR, cs.TRAIN_QSIDE)
                for _ in range(STEPS)]
     import ciaosr_torch.models.swinir as swinir
+    from ciaosr_torch.ops import kernels
 
     conv = swinir.conv
     for bench, nchw in ((False, False), (True, False), (False, True)):
@@ -108,15 +114,18 @@ def main() -> int:
         swinir.conv = (lambda x, *a, **k: conv(x.contiguous(), *a, **k)) \
             if nchw else conv
         gan, gen = [], []
+        n0 = kernels.LAUNCHES["conv3x3_f32"]
         for bt in batches:
             gan.append(timed(lambda: step(state, bt)))
         for bt in batches:
             state.g_opt.zero_grad(set_to_none=True)
             gen.append(timed(lambda: res.train_forward(
                 bt["lq"], bt["gt"], bt["coord"], bt["cell"])[0].backward()))
+        launches = (kernels.LAUNCHES["conv3x3_f32"] - n0) / (2 * STEPS)
         fft, total, names = fft_share(res, batches[0])
         print(f"cudnn.benchmark={bench}, conv input "
               f"{'NCHW-contiguous' if nchw else 'channels-last'} ({smi}): "
+              f"f32 conv kernel launches a timed call {launches:g}; "
               f"GAN step "
               f"{statistics.median(gan[WARM:]):.1f} ms (first "
               f"{gan[0]:.1f}), generator alone (L1 forward + backward) "
